@@ -1,0 +1,182 @@
+"""The port's JBU kernels: plain versions vs the JAX package (CPU), and the
+CUDA kernels vs their plain versions (on a card only).
+
+Inputs are made with numpy from a seed and fed to both sides. The JAX side is
+the XLA composition each TPU kernel replaces (tests/test_kernels_epilogue.py),
+run on the CPU. jax is imported inside those tests only, so that on a card
+(where the port runs without jax) the CUDA tests run with
+
+    python -m pytest tests/test_torch_jbu_kernels.py --noconftest -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue, jbu_epilogue_classify,
+                                              jbu_epilogue_classify_plain,
+                                              jbu_epilogue_plain)
+from rs_ov_torch.kernels.range_logits import range_logits, range_logits_plain
+from rs_ov_torch.upsample.jbu import _spatial_kernel
+
+torch.set_num_threads(1)
+
+SHAPES = [(5, 12, 16), (11, 13, 17)]  # (d, H, W): odd sizes and both radii in use
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _epilogue_case(d, h, w, seed, c=8, g=3, q=3):
+    rng = np.random.RandomState(seed)
+    dd = d * d
+    return dict(
+        logits=rng.randn(1, h, w, dd).astype(np.float32),
+        guid=rng.randn(1, h, w, g).astype(np.float32),
+        inp=rng.randn(1, h + d - 1, w + d - 1, c).astype(np.float32),
+        w0=(rng.randn(dd, dd + g) * 0.2).astype(np.float32),
+        b0=(rng.randn(dd) * 0.1).astype(np.float32),
+        w1=(rng.randn(dd, dd) * 0.2).astype(np.float32),
+        b1=(rng.randn(dd) * 0.1).astype(np.float32),
+        fw=(rng.randn(c, c) * 0.2).astype(np.float32),
+        fb=(rng.randn(c) * 0.1).astype(np.float32),
+        qf=rng.randn(q, c).astype(np.float32))
+
+
+@pytest.fixture
+def jx():
+    """(jax, jax.numpy, rs_ov.upsample.jbu), or a skip where jax is absent."""
+    jax = pytest.importorskip("jax")
+    from rs_ov.upsample import jbu
+
+    return jax, jax.numpy, jbu
+
+
+def _jax_epilogue(jx, case, d, dtype):
+    """tests/test_kernels_epilogue.py:43-56, channel-first, -> NHWC fp32."""
+    jax, jnp, jbu = jx
+    logits = jnp.asarray(case["logits"]).transpose(0, 3, 1, 2)
+    guidance = jnp.asarray(case["guid"], dtype).transpose(0, 3, 1, 2)
+    inp = jnp.asarray(case["inp"], dtype).transpose(0, 3, 1, 2)
+    w0, b0, w1, b1 = (jnp.asarray(case[k], dtype) for k in ("w0", "b0", "w1", "b1"))
+    spatial = jbu._spatial_kernel(d, jnp.asarray(0.7, jnp.float32))
+    rk = jax.nn.softmax(logits * jnp.float32(1.3), axis=1)
+    combined = rk * spatial
+    combined = combined / jnp.clip(jnp.sum(combined, axis=1, keepdims=True), 1e-7, None)
+    x32 = jnp.concatenate([combined.astype(dtype), guidance], axis=1).astype(jnp.float32)
+    mid = jax.nn.gelu(jnp.einsum("oc,bchw->bohw", w0.astype(jnp.float32), x32)
+                      + b0.astype(jnp.float32)[None, :, None, None], approximate=False)
+    fix = (jnp.einsum("oc,bchw->bohw", w1.astype(jnp.float32), mid)
+           + b1.astype(jnp.float32)[None, :, None, None])
+    combined = (combined + 0.1 * fix).astype(dtype)
+    b, _, h, w = combined.shape
+    filt = combined.transpose(0, 2, 3, 1).reshape(b, h, w, d, d)
+    return jbu.adaptive_conv(inp, filt).transpose(0, 2, 3, 1)
+
+
+def _torch_args(case, d, dtype):
+    return (_t(case["inp"], dtype), _t(case["logits"]), _t(case["guid"], dtype),
+            _spatial_kernel(d, torch.tensor(0.7)),
+            torch.tensor(1.3), _t(case["w0"], dtype), _t(case["b0"], dtype),
+            _t(case["w1"], dtype), _t(case["b1"], dtype))
+
+
+@pytest.mark.parametrize("d,h,w", SHAPES)
+def test_range_logits_plain_matches_jax(jx, d, h, w):
+    """K1 plain vs the JAX shifted-sum formulation (rs_ov/upsample/jbu.py:177-179)."""
+    jnp = jx[1]
+    rng = np.random.RandomState(4)
+    k = 8
+    padded = rng.randn(2, k, h + d - 1, w + d - 1).astype(np.float32)
+    proj = rng.randn(2, k, h, w).astype(np.float32)
+    pj, qj = jnp.asarray(padded), jnp.asarray(proj)
+    ref = np.asarray(jnp.stack([jnp.sum(pj[:, :, u:u + h, v:v + w] * qj, axis=1)
+                                for u in range(d) for v in range(d)], axis=1))
+    got = range_logits(_t(padded), _t(proj), d).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,h,w", SHAPES)
+def test_jbu_epilogue_plain_matches_jax(jx, d, h, w, dtype):
+    """K2 plain vs the XLA op chain it replaces: max|d|/max|ref| <= 1e-5 (the
+    same casts on both sides; only fp32 summation order and the erf differ).
+
+    In bf16 those last-bit differences can flip the bf16 rounding of a comb'
+    tap or of an output (1 of 1768 outputs at d=11): at most 2 outputs per
+    case may differ by up to 1e-3 of max|ref|, which bounds one flip
+    (ulp(comb') * max|inp| or one output ulp). A cast put in the wrong place
+    moves far more outputs than that."""
+    case = _epilogue_case(d, h, w, seed=11)
+    ref = np.asarray(_jax_epilogue(jx, case, d, jx[1].dtype(dtype)), np.float32)
+    got = jbu_epilogue(*_torch_args(case, d, getattr(torch, dtype)), d).float().numpy()
+    rel = np.abs(got - ref) / np.max(np.abs(ref))
+    if dtype == "float32":
+        assert rel.max() <= 1e-5
+    else:
+        assert np.sum(rel > 1e-5) <= 2 and rel.max() <= 1e-3
+
+
+@pytest.mark.parametrize("d,h,w", SHAPES)
+def test_jbu_epilogue_classify_plain_matches_jax(jx, d, h, w):
+    """K3 plain vs tests/test_kernels_epilogue.py:72-87 (features -> final
+    fixup -> L2 norm -> bf16 cosine), bf16, within 2e-2."""
+    _, jnp, jbu = jx
+    case = _epilogue_case(d, h, w, seed=13)
+    bf = jnp.bfloat16
+    feats = jbu._final_fixup_nhwc(_jax_epilogue(jx, case, d, bf),
+                              {"w": jnp.asarray(case["fw"], bf), "b": jnp.asarray(case["fb"], bf)})
+    f32 = feats.astype(jnp.float32)
+    f32 = f32 / jnp.maximum(jnp.linalg.norm(f32, axis=-1, keepdims=True), 1e-12)
+    qf = jnp.asarray(case["qf"])
+    qf = qf / jnp.linalg.norm(qf, axis=-1, keepdims=True)
+    want = np.asarray(jnp.einsum("bhwc,qc->bhwq", f32.astype(bf), qf.astype(bf),
+                                 preferred_element_type=jnp.float32))
+    got = jbu_epilogue_classify(*_torch_args(case, d, torch.bfloat16),
+                                _t(case["fw"], torch.bfloat16), _t(case["fb"], torch.bfloat16),
+                                torch.from_numpy(np.array(qf)), d).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels vs their plain versions (skipped without a card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w", SHAPES + [(11, 56, 56)])
+def test_range_logits_kernel_matches_plain(cuda, d, h, w):
+    rng = np.random.RandomState(5)
+    padded = _t(rng.randn(2, 32, h + d - 1, w + d - 1)).to(cuda)
+    proj = _t(rng.randn(2, 32, h, w)).to(cuda)
+    got = range_logits(padded, proj, d)
+    ref = range_logits_plain(padded, proj, d)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w", SHAPES + [(11, 28, 28)])
+def test_jbu_epilogue_kernels_match_plain(cuda, d, h, w):
+    """K2 within 1e-2 of max|ref| (a bf16 rounding flip of comb' or of the
+    output is allowed); K3 within 1e-3 of max|ref|: a few bf16 rounding
+    flips fit, while leaving out the fixup product (1.5e-1), its bias
+    (1.8e-2) or the bf16 rounding of the normalised vector (1.7e-3) at
+    these inputs does not."""
+    case = _epilogue_case(d, h, w, seed=17, c=64, q=5)
+    args = [a.to(cuda) for a in _torch_args(case, d, torch.bfloat16)]
+    got = jbu_epilogue(*args, d).float()
+    ref = jbu_epilogue_plain(*args, d).float()
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+    tail = (_t(case["fw"], torch.bfloat16).to(cuda),
+            _t(case["fb"], torch.bfloat16).to(cuda),
+            torch.nn.functional.normalize(_t(case["qf"]), dim=-1).to(cuda))
+    got = jbu_epilogue_classify(*args, *tail, d)
+    ref = jbu_epilogue_classify_plain(*args, *tail, d)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-3

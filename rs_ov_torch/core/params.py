@@ -1,7 +1,7 @@
 """CLIP tower and JBU parameters as ``nn.Module``s, random init, weight bridge.
 
 The modules hold exactly the leaves of the JAX package's parameter pytrees
-(rs_ov/core/params.py, rs_ov/upsample/jbu.py:483-516), under the same names
+(rs_ov/core/params.py, rs_ov/upsample/jbu.py:483-530), under the same names
 and shapes: a pytree path such as ``visual/blocks/3/attn/in_proj_w`` is the
 state-dict key ``visual.blocks.3.attn.in_proj_w``. So the bridge from a JAX
 pytree is a flatten plus a strict ``load_state_dict``, and the forward code
@@ -19,10 +19,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from rs_ov.core.config import CLIPConfig, TextConfig, VisionConfig
+from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
 
 __all__ = ["LayerNorm", "ResBlock", "VisionTower", "TextTower", "CLIP",
-           "Proj2", "JBUModule", "JBUOne", "init_clip_params",
+           "Proj2", "JBUModule", "JBUOne", "JBUStack", "init_clip_params",
+           "init_jbu_one_params", "init_jbu_stack_params",
            "clip_params_from_numpy", "jbu_params_from_numpy",
            "load_numpy_tree"]
 
@@ -149,6 +150,17 @@ class JBUOne(nn.Module):
         self.final_fixup = FinalFixup(feat_dim)
 
 
+class JBUStack(nn.Module):
+    """SimFeatUp ``jbu_stack``: four distinct 2x modules, then the final
+    fixup (rs_ov/upsample/jbu.py:519-530)."""
+
+    def __init__(self, feat_dim: int, guidance_dim: int = 3, key_dim: int = 32,
+                 radius: int = 3):
+        super().__init__()
+        self.ups = nn.ModuleList(JBUModule(guidance_dim, key_dim, radius) for _ in range(4))
+        self.final_fixup = FinalFixup(feat_dim)
+
+
 # ---------------------------------------------------------------------------
 # random init (shapes and scales of rs_ov/core/params.py:53-134 and
 # rs_ov/upsample/jbu.py:483-516)
@@ -210,6 +222,18 @@ def _init_proj2(p: Proj2, gen: torch.Generator) -> None:
     p.b1.zero_()
 
 
+def _init_jbu_module(m: JBUModule, gen: torch.Generator) -> None:
+    m.range_temp.zero_()
+    m.sigma_spatial.fill_(1.0)
+    _init_proj2(m.range_proj, gen)
+    _init_proj2(m.fixup_proj, gen)
+
+
+def _init_final_fixup(m: FinalFixup, gen: torch.Generator) -> None:
+    _normal(m.w, m.w.shape[0] ** -0.5, gen)
+    m.b.zero_()
+
+
 @torch.no_grad()
 def init_jbu_one_params(gen: torch.Generator, feat_dim: int,
                         guidance_dim: int = 3, key_dim: int = 32,
@@ -217,12 +241,20 @@ def init_jbu_one_params(gen: torch.Generator, feat_dim: int,
     """Random fp32 ``jbu_one`` weights on the CPU (range_temp 0, sigma 1,
     zero biases, as rs_ov/upsample/jbu.py:495-516)."""
     m = JBUOne(feat_dim, guidance_dim, key_dim, radius)
-    m.up.range_temp.zero_()
-    m.up.sigma_spatial.fill_(1.0)
-    _init_proj2(m.up.range_proj, gen)
-    _init_proj2(m.up.fixup_proj, gen)
-    _normal(m.final_fixup.w, feat_dim ** -0.5, gen)
-    m.final_fixup.b.zero_()
+    _init_jbu_module(m.up, gen)
+    _init_final_fixup(m.final_fixup, gen)
+    return m
+
+
+@torch.no_grad()
+def init_jbu_stack_params(gen: torch.Generator, feat_dim: int,
+                          guidance_dim: int = 3, key_dim: int = 32,
+                          radius: int = 3) -> JBUStack:
+    """Random fp32 ``jbu_stack`` weights on the CPU (rs_ov/upsample/jbu.py:519-530)."""
+    m = JBUStack(feat_dim, guidance_dim, key_dim, radius)
+    for up in m.ups:
+        _init_jbu_module(up, gen)
+    _init_final_fixup(m.final_fixup, gen)
     return m
 
 
@@ -268,7 +300,8 @@ def clip_params_from_numpy(tree, cfg: CLIPConfig) -> CLIP:
 
 
 def jbu_params_from_numpy(tree, feat_dim: int, guidance_dim: int = 3,
-                          key_dim: int = 32, radius: int = 5) -> JBUOne:
-    """The JAX ``init_jbu_one_params`` pytree (numpy leaves) as a CPU fp32
-    JBUOne."""
-    return load_numpy_tree(JBUOne(feat_dim, guidance_dim, key_dim, radius), tree)
+                          key_dim: int = 32) -> nn.Module:
+    """The JAX ``init_jbu_one_params`` (``up``) or ``init_jbu_stack_params``
+    (``ups``) pytree (numpy leaves) as a CPU fp32 JBUOne / JBUStack."""
+    cls = JBUStack if "ups" in tree else JBUOne
+    return load_numpy_tree(cls(feat_dim, guidance_dim, key_dim), tree)

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``rs_ov_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-build runs at first use, into ``rs_ov_torch/_build/`` (ignored by git), and
-is keyed on a hash of the sources and flags, so an edited source rebuilds.
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+Every ``rs_ov_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for
+``sm_90a``, all of them at once, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``rs_ov_torch/_build/`` (ignored by git), and is keyed on a
+hash of the sources and flags, so an edited source rebuilds. There is no
+fallback: a missing ``nvcc`` or a failed build raises. Each source's
+``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
+library as ``<library>.<source>.log``.
 
 Each C entry point takes device pointers, ints and the CUDA stream, launches
 on that stream and returns ``cudaGetLastError()``; ``check`` raises on a
@@ -28,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, ints, stream; every entry point returns cudaError_t
@@ -39,6 +42,8 @@ _SIGNATURES = {
     "rs_jbu_epilogue_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -47,6 +52,32 @@ def _nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
     return path
+
+
+def _build(sources: list[str], lib_path: str) -> None:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src, log) for src, log, proc in zip(sources, logs, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{s}:\n{log}" for s, log in failed))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        for src, log in zip(sources, logs):
+            with open(f"{lib_path}.{os.path.basename(src)}.log", "w") as f:
+                f.write(log)
+        os.replace(tmp, lib_path)  # atomic: a concurrent process never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 @functools.lru_cache(maxsize=1)
@@ -59,18 +90,7 @@ def load_library() -> ctypes.CDLL:
             digest.update(os.path.basename(path).encode() + f.read())
     lib_path = os.path.join(BUILD_DIR, f"librs_ov_kernels_{digest.hexdigest()[:16]}.so")
     if not os.path.exists(lib_path):
-        nvcc = _nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-        with open(lib_path + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)  # atomic: a concurrent process never sees half a file
+        _build(sources, lib_path)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

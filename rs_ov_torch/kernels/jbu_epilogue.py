@@ -17,8 +17,9 @@ Each dispatches on the device: a CPU tensor takes the plain version, a CUDA
 tensor the hand-written kernel in ``rs_ov_torch/csrc/jbu_epilogue.cu``, which
 replaces the TPU kernels ``jbu_epilogue_pallas(nhwc=True)``
 (rs_ov/kernels/jbu_epilogue.py:212) and ``jbu_epilogue_classify_pallas``
-(:333). The kernels take bf16 features and guidance; fp32 on the card is the
-split path, still to be ported.
+(:333). The kernels take bf16 features and guidance; fp32 runs take the
+channel-first route (plain epilogue + adaptive-conv kernel K4b), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -85,8 +86,9 @@ def _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter):
     d = diameter
     if inp.dtype != torch.bfloat16 or guid_t.dtype != torch.bfloat16:
         raise NotImplementedError(
-            "the CUDA JBU epilogue takes bf16 features and guidance; the fp32 "
-            "split path on the card is ROADMAP queue 2 item K4b")
+            "the CUDA JBU epilogue takes bf16 features and guidance; fp32 takes "
+            "the channel-first route (plain epilogue + adaptive conv K4b), as "
+            "rs_ov/upsample/jbu.py does")
     want = {"inp": (inp, (b, h + d - 1, w + d - 1, c), torch.bfloat16),
             "logits_t": (logits_t, (b, h, w, d * d), torch.float32),
             "guid_t": (guid_t, (b, h, w, guid_t.shape[-1]), torch.bfloat16),

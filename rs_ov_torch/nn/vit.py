@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from rs_ov.core.config import VisionConfig
+from rs_ov_torch.core.config import VisionConfig
 from rs_ov_torch.decontam.outlier import outlier_suppress
 from rs_ov_torch.decontam.similarity import compute_similarity_map
 from rs_ov_torch.nn.attention import custom_attn, standard_attention

@@ -2,15 +2,26 @@
 
 Per image: normalise (uint8 input: on the device) -> overlapping crops ->
 the decontaminating ViT over all crops at once -> global CLS debias ->
-SimFeatUp ``jbu_one`` with the cosine classifier fused into its last stage,
-in chunks of ``tile_chunk`` crops -> bilinear resize of the logits to the
-padded crop -> overlap-average stitch -> resize to the original shape ->
-softmax, synonym merge, argmax, threshold.
+SimFeatUp (``jbu_one``, ``jbu_stack`` or ``bilinear``) and the cosine
+classifier, in chunks of ``tile_chunk`` crops -> optional CLS-logit blend
+(``cls_token_lambda``) -> bilinear resize of the logits to the padded crop
+-> overlap-average stitch -> resize to the original shape -> softmax,
+synonym merge, argmax, threshold.
+
+The JBU route follows rs_ov/pipeline/segmentor.py:326-395, with "on the
+card" in place of the JAX package's "not on the CPU":
+
+* bf16 tokens on the card, ``RS_OV_JBU_FUSED`` not "0": channel-last, the
+  classifier fused into the last stage's kernel (K1 + K2 + K3) when Q <= 128,
+  else channel-last features (K1 + K2) and the classifier below;
+* otherwise (fp32, the kill switch, or the CPU): channel-first (K1, the
+  epilogue in plain torch, K4b for fp32 / K4a for bf16), then the classifier
+  in plain torch: fp32 L2 norm, bf16-rounded operands under bf16.
 
 Precision follows the JAX package with the card in the TPU's role: bf16
-weights and activations on CUDA (with fp32 LayerNorm, softmax and product
-results), fp32 on the CPU. On CUDA the JBU runs the port's CUDA kernels; on
-the CPU their plain versions.
+weights and activations on CUDA by default (fp32 LayerNorm, softmax and
+product results), fp32 on the CPU; ``param_dtype`` chooses. The segmentor
+runs on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -21,17 +32,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rs_ov.core.config import get_model_config
-from rs_ov.data.transforms import PREPROC_MEAN, PREPROC_STD
-from rs_ov_torch.core.params import (clip_params_from_numpy, init_clip_params,
-                                     init_jbu_one_params, jbu_params_from_numpy)
+from rs_ov_torch.core.config import get_model_config
+from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
+from rs_ov_torch.core.params import clip_params_from_numpy, init_clip_params, load_numpy_tree
 from rs_ov_torch.decontam.global_debias import global_debias
 from rs_ov_torch.nn.vit import VitCallConfig, vit_forward
 from rs_ov_torch.pipeline.postprocess import postprocess_logits, query_onehot
 from rs_ov_torch.pipeline.tiler import compute_padsize, extract_tiles, stitch, tile_grid
 from rs_ov_torch.text.classifier import build_text_classifier, get_cls_idx
 from rs_ov_torch.text.templates import OPENAI_IMAGENET_TEMPLATES
-from rs_ov_torch.upsample.jbu import jbu_one_forward_nhwc_classify
+from rs_ov_torch.upsample.jbu import (get_upsampler, get_upsampler_nhwc,
+                                      get_upsampler_nhwc_classify)
 from rs_ov_torch.utils.resize import resize_bilinear
 
 __all__ = ["SegmentorEx"]
@@ -91,16 +102,19 @@ class SegmentorEx:
                 (apply_som, "SOM", "queue 1 item 7"),
                 (model_type != "Experimental", f"attention mode '{model_type}'",
                  "queue 1 item 7"),
-                (not apply_sim_feat_up, "the route without SimFeatUp", "queue 1 item 7"),
-                (cls_token_lambda != 0.0, "cls_token_lambda", "queue 1 item 7"),
                 (bool((outlier_suppression_cfg or {}).get("suppression_layers")),
                  "outlier suppression_layers", "queue 1 item 7"),
                 (checkpoint_path is not None, "checkpoint loading", "queue 1 item 1")):
             if flag:
                 raise _not_ported(what, item)
 
-        self.device = torch.device(device if device is not None
-                                   else ("cuda" if torch.cuda.is_available() else "cpu"))
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("SegmentorEx runs on a CUDA card and found none "
+                                   "(torch.cuda.is_available() is false); pass "
+                                   "device='cpu' to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
         if param_dtype is None:
             param_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.param_dtype = param_dtype
@@ -147,52 +161,102 @@ class SegmentorEx:
         self.slide_stride = slide_stride
         self.slide_crop = slide_crop
         self.global_debias_factor = float(global_debias_factor)
+        self.cls_token_lambda = float(cls_token_lambda)
         self.bg_idx = int(bg_idx)
         self.tile_chunk = tile_chunk or 2
 
+        self.apply_sim_feat_up = apply_sim_feat_up
         up_cfg = sim_feat_up_cfg or {}
-        if up_cfg.get("model_name", "jbu_one") != "jbu_one":
-            raise _not_ported(f"upsampler '{up_cfg['model_name']}'", "queue 1 item 8")
+        self.upsampler_name = up_cfg.get("model_name", "jbu_one")
         # 2 stages by default: classify at 4x the token grid and let the
         # bilinear logit resize cover the rest (rs_ov/pipeline/segmentor.py:264-280)
         self.jbu_stages = int(up_cfg.get("num_stages", 2))
         if not 1 <= self.jbu_stages <= 4:
             raise ValueError(f"jbu stages must be in [1, 4], got {self.jbu_stages}")
-        model_path = up_cfg.get("model_path")
-        feat_dim = self.cfg.embed_dim
-        if upsampler_params is not None:
-            up = jbu_params_from_numpy(upsampler_params, feat_dim)
-        elif model_path and os.path.exists(model_path):
-            raise _not_ported("loading an upsampler checkpoint", "queue 1 item 1")
-        else:  # no weights in the repo: random init, as the JAX package does
-            up = init_jbu_one_params(torch.Generator().manual_seed(seed + 1), feat_dim)
-        self.upsampler = up.to(device=self.device, dtype=param_dtype)
+        self.upsampler = None
+        if apply_sim_feat_up:
+            fwd, init = get_upsampler(self.upsampler_name, stages=self.jbu_stages)
+            self._upsample_fn = fwd
+            self._upsample_fn_nhwc = get_upsampler_nhwc(self.upsampler_name, self.jbu_stages)
+            self._upsample_classify_nhwc = get_upsampler_nhwc_classify(
+                self.upsampler_name, self.jbu_stages)
+            model_path = up_cfg.get("model_path")
+            # random init unless weights are given (the repo holds none), as
+            # the JAX package does; given weights overwrite every parameter
+            up = init(torch.Generator().manual_seed(seed + 1), self.cfg.embed_dim)
+            if upsampler_params is not None:
+                load_numpy_tree(up, upsampler_params)
+            elif model_path and os.path.exists(model_path):
+                raise _not_ported("loading an upsampler checkpoint", "queue 1 item 1")
+            self.upsampler = up.to(device=self.device, dtype=param_dtype)
 
     # ------------------------------------------------------------------
 
-    def _decontam_and_classify(self, tokens, cls_norm, tiles, grid_hw, pads, tile_hw):
+    def _jbu_route(self, tokens: torch.Tensor) -> str:
+        """'nhwc_classify', 'nhwc' or 'channel_first'
+        (rs_ov/pipeline/segmentor.py:329-363)."""
+        nhwc_ok = (self._upsample_fn_nhwc is not None
+                   and tokens.dtype == torch.bfloat16 and tokens.device.type == "cuda"
+                   and os.environ.get("RS_OV_JBU_FUSED", "1") != "0")
+        if (nhwc_ok and self._upsample_classify_nhwc is not None
+                and self.query_features.shape[0] <= 128):
+            return "nhwc_classify"
+        return "nhwc" if nhwc_ok else "channel_first"
+
+    def _classify(self, feats: torch.Tensor) -> torch.Tensor:
+        """Cosine logits of [T, N, C] features -> [T, N, Q] fp32: fp32 L2
+        norm, then bf16-rounded operands (exact products, fp32 sums) when the
+        weights are bf16, fp32 operands otherwise."""
+        f32 = feats.float()
+        f32 = f32 / f32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        qf = self.query_features
+        if self.param_dtype == torch.bfloat16:
+            f32, qf = f32.to(torch.bfloat16).float(), qf.to(torch.bfloat16).float()
+        return torch.matmul(f32, qf.t())
+
+    def _decontam_and_classify(self, tokens, cls_norm, cls_logits, tiles, grid_hw,
+                               pads, tile_hw):
         """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]."""
         gh, gw = grid_hw
-        t = tokens.shape[0]
+        t, _, c = tokens.shape
         tokens = global_debias(tokens, cls_norm, self.global_debias_factor)
-        src = tokens.reshape(t, gh, gw, tokens.shape[-1])
-        lg = jbu_one_forward_nhwc_classify(self.upsampler, src, tiles,
-                                           self.query_features, radius=5,
-                                           stages=self.jbu_stages)
-        logits = lg.permute(0, 3, 1, 2)  # [T, Q, ph, pw]
+        out_hw = (gh, gw)
+        if not self.apply_sim_feat_up:
+            logits = self._classify(tokens)
+        else:
+            route = self._jbu_route(tokens)
+            if route == "nhwc_classify":
+                lg = self._upsample_classify_nhwc(self.upsampler, tokens.reshape(t, gh, gw, c),
+                                                  tiles, self.query_features)
+                out_hw = lg.shape[1:3]
+                logits = lg.reshape(t, -1, lg.shape[-1])
+            elif route == "nhwc":
+                up = self._upsample_fn_nhwc(self.upsampler, tokens.reshape(t, gh, gw, c), tiles)
+                out_hw = up.shape[1:3]
+                logits = self._classify(up.reshape(t, -1, c))
+            else:
+                feats = tokens.transpose(1, 2).reshape(t, c, gh, gw)
+                up = self._upsample_fn(self.upsampler, feats, tiles)
+                out_hw = up.shape[-2:]
+                logits = self._classify(up.reshape(t, c, -1).transpose(1, 2))
+        if self.cls_token_lambda != 0.0:
+            logits = logits + cls_logits[:, None, :] * self.cls_token_lambda
+        logits = logits.transpose(1, 2).reshape(t, -1, *out_hw)  # [T, Q, ph, pw]
         pad_h = tile_hw[0] + pads[2] + pads[3]
         pad_w = tile_hw[1] + pads[0] + pads[1]
         logits = resize_bilinear(logits, (pad_h, pad_w))
         left, _, top, _ = pads
         return logits[:, :, top:top + tile_hw[0], left:left + tile_hw[1]]
 
-    def _chunked_decontam(self, tokens, cls_norm, tiles, grid_hw, pads, tile_hw):
+    def _chunked_decontam(self, tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
+                          tile_hw):
         """Debias + JBU + classify in chunks of tile_chunk crops: the upsampler's
         temporaries scale with the chunk, the ViT still runs on all crops."""
         c = self.tile_chunk
         return torch.cat([
             self._decontam_and_classify(tokens[i:i + c], cls_norm[i:i + c],
-                                        tiles[i:i + c], grid_hw, pads, tile_hw)
+                                        cls_logits[i:i + c], tiles[i:i + c], grid_hw,
+                                        pads, tile_hw)
             for i in range(0, tokens.shape[0], c)])
 
     def _forward_image(self, img: torch.Tensor, ori_shape: tuple[int, int]):
@@ -212,8 +276,10 @@ class SegmentorEx:
         pooled, tokens = vit_forward(self.clip.visual, tiles, self.cfg.vision, self.call)
         p32 = pooled.float()
         cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        cls_logits = cls_norm @ self.query_features.t()  # [T, Q]
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
-        tile_logits = self._chunked_decontam(tokens, cls_norm, tiles, grid_hw, pads, (ch, cw))
+        tile_logits = self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw,
+                                             pads, (ch, cw))
         preds = resize_bilinear(stitch(tile_logits, coords, h_img, w_img), ori_shape)
         return postprocess_logits(preds, self._onehot, logit_scale=self.logit_scale,
                                   prob_thd=self.prob_thd, bg_idx=self.bg_idx)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from rs_ov.core.config import TextConfig
+from rs_ov_torch.core.config import TextConfig
 from rs_ov_torch.text.encoder import text_forward
 from rs_ov_torch.text.templates import OPENAI_IMAGENET_TEMPLATES
 from rs_ov_torch.text.tokenizer import tokenize

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from rs_ov.core.config import TextConfig
+from rs_ov_torch.core.config import TextConfig
 from rs_ov_torch.nn.attention import standard_attention
 from rs_ov_torch.nn.layers import gelu, layer_norm, mlp, quick_gelu
 

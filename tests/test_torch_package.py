@@ -1,6 +1,8 @@
 """Package rules of the port: no jax, a strict weight bridge, CPU tensors on
 the plain route, CUDA wrappers that refuse what their kernels do not take."""
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -33,14 +35,72 @@ CFG = CLIPConfig(
 
 
 def test_port_imports_without_jax():
+    """Every module of the port imports, and none of them pulls in jax or
+    any module of the JAX package rs_ov, jax-free ones included."""
     code = ("import importlib, pkgutil, sys, rs_ov_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages(rs_ov_torch.__path__, 'rs_ov_torch.')]\n"
             "[importlib.import_module(m) for m in mods]\n"
-            "assert len(mods) >= 20, mods\n"
-            "print('jax' in sys.modules)\n")
+            "assert len(mods) >= 25, mods\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'rs_ov' or m.startswith('rs_ov.')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=120)
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_neither_jax_nor_rs_ov():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "rs_ov_torch.pipeline.segmentor" in names
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "rs_ov")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-B-32", "ViT-H-14",
+                                  "ViT-M-16-alt", "ViT-bigG-14"])
+def test_config_copy_matches_the_jax_package(name):
+    from rs_ov.core.config import get_model_config as jax_cfg
+    from rs_ov_torch.core.config import get_model_config, list_models
+
+    assert dataclasses.asdict(get_model_config(name)) == dataclasses.asdict(jax_cfg(name))
+    for n in list_models():  # every entry the port lists has the JAX numbers
+        assert dataclasses.asdict(get_model_config(n)) == dataclasses.asdict(jax_cfg(n))
+    ours = get_model_config(name)
+    assert (ours.vision.heads, ours.vision.grid_size) == (jax_cfg(name).vision.heads,
+                                                          jax_cfg(name).vision.grid_size)
+
+
+def test_bridge_takes_the_ports_own_config():
+    from rs_ov_torch.core.config import CLIPConfig as TCLIP, TextConfig as TText
+    from rs_ov_torch.core.config import VisionConfig as TVision
+
+    ours = TCLIP(embed_dim=32, vision=TVision(**dataclasses.asdict(CFG.vision)),
+                 text=TText(**dataclasses.asdict(CFG.text)))
+    tree = _tree()
+    clip = clip_params_from_numpy(tree, ours)
+    np.testing.assert_array_equal(clip.text.token_embedding.numpy(),
+                                  tree["text"]["token_embedding"])
+
+
+@pytest.mark.parametrize("path", ["configs/base_config.py", "configs/cfg_potsdam.py",
+                                  "configs/cfg_loveda.py"])
+def test_config_loader_matches_the_jax_package(path, monkeypatch):
+    from rs_ov.evalsuite.config import load_config as jax_load
+    from rs_ov_torch.evalsuite.config import load_config
+
+    monkeypatch.chdir(REPO)
+    monkeypatch.delenv("RS_OV_DATA_ROOT", raising=False)
+    assert load_config(path) == jax_load(path)
+
+
+def test_transform_constants_match_the_jax_package():
+    from rs_ov.data.transforms import PREPROC_MEAN as M, PREPROC_STD as S
+    from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
+
+    np.testing.assert_array_equal(PREPROC_MEAN, M)
+    np.testing.assert_array_equal(PREPROC_STD, S)
 
 
 def _tree():
@@ -106,7 +166,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         _range_logits_cuda(torch.randn(1, 4, 11, 10), torch.randn(1, 4, 6, 6), 5)
     with pytest.raises(ValueError, match="K <= 32"):
         _range_logits_cuda(torch.randn(1, 40, 10, 10), torch.randn(1, 40, 6, 6), 5)
-    with pytest.raises(NotImplementedError, match="K4b"):
+    with pytest.raises(NotImplementedError, match="fp32 takes the channel-first route"):
         _jbu_epilogue_cuda(*_epilogue_args(dtype=torch.float32), 5)
     a = _epilogue_args()
     a[2] = a[2][:, :, :-1]  # guidance one pixel short

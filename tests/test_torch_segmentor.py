@@ -1,7 +1,12 @@
 """The port's SegmentorEx (the production recipe on a tiny arch) vs the JAX
 package's, on the CPU in fp32, with the same weights: per-pixel class
 probabilities within 2e-3 and argmax agreement >= 0.999
-(tools/parity_check.py:72-85, :528-531)."""
+(tools/parity_check.py:72-85, :528-531).
+
+On the CPU both packages take the channel-first JBU route
+(tests/test_torch_segmentor_routes.py); here the port is forced onto the
+channel-last route the card takes for bf16, with the classifier fused into
+the last stage, through its private route selector."""
 
 import os
 
@@ -52,16 +57,19 @@ def _kwargs(weights, stages):
 
 
 @pytest.mark.parametrize("stages", [2, 4])
-def test_predict_raw_matches_jax(weights, stages):
+def test_predict_raw_matches_jax(weights, stages, monkeypatch):
     img = np.random.RandomState(0).randint(0, 256, (1, 96, 128, 3), np.uint8)
     want = JaxSegmentorEx(**_kwargs(weights, stages)).predict_raw(img)[0]
     seg = SegmentorEx(**_kwargs(weights, stages), device="cpu")
+    routes = []
+    monkeypatch.setattr(seg, "_jbu_route", lambda tokens: routes.append(1) or "nhwc_classify")
     got = seg.predict_raw(img)[0]
     assert seg.param_dtype == torch.float32
     probs, pred = got["seg_logits"].numpy(), got["pred_sem_seg"].numpy()
     assert probs.shape == (6, 96, 128) and pred.shape == (1, 96, 128)
     np.testing.assert_allclose(probs, np.asarray(want["seg_logits"]), atol=2e-3, rtol=0)
     assert np.mean(pred == np.asarray(want["pred_sem_seg"])) >= 0.999
+    assert routes  # the forced route was taken
 
     # predict() on the normalised CHW image is the same computation
     norm = ((img[0].astype(np.float32) - PREPROC_MEAN) / PREPROC_STD).transpose(2, 0, 1)
@@ -72,12 +80,20 @@ def test_predict_raw_matches_jax(weights, stages):
 @pytest.mark.parametrize("option", [
     dict(apply_ctd=True), dict(apply_som=True), dict(apply_layer_fusion=True),
     dict(apply_self_attn_enhancement=True), dict(apply_cross_tile_fusion=True),
-    dict(model_type="SCLIP"), dict(clip_type="BLIP"), dict(apply_sim_feat_up=False),
-    dict(cls_token_lambda=0.3), dict(checkpoint_path="ViT-B-16.pt"),
-    dict(sim_feat_up_cfg=dict(model_name="jbu_stack")),
+    dict(model_type="SCLIP"), dict(clip_type="BLIP"), dict(checkpoint_path="ViT-B-16.pt"),
+    dict(sim_feat_up_cfg=dict(model_name="carafe")),
 ])
 def test_options_outside_the_slice_raise(weights, option):
     kw = _kwargs(weights, 2)
     kw.update(option)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         SegmentorEx(**kw, device="cpu")
+
+
+def test_without_a_card_the_device_must_be_named(weights, monkeypatch):
+    """SegmentorEx runs on the card unless device="cpu" is passed; with no
+    card it raises, and never falls back to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SegmentorEx(**_kwargs(weights, 2))
+    assert SegmentorEx(**_kwargs(weights, 2), device="cpu").device.type == "cpu"

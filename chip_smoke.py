@@ -9,26 +9,39 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 power limit.
   2. build    - compiles rs_ov_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                 per source, all at once.
-  3. kernels  - each CUDA kernel (K1-K3, K4a, K4b) against its plain PyTorch
-                version on the card, at the shapes every driven path gives
-                it (jbu_one's d=11, jbu_stack's d=7 on 28^2 to 224^2);
+  3. kernels  - each CUDA kernel (K1-K3, K4a, K4b, K6) against its plain
+                PyTorch version on the card, at the shapes every driven path
+                gives it (jbu_one's d=11, jbu_stack's d=7 on 28^2 to 224^2;
+                K6 in each of its six modes, with and without a sim map, in
+                bf16 and fp32, at 16 crops x 12 heads x 197 tokens x 64);
                 prints the error beside that of the plain version with its
-                last tap dropped (which must exceed the bound), the median
-                times (CUDA events, in turns) and the bound from the shapes.
+                last tap (K6: its last key) dropped, which must exceed the
+                bound, the median times (CUDA events, in turns), the bound
+                from the shapes and, for K6's vanilla and ClearCLIP modes,
+                the time of one scaled_dot_product_attention call.
   4. slice    - SegmentorEx from configs/base_config.py (CLIP ViT-B/16,
                 random weights) on the Potsdam vocabulary: predict_raw on
                 three 512x512 images on each route: bf16 channel-last (K1,
                 K2, K3), fp32 channel-first (K1, K4b), bf16 channel-first
                 with RS_OV_JBU_FUSED=0 (K1, K4a), and jbu_stack at 4 stages
-                (K1, K2, K3 at d=7, two images). Checks outputs and that
-                every launch counter moved by exactly the expected amount;
-                prints tiles/s per route over the requests after the first.
+                (K1, K2, K3 at d=7, two images); then with
+                RS_OV_FUSED_ATTN=1 (K6 once per request, K1 K2 K3 as on the
+                bf16 channel-last route): (a) the base config, (b) the full
+                stack (SegEarth, CTD, self-attention enhancement, SOM and
+                cross-tile fusion on top of it), (c) ClearCLIP with layer
+                fusion and outlier suppression. Checks outputs and that every
+                launch counter moved by exactly the expected amount; prints
+                tiles/s per route over the requests after the first.
   5. e2e      - one 336x336 image through every route on the card and
                 through the fp32 CPU route, with the same weights and
                 queries: argmax agreement >= 0.95 between routes and with
                 the CPU, >= 0.999 between fp32 on the card and on the CPU;
                 jbu_stack at 4 stages on the card against the same
-                configuration in fp32 on the CPU, >= 0.95.
+                configuration in fp32 on the CPU, >= 0.95; (a) and (b) with
+                RS_OV_FUSED_ATTN=1 against 0 on the card, >= 0.99; (b) in fp32
+                on the card against the CPU, >= 0.99; (a), (b) and (c) in bf16
+                against the CPU, >= 0.95 (with the share of CTD's DBSCAN
+                labels that agree between the runs of (b)).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -160,10 +173,10 @@ def _epilogue_inputs(rng, h, w, dev, d=D):
         b1=t(rng.randn(dd) * 0.1, bf))
 
 
-def _check(label, tol, kernel, plain, faulty, bound):
+def _check(label, tol, kernel, plain, faulty, bound, dropped="tap"):
     """kernel() against plain() as max|d|/max|ref|, beside faulty(): the plain
-    version with its last tap dropped, on the same inputs, which must land
-    above the bound. Returns the row's measured numbers."""
+    version with its last tap (or key) dropped, on the same inputs, which
+    must land above the bound. Returns the row's measured numbers."""
     got, ref, bad = kernel().float(), plain().float(), faulty().float()
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
@@ -171,10 +184,10 @@ def _check(label, tol, kernel, plain, faulty, bound):
     rel, fault_rel = err / scale, (bad - ref).abs().max().item() / scale
     ms, plain_ms = _timed_pair(kernel, plain)
     print(f"[kernels] {label}: max|d|={err:.3e} max|d|/max|ref|={rel:.3e} (tol {tol}; "
-          f"without the last tap {fault_rel:.3e}; max|ref| {scale:.4g}) kernel {ms:.4f} ms "
+          f"without the last {dropped} {fault_rel:.3e}; max|ref| {scale:.4g}) kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms by {bound[1]}")
     assert rel <= tol, f"{label} disagrees: {rel}"
-    assert fault_rel > tol, f"{label}: the bound does not catch a dropped tap: {fault_rel}"
+    assert fault_rel > tol, f"{label}: the bound does not catch a dropped {dropped}: {fault_rel}"
     return dict(max_abs_err=err, fault_rel=fault_rel, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1])
 
@@ -184,7 +197,7 @@ def _row(name, source, replaces, checks):
     is at the main path's shape, the others are kept under ``also``."""
     main, *also = checks
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
-                **main[1], library_ms=None, shape=main[0],
+                **{"library_ms": None, **main[1]}, shape=main[0],
                 also=[dict(shape=s, **c) for s, c in also])
 
 
@@ -279,6 +292,7 @@ def phase_kernels():
                                       "rs_ov_torch/csrc/jbu_epilogue.cu",
                                       "rs_ov/kernels/jbu_epilogue.py:333", k3)}
     rows.update(_adaptive_conv_kernels(rng, dev))
+    rows["fused_selfself_attention"] = _selfself_attention_kernel(rng, dev)
     return rows
 
 
@@ -315,6 +329,65 @@ def _adaptive_conv_kernels(rng, dev):
     return rows
 
 
+K6_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+K6_SCORES = {"vanilla": 1, "ClearCLIP": 1, "SCLIP": 2, "SegEarth": 3, "SFP": 2,
+             "Experimental": 2}
+
+
+def _selfself_attention_kernel(rng, dev):
+    """K6 at the main path's shapes (16 crops of a 512x512 image, 12 heads,
+    L=197, hd=64) in each mode, with and without the sim map, in bf16
+    (within 1e-2 of max|ref|: a bf16 step of the output) and fp32 (1e-5).
+    The row leads with the base config's case: Experimental, bf16, sim map.
+    The fault is the plain version with its last key masked out of every
+    softmax, through a -inf in the sim map's last column. For vanilla and
+    ClearCLIP one scaled_dot_product_attention call (in the inputs' dtype;
+    its bf16 version rounds the weights, so it is a yardstick of time, not
+    of numbers) is timed as the library call; no single call computes the
+    other modes."""
+    from rs_ov_torch.kernels.selfself_attention import (SUPPORTED_MODES,
+                                                        fused_selfself_attention,
+                                                        fused_selfself_attention_plain)
+
+    b, h, l, hd = 16, 12, 197, 64
+    q32, k32, v32 = (torch.from_numpy(rng.randn(b, h, l, hd).astype(np.float32)).to(dev)
+                     for _ in range(3))
+    sim = torch.from_numpy(np.pad((rng.randn(b, l - 1, l - 1) * 0.5).astype(np.float32),
+                                  ((0, 0), (1, 0), (1, 0)))).to(dev)
+    cases = [(m, dt, s) for dt in (torch.bfloat16, torch.float32) for m in SUPPORTED_MODES
+             for s in (True, False)]
+    cases.remove(("Experimental", torch.bfloat16, True))
+    checks = []
+    for mode, dtype, with_sim in [("Experimental", torch.bfloat16, True)] + cases:
+        q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+        sm = sim if with_sim else None
+        masked = (sim if with_sim else torch.zeros_like(sim)).clone()
+        masked[..., -1] = float("-inf")
+        prod = 2 * b * h * l * l * hd
+        nbytes = 4 * b * h * l * hd * q.element_size() + (4 * b * l * l if with_sim else 0)
+        n = K6_SCORES[mode]
+        bound = (_bound(nbytes, fp32_ops=prod, bf16_ops=n * prod) if dtype == torch.bfloat16
+                 else _bound(nbytes, fp32_ops=(n + 1) * prod))
+        tag = f"{mode} {str(dtype)[6:]} {'sim' if with_sim else 'no sim'}"
+        c = _check(f"K6 fused_selfself_attention {tag}", K6_TOL[dtype],
+                   lambda: fused_selfself_attention(q, k, v, sm, mode=mode),
+                   lambda: fused_selfself_attention_plain(q, k, v, sm, mode=mode),
+                   lambda: fused_selfself_attention_plain(q, k, v, masked, mode=mode),
+                   bound, dropped="key")
+        if mode in ("vanilla", "ClearCLIP"):
+            keys = k if mode == "vanilla" else q
+            mask = None if sm is None else sm[:, None].to(dtype)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q, keys, v, attn_mask=mask, scale=hd ** -0.5)
+            sdpa()
+            c["library_ms"] = _median_ms(sdpa)
+            c["library"] = f"scaled_dot_product_attention ({str(dtype)[6:]})"
+            print(f"[kernels] {tag}: scaled_dot_product_attention {c['library_ms']:.4f} ms")
+        checks.append((f"B={b} H={h} L={l} hd={hd} {tag}", c))
+    return _row("fused_selfself_attention", "rs_ov_torch/csrc/selfself_attention.cu",
+                "rs_ov/kernels/selfself_attention.py:78", checks)
+
+
 def _base_model_cfg():
     from rs_ov_torch.evalsuite.config import load_config
 
@@ -324,27 +397,44 @@ def _base_model_cfg():
     return cfg
 
 
+def _stack_cfg():
+    """Path (b): the full decontamination stack on top of the base config."""
+    return {**_base_model_cfg(), "model_type": "SegEarth", "apply_ctd": True,
+            "apply_self_attn_enhancement": True, "apply_som": True,
+            "apply_cross_tile_fusion": True}
+
+
+def _clearclip_cfg():
+    """Path (c): ClearCLIP with layer fusion; the base config's outlier
+    suppression then re-weights through the fused attention."""
+    return {**_base_model_cfg(), "model_type": "ClearCLIP", "apply_layer_fusion": True}
+
+
 KERNELS = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "adaptive_conv_bf16",
-           "adaptive_conv_f32")
+           "adaptive_conv_f32", "fused_selfself_attention")
 
 
 def _launches():
     from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_tapmajor
     from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_classify
     from rs_ov_torch.kernels.range_logits import range_logits
+    from rs_ov_torch.kernels.selfself_attention import fused_selfself_attention
 
     return dict(zip(KERNELS, (range_logits.launches, jbu_epilogue.launches,
                               jbu_epilogue_classify.launches,
                               adaptive_conv_tapmajor.launches[torch.bfloat16],
-                              adaptive_conv_tapmajor.launches[torch.float32])))
+                              adaptive_conv_tapmajor.launches[torch.float32],
+                              fused_selfself_attention.launches)))
 
 
 def _reset_launches():
     from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_tapmajor
     from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_classify
     from rs_ov_torch.kernels.range_logits import range_logits
+    from rs_ov_torch.kernels.selfself_attention import fused_selfself_attention
 
     range_logits.launches = jbu_epilogue.launches = jbu_epilogue_classify.launches = 0
+    fused_selfself_attention.launches = 0
     for dt in adaptive_conv_tapmajor.launches:
         adaptive_conv_tapmajor.launches[dt] = 0
 
@@ -391,7 +481,8 @@ def _drive(route, seg, images, want):
 
 
 def phase_slice(rows):
-    """Each route through SegmentorEx.predict_raw, counters read per route."""
+    """Each route through SegmentorEx.predict_raw, counters read per route.
+    Returns the segmentors on the card, by name, for the e2e phase."""
     from rs_ov_torch.pipeline.segmentor import SegmentorEx
 
     t0 = time.perf_counter()
@@ -403,64 +494,122 @@ def phase_slice(rows):
           f"tile_chunk={seg.tile_chunk}, dtype={seg.param_dtype}")
     assert 16 // seg.tile_chunk == CHUNKS
     qf = seg.query_features.cpu().numpy()
-    seg32 = SegmentorEx(**_base_model_cfg(), param_dtype=torch.float32, device=DEV,
-                        query_features=qf)
-    stack = SegmentorEx(**{**_base_model_cfg(), "sim_feat_up_cfg": dict(
-        model_name="jbu_stack", num_stages=4)}, device=DEV, query_features=qf)
+    segs = {"base": seg,
+            "base fp32": SegmentorEx(**_base_model_cfg(), param_dtype=torch.float32,
+                                     device=DEV, query_features=qf),
+            "jbu_stack": SegmentorEx(**{**_base_model_cfg(), "sim_feat_up_cfg": dict(
+                model_name="jbu_stack", num_stages=4)}, device=DEV, query_features=qf),
+            "stack": SegmentorEx(**_stack_cfg(), device=DEV, query_features=qf),
+            "clearclip": SegmentorEx(**_clearclip_cfg(), device=DEV, query_features=qf)}
     rng = np.random.RandomState(1)
     images = [rng.randint(0, 256, (1, 512, 512, 3), np.uint8) for _ in range(3)]
     s = seg.jbu_stages
+    channel_last = {"range_logits": 3 * s * CHUNKS, "jbu_epilogue": 3 * (s - 1) * CHUNKS,
+                    "jbu_epilogue_classify": 3 * CHUNKS}
     by_path = {
-        "bf16 channel-last": _drive("bf16 channel-last (K1 K2 K3)", seg, images, {
-            "range_logits": 3 * s * CHUNKS, "jbu_epilogue": 3 * (s - 1) * CHUNKS,
-            "jbu_epilogue_classify": 3 * CHUNKS}),
-        "fp32 channel-first": _drive("fp32 channel-first (K1 K4b)", seg32, images, {
+        "bf16 channel-last": _drive("bf16 channel-last (K1 K2 K3)", seg, images, channel_last),
+        "fp32 channel-first": _drive("fp32 channel-first (K1 K4b)", segs["base fp32"], images, {
             "range_logits": 3 * s * CHUNKS, "adaptive_conv_f32": 3 * s * CHUNKS})}
     with _env("RS_OV_JBU_FUSED", "0"):
         by_path["bf16 channel-first"] = _drive(
             "bf16 channel-first, RS_OV_JBU_FUSED=0 (K1 K4a)", seg, images,
             {"range_logits": 3 * s * CHUNKS, "adaptive_conv_bf16": 3 * s * CHUNKS})
     by_path["jbu_stack 4 stages"] = _drive(
-        "jbu_stack 4 stages bf16 channel-last (K1 K2 K3 at d=7)", stack, images[:2], {
-            "range_logits": 2 * 4 * CHUNKS, "jbu_epilogue": 2 * 3 * CHUNKS,
-            "jbu_epilogue_classify": 2 * CHUNKS})
+        "jbu_stack 4 stages bf16 channel-last (K1 K2 K3 at d=7)", segs["jbu_stack"],
+        images[:2], {"range_logits": 2 * 4 * CHUNKS, "jbu_epilogue": 2 * 3 * CHUNKS,
+                     "jbu_epilogue_classify": 2 * CHUNKS})
+    k6 = {**channel_last, "fused_selfself_attention": 3}
+    with _env("RS_OV_FUSED_ATTN", "1"):
+        by_path["(a) fused attention"] = _drive(
+            "(a) base config, RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", seg, images, k6)
+        by_path["(b) full stack"] = _drive(
+            "(b) SegEarth + CTD + self-attn enhancement + SOM + cross-tile fusion, "
+            "RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", segs["stack"], images, k6)
+        by_path["(c) ClearCLIP"] = _drive(
+            "(c) ClearCLIP + layer fusion + outlier suppression, RS_OV_FUSED_ATTN=1 "
+            "(K6 K1 K2 K3)", segs["clearclip"], images, k6)
     own = {"range_logits": "bf16 channel-last", "jbu_epilogue": "bf16 channel-last",
            "jbu_epilogue_classify": "bf16 channel-last",
-           "adaptive_conv_f32": "fp32 channel-first", "adaptive_conv_bf16": "bf16 channel-first"}
+           "adaptive_conv_f32": "fp32 channel-first", "adaptive_conv_bf16": "bf16 channel-first",
+           "fused_selfself_attention": "(a) fused attention"}
     for k in KERNELS:
         rows[k]["launches"] = by_path[own[k]][k]
         rows[k]["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
-    return seg, seg32, stack
+    return segs
 
 
-def phase_e2e(seg, seg32, stack):
+@contextlib.contextmanager
+def _dbscan_labels():
+    """Record the labels of every CTD clustering the segmentors run."""
+    from rs_ov_torch.pipeline import segmentor as mod
+
+    fn, labels = mod.cluster_patch_tokens_dbscan, []
+
+    def recording(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        labels.append(out[1].cpu())
+        return out
+
+    mod.cluster_patch_tokens_dbscan = recording
+    try:
+        yield labels
+    finally:
+        mod.cluster_patch_tokens_dbscan = fn
+
+
+def phase_e2e(segs):
     from rs_ov_torch.pipeline.segmentor import SegmentorEx
 
-    qf = seg.query_features.cpu().numpy()
-    seg_cpu = SegmentorEx(**_base_model_cfg(), device="cpu", query_features=qf)
-    stack_cpu = SegmentorEx(**{**_base_model_cfg(), "sim_feat_up_cfg": dict(
-        model_name="jbu_stack", num_stages=4)}, device="cpu", query_features=qf)
+    qf = segs["base"].query_features.cpu().numpy()
     img = np.random.RandomState(2).randint(0, 256, (1, 336, 336, 3), np.uint8)
-    out = {"bf16 channel-last": seg.predict_raw(img)[0],
-           "fp32 channel-first": seg32.predict_raw(img)[0],
-           "jbu_stack 4 stages bf16 channel-last": stack.predict_raw(img)[0]}
+    labels = {}
+    out = {"bf16 channel-last": segs["base"].predict_raw(img)[0],
+           "fp32 channel-first": segs["base fp32"].predict_raw(img)[0],
+           "jbu_stack 4 stages bf16 channel-last": segs["jbu_stack"].predict_raw(img)[0]}
     with _env("RS_OV_JBU_FUSED", "0"):
-        out["bf16 channel-first"] = seg.predict_raw(img)[0]
+        out["bf16 channel-first"] = segs["base"].predict_raw(img)[0]
+    with _dbscan_labels() as labels["(b) bf16 switch off"]:
+        out["(b) bf16 switch off"] = segs["stack"].predict_raw(img)[0]
+    stack32 = SegmentorEx(**_stack_cfg(), param_dtype=torch.float32, device=DEV,
+                          query_features=qf)
+    with _env("RS_OV_FUSED_ATTN", "1"):
+        out["(a) bf16"] = segs["base"].predict_raw(img)[0]
+        with _dbscan_labels() as labels["(b) bf16"]:
+            out["(b) bf16"] = segs["stack"].predict_raw(img)[0]
+        with _dbscan_labels() as labels["(b) fp32"]:
+            out["(b) fp32"] = stack32.predict_raw(img)[0]
+        out["(c) bf16"] = segs["clearclip"].predict_raw(img)[0]
     t0 = time.perf_counter()
-    out["fp32 CPU"] = seg_cpu.predict_raw(img)[0]
-    out["jbu_stack 4 stages fp32 CPU"] = stack_cpu.predict_raw(img)[0]
+    cpu = dict(device="cpu", query_features=qf)
+    out["fp32 CPU"] = SegmentorEx(**_base_model_cfg(), **cpu).predict_raw(img)[0]
+    stack_cfg = {**_base_model_cfg(),
+                 "sim_feat_up_cfg": dict(model_name="jbu_stack", num_stages=4)}
+    out["jbu_stack 4 stages fp32 CPU"] = SegmentorEx(**stack_cfg, **cpu).predict_raw(img)[0]
+    with _dbscan_labels() as labels["(b) fp32 CPU"]:
+        out["(b) fp32 CPU"] = SegmentorEx(**_stack_cfg(), **cpu).predict_raw(img)[0]
+    out["(c) fp32 CPU"] = SegmentorEx(**_clearclip_cfg(), **cpu).predict_raw(img)[0]
     cpu_s = time.perf_counter() - t0
     for a, b, need in (("bf16 channel-first", "bf16 channel-last", 0.95),
                        ("fp32 channel-first", "bf16 channel-last", 0.95),
                        ("fp32 channel-first", "fp32 CPU", 0.999),
                        ("bf16 channel-last", "fp32 CPU", 0.95),
                        ("jbu_stack 4 stages bf16 channel-last",
-                        "jbu_stack 4 stages fp32 CPU", 0.95)):
+                        "jbu_stack 4 stages fp32 CPU", 0.95),
+                       ("(a) bf16", "bf16 channel-last", 0.99),
+                       ("(b) bf16", "(b) bf16 switch off", 0.99),
+                       ("(b) fp32", "(b) fp32 CPU", 0.99),
+                       ("(a) bf16", "fp32 CPU", 0.95),
+                       ("(b) bf16", "(b) fp32 CPU", 0.95),
+                       ("(c) bf16", "(c) fp32 CPU", 0.95)):
         pa, pb = out[a]["pred_sem_seg"].cpu(), out[b]["pred_sem_seg"].cpu()
         agree = (pa == pb).float().mean().item()
         dprob = (out[a]["seg_logits"].cpu() - out[b]["seg_logits"].cpu()).abs().max().item()
+        same = ""
+        if a in labels and b in labels:
+            la, lb = torch.cat(labels[a]), torch.cat(labels[b])
+            same = f", CTD labels equal {(la == lb).float().mean().item():.4f}"
         print(f"[e2e] 336x336 (4 crops): {a} vs {b}: argmax agreement {agree:.6f} "
-              f"(need >= {need}), max |d prob| {dprob:.4f}")
+              f"(need >= {need}), max |d prob| {dprob:.4f}{same}")
         assert agree >= need, f"{a} vs {b}: agreement {agree}"
     print(f"[e2e] CPU runs {cpu_s:.1f} s")
 
@@ -469,7 +618,7 @@ def main():
     phase_device()
     phase_build()
     rows = phase_kernels()
-    phase_e2e(*phase_slice(rows))
+    phase_e2e(phase_slice(rows))
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

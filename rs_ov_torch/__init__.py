@@ -8,8 +8,9 @@ layout and function names:
   data/       the normalisation constants
   evalsuite/  the ``_base_``-merging config loader
   utils/      separable resize / pad ops
-  nn/         layers, attention, the decontaminating ViT
-  decontam/   similarity map, outlier suppression, global debias
+  nn/         layers, the ten attention modes, the decontaminating ViT
+  decontam/   similarity map, outlier suppression, global debias, CTD (DBSCAN),
+              cross-tile fusion, SOM, layer fusion, self-attention enhancement
   text/       BPE tokenizer, text transformer, prompt-ensemble classifier
   kernels/    the hand-written CUDA kernels' wrappers, their plain versions, the build
   upsample/   SimFeatUp jbu_one / jbu_stack, channel-first and channel-last

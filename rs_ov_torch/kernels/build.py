@@ -9,7 +9,7 @@ fallback: a missing ``nvcc`` or a failed build raises. Each source's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
 library as ``<library>.<source>.log``.
 
-Each C entry point takes device pointers, ints and the CUDA stream, launches
+Each C entry point takes device pointers, ints, floats and the CUDA stream, launches
 on that stream and returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code.
 """
@@ -33,8 +33,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: pointers, ints, stream; every entry point returns cudaError_t
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: pointers, ints, floats, stream; every entry point returns cudaError_t
 _SIGNATURES = {
     "rs_range_logits": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -44,6 +44,8 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rs_selfself_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 

@@ -1,9 +1,12 @@
-"""Open-vocabulary segmentor (rs_ov/pipeline/segmentor.py), CLIP branch.
+"""Open-vocabulary segmentor (rs_ov/pipeline/segmentor.py:70-487), CLIP branch.
 
 Per image: normalise (uint8 input: on the device) -> overlapping crops ->
-the decontaminating ViT over all crops at once -> global CLS debias ->
-SimFeatUp (``jbu_one``, ``jbu_stack`` or ``bilinear``) and the cosine
-classifier, in chunks of ``tile_chunk`` crops -> optional CLS-logit blend
+the decontaminating ViT over all crops at once (every attention mode of
+``ATTENTION_MODES``, SOM, layer fusion, self-attention enhancement, outlier
+suppression) -> optional cross-tile fusion over the image's crops -> in
+chunks of ``tile_chunk`` crops: global CLS debias, optional CTD (DBSCAN,
+then clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack`` or
+``bilinear``) and the cosine classifier -> optional CLS-logit blend
 (``cls_token_lambda``) -> bilinear resize of the logits to the padded crop
 -> overlap-average stitch -> resize to the original shape -> softmax,
 synonym merge, argmax, threshold.
@@ -35,7 +38,10 @@ import torch
 from rs_ov_torch.core.config import get_model_config
 from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
 from rs_ov_torch.core.params import clip_params_from_numpy, init_clip_params, load_numpy_tree
+from rs_ov_torch.decontam.cross_tile import CrossTileFusionConfig, fuse_tile_grid
+from rs_ov_torch.decontam.ctd import adaptive_debiasing, cluster_patch_tokens_dbscan
 from rs_ov_torch.decontam.global_debias import global_debias
+from rs_ov_torch.nn.attention import ATTENTION_MODES
 from rs_ov_torch.nn.vit import VitCallConfig, vit_forward
 from rs_ov_torch.pipeline.postprocess import postprocess_logits, query_onehot
 from rs_ov_torch.pipeline.tiler import compute_padsize, extract_tiles, stitch, tile_grid
@@ -71,14 +77,20 @@ class SegmentorEx:
                  apply_sim_feat_up: bool = False,
                  sim_feat_up_cfg: Optional[dict] = None,
                  apply_ctd: bool = False,
+                 ctd_cfg: Optional[dict] = None,
                  apply_outlier_suppression: bool = False,
                  outlier_suppression_cfg: Optional[dict] = None,
                  apply_self_attn_enhancement: bool = False,
+                 self_attn_enhancement_cfg: Optional[dict] = None,
                  apply_layer_fusion: bool = False,
+                 layer_fusion_lambda: float = 0.5,
+                 layer_fusion_threshold: float = 0.7,
                  apply_similarity_enhancement: bool = False,
                  similarity_enhancement_cfg: Optional[dict] = None,
                  apply_cross_tile_fusion: bool = False,
+                 cross_tile_fusion_cfg: Optional[dict] = None,
                  apply_som: bool = False,
+                 som_cfg: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None,
                  params=None,
                  upsampler_params=None,
@@ -95,18 +107,13 @@ class SegmentorEx:
         torch.backends.cudnn.allow_tf32 = False
         for flag, what, item in (
                 (clip_type != "CLIP", f"clip_type '{clip_type}'", "queue 1 item 8"),
-                (apply_ctd, "CTD", "queue 1 item 7"),
-                (apply_self_attn_enhancement, "self-attention enhancement", "queue 1 item 7"),
-                (apply_layer_fusion, "layer fusion", "queue 1 item 7"),
-                (apply_cross_tile_fusion, "cross-tile fusion", "queue 1 item 7"),
-                (apply_som, "SOM", "queue 1 item 7"),
-                (model_type != "Experimental", f"attention mode '{model_type}'",
-                 "queue 1 item 7"),
-                (bool((outlier_suppression_cfg or {}).get("suppression_layers")),
-                 "outlier suppression_layers", "queue 1 item 7"),
+                (model_type == "GEM", "the GEM tower", "queue 1 item 8"),
                 (checkpoint_path is not None, "checkpoint loading", "queue 1 item 1")):
             if flag:
                 raise _not_ported(what, item)
+        if model_type not in ATTENTION_MODES:
+            raise ValueError(f"Unknown attention mode '{model_type}'. "
+                             f"Known: {ATTENTION_MODES}")
 
         if device is None:
             if not torch.cuda.is_available():
@@ -143,8 +150,16 @@ class SegmentorEx:
 
         sim_cfg = dict(similarity_weight=1.0, temperature=1.0, add_self_similarity=True)
         sim_cfg.update(similarity_enhancement_cfg or {})
-        out_cfg = dict(top_k=10, contamination_temp=0.1)
+        # suppression_layers: global layer indices (negatives allowed) whose
+        # attention feeds outlier detection; () = the last front block
+        out_cfg = dict(top_k=10, contamination_temp=0.1, suppression_layers=())
         out_cfg.update(outlier_suppression_cfg or {})
+        sa_cfg = dict(enhancement_strength=0.1, min_self_attn_threshold=0.15,
+                      mode="feature", top_k=10)
+        sa_cfg.update(self_attn_enhancement_cfg or {})
+        som = dict(consensus_threshold=0.5, detection_mode="both",
+                   self_sufficiency_ratio=1.0)
+        som.update(som_cfg or {})
         self.call = VitCallConfig(
             model_type=model_type, ignore_residual=ignore_residual,
             quick_gelu=self.cfg.quick_gelu,
@@ -154,7 +169,25 @@ class SegmentorEx:
             add_self_similarity=sim_cfg["add_self_similarity"],
             apply_outlier_suppression=apply_outlier_suppression,
             outlier_top_k=out_cfg["top_k"],
-            contamination_temp=out_cfg["contamination_temp"])
+            contamination_temp=out_cfg["contamination_temp"],
+            outlier_source_layers=tuple(out_cfg["suppression_layers"]),
+            apply_self_attn_enhancement=apply_self_attn_enhancement,
+            self_attn_strength=sa_cfg["enhancement_strength"],
+            self_attn_threshold=sa_cfg["min_self_attn_threshold"],
+            self_attn_mode=sa_cfg["mode"],
+            self_attn_top_k=sa_cfg["top_k"],
+            apply_layer_fusion=apply_layer_fusion,
+            layer_fusion_lambda=layer_fusion_lambda,
+            layer_fusion_threshold=layer_fusion_threshold,
+            apply_som=apply_som,
+            som_consensus_threshold=som["consensus_threshold"],
+            som_detection_mode=som["detection_mode"],
+            som_self_sufficiency_ratio=som["self_sufficiency_ratio"])
+        self.apply_ctd = apply_ctd
+        self.ctd_cfg = dict(max_points=8192, metric="euclidean", eps=1.1, min_samples=11)
+        self.ctd_cfg.update(ctd_cfg or {})
+        self.apply_cross_tile_fusion = apply_cross_tile_fusion
+        self.ctf_cfg = CrossTileFusionConfig(**(cross_tile_fusion_cfg or {}))
 
         self.logit_scale = float(logit_scale)
         self.prob_thd = float(prob_thd)
@@ -220,6 +253,9 @@ class SegmentorEx:
         gh, gw = grid_hw
         t, _, c = tokens.shape
         tokens = global_debias(tokens, cls_norm, self.global_debias_factor)
+        if self.apply_ctd:
+            _, labels = cluster_patch_tokens_dbscan(tokens, (gh, gw), self.ctd_cfg)
+            tokens = adaptive_debiasing(tokens, labels, cls_norm, factor=-1.5)
         out_hw = (gh, gw)
         if not self.apply_sim_feat_up:
             logits = self._classify(tokens)
@@ -263,9 +299,9 @@ class SegmentorEx:
         """img [3, H, W] normalised, on the device -> (probs, pred)."""
         h_img, w_img = img.shape[-2:]
         if self.slide_crop > 0:
-            coords, _ = tile_grid(h_img, w_img, self.slide_stride, self.slide_crop)
+            coords, grid_shape = tile_grid(h_img, w_img, self.slide_stride, self.slide_crop)
         else:
-            coords = ((0, 0, h_img, w_img),)
+            coords, grid_shape = ((0, 0, h_img, w_img),), (1, 1)
         ch, cw = coords[0][2] - coords[0][0], coords[0][3] - coords[0][1]
         pads = compute_padsize(ch, cw, self.patch_size)
         tiles = extract_tiles(img, coords)
@@ -278,6 +314,8 @@ class SegmentorEx:
         cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         cls_logits = cls_norm @ self.query_features.t()  # [T, Q]
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
+        if self.apply_cross_tile_fusion:  # over all of this image's crops
+            tokens = fuse_tile_grid(tokens, grid_shape, grid_hw, self.ctf_cfg)
         tile_logits = self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw,
                                              pads, (ch, cw))
         preds = resize_bilinear(stitch(tile_logits, coords, h_img, w_img), ori_shape)

@@ -77,11 +77,41 @@ def test_predict_raw_matches_jax(weights, stages, monkeypatch):
     np.testing.assert_allclose(again["seg_logits"].numpy(), probs, atol=1e-5, rtol=0)
 
 
+DECONTAM_CASES = {
+    # eps 0.3 on the 4x4-patch crops gives clusters and noise in every chunk
+    "ctd": dict(apply_ctd=True, ctd_cfg=dict(min_samples=3, eps=0.3)),
+    "cross_tile-weighted": dict(apply_cross_tile_fusion=True),
+    "cross_tile-attention": dict(apply_cross_tile_fusion=True, cross_tile_fusion_cfg=dict(
+        fusion_mode="attention", cache_boundary_width=1, fusion_strength=0.5)),
+    "som": dict(apply_som=True, som_cfg=dict(consensus_threshold=0.3)),
+    "layer_fusion": dict(apply_layer_fusion=True, layer_fusion_lambda=0.6),
+    "self_attn_enhancement": dict(apply_self_attn_enhancement=True,
+                                  self_attn_enhancement_cfg=dict(top_k=3)),
+    "suppression_layers": dict(outlier_suppression_cfg=dict(top_k=5,
+                                                            suppression_layers=(1, -1))),
+    "SegEarth": dict(model_type="SegEarth"),
+    "ClearCLIP": dict(model_type="ClearCLIP", ignore_residual=False),
+}
+
+
+@pytest.mark.parametrize("case", list(DECONTAM_CASES), ids=list(DECONTAM_CASES))
+def test_decontam_options_match_jax(weights, case):
+    """Each option of the decontamination stack on top of the production
+    recipe, on a 2x3 grid of crops: probs within 2e-3, argmax >= 0.999.
+    SimFeatUp is off here (the route tests hold it); CTD still runs per
+    chunk of crops in the port and on all crops at once in the JAX package."""
+    img = np.random.RandomState(5).randint(0, 256, (1, 96, 128, 3), np.uint8)
+    kw = {**_kwargs(weights, 2), "apply_sim_feat_up": False, **DECONTAM_CASES[case]}
+    want = JaxSegmentorEx(**kw).predict_raw(img)[0]
+    got = SegmentorEx(**kw, device="cpu").predict_raw(img)[0]
+    probs, pred = got["seg_logits"].numpy(), got["pred_sem_seg"].numpy()
+    np.testing.assert_allclose(probs, np.asarray(want["seg_logits"]), atol=2e-3, rtol=0)
+    assert np.mean(pred == np.asarray(want["pred_sem_seg"])) >= 0.999
+
+
 @pytest.mark.parametrize("option", [
-    dict(apply_ctd=True), dict(apply_som=True), dict(apply_layer_fusion=True),
-    dict(apply_self_attn_enhancement=True), dict(apply_cross_tile_fusion=True),
-    dict(model_type="SCLIP"), dict(clip_type="BLIP"), dict(checkpoint_path="ViT-B-16.pt"),
-    dict(sim_feat_up_cfg=dict(model_name="carafe")),
+    dict(clip_type="BLIP"), dict(checkpoint_path="ViT-B-16.pt"),
+    dict(sim_feat_up_cfg=dict(model_name="carafe")), dict(model_type="GEM"),
 ])
 def test_options_outside_the_slice_raise(weights, option):
     kw = _kwargs(weights, 2)

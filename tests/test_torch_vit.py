@@ -84,6 +84,79 @@ def test_vit_forward_matches_jax(weights, size, top_k, ignore_residual):
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=5e-4, rtol=0)
 
 
+VIT_CASES = {
+    **{f"mode-{m}": dict(model_type=m) for m in (
+        "vanilla", "MaskCLIP", "SCLIP", "SegEarth", "SFP", "Experimental", "ClearCLIP",
+        "NACLIP", "NOnly", "GAV")},
+    "last_n_layers-2": dict(last_n_layers=2, ignore_residual=False),
+    "source-last": dict(outlier_source_layers=(-1,)),
+    "source-front-two": dict(outlier_source_layers=(0, 2)),
+    "layer_fusion": dict(apply_layer_fusion=True, layer_fusion_lambda=0.6),
+    "som": dict(apply_som=True, som_consensus_threshold=0.3),
+    "self_attn-feature": dict(apply_self_attn_enhancement=True, self_attn_top_k=4),
+    "self_attn-attention-alone": dict(apply_self_attn_enhancement=True,
+                                      apply_outlier_suppression=False,
+                                      self_attn_mode="attention", self_attn_strength=0.5,
+                                      self_attn_threshold=0.5),
+}
+
+
+@pytest.mark.parametrize("case", list(VIT_CASES), ids=list(VIT_CASES))
+def test_vit_options_match_jax(weights, case):
+    """Each attention mode in the last block (a 6x5 grid: the Gaussian modes
+    see a non-square one), the last two blocks, the outlier source layers,
+    layer fusion, SOM and self-attention enhancement with and without
+    outlier suppression (the capture rule of rs_ov/nn/vit.py:170-171), on
+    top of similarity enhancement and outlier suppression: within 5e-4."""
+    tree, clip = weights
+    images = np.random.RandomState(6).randn(2, 3, 96, 80).astype(np.float32)
+    kw = dict(model_type="Experimental", apply_similarity_enhancement=True,
+              apply_outlier_suppression=True, outlier_top_k=4, gaussian_std=0.8)
+    kw.update(VIT_CASES[case])
+    jp, jt = jax_vit_forward(jax.tree_util.tree_map(jnp.asarray, tree["visual"]),
+                             jnp.asarray(images), CFG.vision,
+                             JaxCall(output_cls_token=True, **kw))
+    with torch.no_grad():
+        tp, tt = vit_forward(clip.visual, torch.from_numpy(images), CFG.vision,
+                             VitCallConfig(**kw))
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=5e-4, rtol=0)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=5e-4, rtol=0)
+
+
+def test_vit_call_config_defaults_match_jax():
+    """Every field the port keeps has the JAX package's default (a caller
+    that leaves model_type out gets ClearCLIP in both)."""
+    import dataclasses
+
+    ours = {f.name: f.default for f in dataclasses.fields(VitCallConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxCall)}
+    assert set(ours) == set(theirs) - {"output_cls_token"}
+    assert ours == {k: theirs[k] for k in ours}
+    assert VitCallConfig().model_type == "ClearCLIP"
+
+
+def test_last_block_stream_feeds_a_tail_capture(weights, monkeypatch):
+    """The last block's ordinary stream runs when a capture reads it (here
+    outlier detection from the last layer) and not otherwise."""
+    from rs_ov_torch.nn import vit
+
+    calls = []
+    real = vit._resblock
+    monkeypatch.setattr(vit, "_resblock",
+                        lambda *a, **k: calls.append(k.get("need_weights")) or real(*a, **k))
+    _, clip = weights
+    images = torch.from_numpy(np.random.RandomState(8).randn(1, 3, 64, 64).astype(np.float32))
+    with torch.no_grad():
+        vit_forward(clip.visual, images, CFG.vision,
+                    VitCallConfig(model_type="Experimental", apply_outlier_suppression=True))
+        assert calls == [False, False, True]
+        calls.clear()
+        vit_forward(clip.visual, images, CFG.vision,
+                    VitCallConfig(model_type="Experimental", apply_outlier_suppression=True,
+                                  outlier_source_layers=(-1,)))
+        assert calls == [False, False, False, True]
+
+
 @pytest.mark.parametrize("temperature,add_self", [(1.0, True), (0.5, False)])
 def test_similarity_map_matches_jax(temperature, add_self):
     f = np.random.RandomState(2).randn(2, 36, 16).astype(np.float32)

@@ -9,16 +9,19 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 power limit.
   2. build    - compiles rs_ov_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                 per source, all at once.
-  3. kernels  - each CUDA kernel (K1-K3, K4a, K4b, K6) against its plain
-                PyTorch version on the card, at the shapes every driven path
-                gives it (jbu_one's d=11, jbu_stack's d=7 on 28^2 to 224^2;
-                K6 in each of its six modes, with and without a sim map, in
-                bf16 and fp32, at 16 crops x 12 heads x 197 tokens x 64);
-                prints the error beside that of the plain version with its
-                last tap (K6: its last key) dropped, which must exceed the
-                bound, the median times (CUDA events, in turns), the bound
-                from the shapes and, for K6's vanilla and ClearCLIP modes,
-                the time of one scaled_dot_product_attention call.
+  3. kernels  - each CUDA kernel (K1-K3, K4a-K4d, K5a, K5b, K6) against its
+                plain PyTorch version on the card, at the shapes every driven
+                path gives it (jbu_one's d=11, jbu_stack's d=7 on 28^2 to
+                224^2; K6 in each of its six modes, with and without a sim
+                map, in bf16 and fp32, at 16 crops x 12 heads x 197 tokens x
+                64); prints the error beside that of the plain version with
+                its last tap (K6: its last key) dropped, and for K5a/K5b also
+                with zero padding in place of reflection, each of which must
+                exceed the bound, the median times (CUDA events, in turns),
+                the bound from the shapes and, for K6's vanilla and ClearCLIP
+                modes, the time of one scaled_dot_product_attention call.
+                K5a and K5b are also held against the split pair they replace
+                (K1 + reflect pads + K2 / K3) on the card, and timed beside it.
   4. slice    - SegmentorEx from configs/base_config.py (CLIP ViT-B/16,
                 random weights) on the Potsdam vocabulary: predict_raw on
                 three 512x512 images on each route: bf16 channel-last (K1,
@@ -29,9 +32,16 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 bf16 channel-last route): (a) the base config, (b) the full
                 stack (SegEarth, CTD, self-attention enhancement, SOM and
                 cross-tile fusion on top of it), (c) ClearCLIP with layer
-                fusion and outlier suppression. Checks outputs and that every
-                launch counter moved by exactly the expected amount; prints
-                tiles/s per route over the requests after the first.
+                fusion and outlier suppression; then with
+                RS_OV_JBU_FUSED_RANGE=1: (d) the base config (K5a, K5b) and
+                jbu_stack at 4 stages (K5a, K5b at d=7, two images);
+                predict_batch_raw on the three images as one batch, with the
+                fused-range switch off (K1 K2 K3) and on (K5a K5b); and the
+                adaptive-conv entry points K4c and K4d on the stage operands
+                of one fp32 channel-first request, against K4b's outputs.
+                Checks outputs and that every launch counter moved by
+                exactly the expected amount; prints tiles/s per route over
+                the requests after the first (batches: the second call).
   5. e2e      - one 336x336 image through every route on the card and
                 through the fp32 CPU route, with the same weights and
                 queries: argmax agreement >= 0.95 between routes and with
@@ -41,7 +51,13 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 RS_OV_FUSED_ATTN=1 against 0 on the card, >= 0.99; (b) in fp32
                 on the card against the CPU, >= 0.99; (a), (b) and (c) in bf16
                 against the CPU, >= 0.95 (with the share of CTD's DBSCAN
-                labels that agree between the runs of (b)).
+                labels that agree between the runs of (b)); (d) against the
+                split channel-last route, >= 0.99, and against the CPU, >=
+                0.95; jbu_stack with fused range against the CPU, >= 0.95;
+                predict_batch_raw of two copies of the image and another
+                against predict_raw of each, >= 0.999 per image, and the same
+                with path (b)'s cross-tile fusion, >= 0.99 in fp32 and >= 0.95
+                in bf16.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -68,6 +84,8 @@ CARD = {}
 # bound is one or two bf16 flips of an output (a step is 2^-8 of the value).
 # For every kernel and shape, the plain version without its last tap, on the
 # same inputs, is printed beside the bound, and must land above it.
+# K5a and K5b take K2's and K3's bounds, K4c and K4d K4b's in fp32 and K4a's
+# with a bf16 input.
 K1_TOL, K2_TOL, K3_TOL, K4B_TOL, K4A_TOL = 1e-5, 1e-2, 1e-3, 1e-5, 1e-2
 B, D, K, C, G, Q = 2, 11, 32, 512, 3, 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -136,14 +154,17 @@ def _bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _epilogue_bound(h, w, with_classify, d=D):
-    """K2 / K3 at B, C, G (fixup MLP width d*d): bytes of every input read
-    once and the output written once; the conv and the classify products
-    have bf16 operands, the tap softmax and the fixup MLP fp32."""
+def _epilogue_bound(h, w, with_classify, d=D, fused=False):
+    """K2 / K3 (or K5a / K5b with ``fused``) at B, C, G, K (fixup MLP width
+    d*d): bytes of every input read once and the output written once; the
+    conv and the classify products have bf16 operands, the range logits, the
+    tap softmax and the fixup MLP fp32. K2/K3 read the padded source and the
+    logits, K5 the unpadded source and the projection."""
     dd, px = d * d, B * h * w
-    nbytes = (B * (h + d - 1) * (w + d - 1) * C * 2 + px * dd * 4 + px * G * 2
-              + (dd * (dd + G) + dd * dd + 2 * dd + 1) * 4)
-    fp32_ops = px * (6 * dd + 2 * dd * (dd + G) + 2 * dd * dd)
+    nbytes = ((px * C * 2 + px * K * 4) if fused
+              else (B * (h + d - 1) * (w + d - 1) * C * 2 + px * dd * 4))
+    nbytes += px * G * 2 + (dd * (dd + G) + dd * dd + 2 * dd + 1) * 4
+    fp32_ops = px * (6 * dd + 2 * dd * (dd + G) + 2 * dd * dd + (2 * dd * K if fused else 0))
     bf16_ops = 2 * px * dd * C
     if with_classify:
         nbytes += C * C * 2 + C * 4 + Q * C * 2 + px * Q * 4
@@ -173,23 +194,29 @@ def _epilogue_inputs(rng, h, w, dev, d=D):
         b1=t(rng.randn(dd) * 0.1, bf))
 
 
-def _check(label, tol, kernel, plain, faulty, bound, dropped="tap"):
+def _check(label, tol, kernel, plain, faulty, bound, dropped="tap", faults=()):
     """kernel() against plain() as max|d|/max|ref|, beside faulty(): the plain
-    version with its last tap (or key) dropped, on the same inputs, which
-    must land above the bound. Returns the row's measured numbers."""
+    version with its last tap (or key) dropped, on the same inputs, and each
+    (name, fault) of ``faults``, all of which must land above the bound.
+    Returns the row's measured numbers."""
     got, ref, bad = kernel().float(), plain().float(), faulty().float()
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
     err = (got - ref).abs().max().item()
     rel, fault_rel = err / scale, (bad - ref).abs().max().item() / scale
+    more = {name: (fn().float() - ref).abs().max().item() / scale for name, fn in faults}
     ms, plain_ms = _timed_pair(kernel, plain)
+    shown = "".join(f"; with {name} {v:.3e}" for name, v in more.items())
     print(f"[kernels] {label}: max|d|={err:.3e} max|d|/max|ref|={rel:.3e} (tol {tol}; "
-          f"without the last {dropped} {fault_rel:.3e}; max|ref| {scale:.4g}) kernel {ms:.4f} ms "
-          f"plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms by {bound[1]}")
+          f"without the last {dropped} {fault_rel:.3e}{shown}; max|ref| {scale:.4g}) "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms by {bound[1]}")
     assert rel <= tol, f"{label} disagrees: {rel}"
     assert fault_rel > tol, f"{label}: the bound does not catch a dropped {dropped}: {fault_rel}"
+    for name, v in more.items():
+        assert v > tol, f"{label}: the bound does not catch {name}: {v}"
     return dict(max_abs_err=err, fault_rel=fault_rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                **{f"fault_rel_{name.replace(' ', '_')}": v for name, v in more.items()})
 
 
 def _row(name, source, replaces, checks):
@@ -292,7 +319,145 @@ def phase_kernels():
                                       "rs_ov_torch/csrc/jbu_epilogue.cu",
                                       "rs_ov/kernels/jbu_epilogue.py:333", k3)}
     rows.update(_adaptive_conv_kernels(rng, dev))
+    rows.update(_fused_range_kernels(rng, dev, tail))
+    rows.update(_adaptive_layout_kernels(rng, dev))
     rows["fused_selfself_attention"] = _selfself_attention_kernel(rng, dev)
+    return rows
+
+
+@contextlib.contextmanager
+def _zero_padding():
+    """The fused plain versions with zero padding in place of reflection."""
+    from rs_ov_torch.kernels import jbu_epilogue as mod
+
+    pad = mod._pad_nhwc
+    mod._pad_nhwc = lambda x, r: torch.nn.functional.pad(x, (0, 0, r, r, r, r))
+    try:
+        yield
+    finally:
+        mod._pad_nhwc = pad
+
+
+def _fused_inputs(rng, hw, dev, d):
+    """One fused-range stage's operands: the unpadded bf16 source, the fp32
+    projection [B, H, W, K] (scaled so that the tap softmax spreads over the
+    window) and the channel-first bf16 guidance; the rest as K2's."""
+    a = _epilogue_inputs(rng, hw, hw, dev, d)
+    del a["logits_t"], a["guid_t"]
+    a["inp"] = torch.from_numpy(rng.randn(B, hw, hw, C).astype(np.float32)).to(dev, torch.bfloat16)
+    a["proj"] = torch.from_numpy((rng.randn(B, hw, hw, K) * 0.3).astype(np.float32)).to(dev)
+    a["guid_cf"] = torch.from_numpy(rng.randn(B, G, hw, hw).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    return {k: a[k] for k in ("inp", "proj", "guid_cf", "spatial", "pos_temp",
+                              "w0", "b0", "w1", "b1")}
+
+
+def _split_stage(a, d, tail=None):
+    """The split route's stage on the fused operands, on the card: K1 on the
+    reflect-padded channel-first projection, the reflect-padded source, then
+    K2 (or K3 with the classify tail)."""
+    from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_classify
+    from rs_ov_torch.kernels.range_logits import range_logits
+    from rs_ov_torch.utils.resize import reflect_pad_2d, reflect_pad_nhwc
+
+    r = d // 2
+    pcf = a["proj"].permute(0, 3, 1, 2).contiguous()
+    logits = range_logits(reflect_pad_2d(pcf, r).contiguous(), pcf, d)
+    args = (reflect_pad_nhwc(a["inp"], r).contiguous(), logits.permute(0, 2, 3, 1).contiguous(),
+            a["guid_cf"].permute(0, 2, 3, 1).contiguous(), a["spatial"], a["pos_temp"],
+            a["w0"], a["b0"], a["w1"], a["b1"])
+    if tail is None:
+        return jbu_epilogue(*args, d)
+    return jbu_epilogue_classify(*args, **tail, diameter=d)
+
+
+def _fused_range_kernels(rng, dev, tail):
+    """K5a at K2's shapes (d=11 28^2, d=7 28^2 and 112^2) and K5b at K3's
+    (d=11 56^2, d=7 224^2), B=2, C=512, K=32, G=3, Q=8, within K2's and K3's
+    bounds of their plain versions, beside two faults (the last tap dropped;
+    zero padding in place of reflection); then against the split pair each
+    replaces (K1 + reflect pads + K2 / K3) on the card, within the same
+    bound, with the pair's time beside the kernel's."""
+    from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue_fused,
+                                                  jbu_epilogue_fused_classify,
+                                                  jbu_epilogue_fused_classify_plain,
+                                                  jbu_epilogue_fused_plain)
+
+    rows = {}
+    for key, tol, name, tpu_line, shapes, extra in (
+            ("K5a", K2_TOL, "jbu_epilogue_fused", "rs_ov/kernels/jbu_epilogue.py:640",
+             ((11, 28), (7, 28), (7, 112)), None),
+            ("K5b", K3_TOL, "jbu_epilogue_fused_classify", "rs_ov/kernels/jbu_epilogue.py:675",
+             ((11, 56), (7, 224)), tail)):
+        checks = []
+        for d, hw in shapes:
+            a = _fused_inputs(rng, hw, dev, d)
+            t = {} if extra is None else extra
+            if extra is None:
+                kernel = lambda: jbu_epilogue_fused(**a, diameter=d)  # noqa: E731
+                plain = lambda: jbu_epilogue_fused_plain(**a, diameter=d)  # noqa: E731
+            else:
+                kernel = lambda: jbu_epilogue_fused_classify(**a, **t, diameter=d)  # noqa: E731
+                plain = lambda: jbu_epilogue_fused_classify_plain(**a, **t, diameter=d)  # noqa: E731
+
+            def dropped():
+                with _epilogue_conv_without_last_tap():
+                    return plain()
+
+            def zero_padded():
+                with _zero_padding():
+                    return plain()
+
+            c = _check(f"{key} {name} d={d} H=W={hw}", tol, kernel, plain, dropped,
+                       _epilogue_bound(hw, hw, extra is not None, d, fused=True),
+                       faults=[("zero padding", zero_padded)])
+            split = lambda: _split_stage(a, d, extra)  # noqa: E731
+            got, ref = kernel().float(), split().float()
+            c["split_rel"] = (got - ref).abs().max().item() / ref.abs().max().item()
+            c["split_ms"] = _median_ms(split)
+            print(f"[kernels] {key} d={d} H=W={hw} against the split pair K1 + pads + "
+                  f"{'K3' if extra is not None else 'K2'}: max|d|/max|ref|={c['split_rel']:.3e} "
+                  f"(tol {tol}); split pair {c['split_ms']:.4f} ms, kernel {c['ms']:.4f} ms")
+            assert c["split_rel"] <= tol, f"{key} disagrees with the split pair"
+            checks.append((f"B={B} d={d} C={C} K={K} G={G}"
+                           + (f" Q={Q}" if extra is not None else "") + f" H=W={hw}", c))
+        rows[name] = _row(name, "rs_ov_torch/csrc/jbu_epilogue.cu", tpu_line, checks)
+    return rows
+
+
+def _adaptive_layout_kernels(rng, dev):
+    """K4c (planes) and K4d (channels-last) at K4b's shapes (B=2, C=512, d=11
+    at 56^2 and 28^2, d=7 at 56^2) in fp32, a bf16 input with fp32 taps at
+    d=11 56^2, and for K4d C=96 at d=7 56^2; fp32 within 1e-5, bf16 input
+    within 1e-2 of max|ref|, each beside the plain version with its last tap
+    dropped. fp32 products either way, so operations count at the fp32
+    rate."""
+    from rs_ov_torch.kernels.adaptive_conv import (adaptive_conv_cl, adaptive_conv_planes,
+                                                   adaptive_conv_tapmajor_plain)
+
+    f32, bf = torch.float32, torch.bfloat16
+    rows = {}
+    for key, name, fn, tpu_line, cases in (
+            ("K4c", "adaptive_conv_planes", adaptive_conv_planes,
+             "rs_ov/kernels/adaptive_conv.py:189", []),
+            ("K4d", "adaptive_conv_cl", adaptive_conv_cl,
+             "rs_ov/kernels/adaptive_conv.py:70", [(7, 56, 96, f32)])):
+        checks = []
+        for d, hw, c, dt_in in [(11, 56, C, f32), (11, 28, C, f32), (7, 56, C, f32),
+                                (11, 56, C, bf)] + cases:
+            inp = torch.from_numpy(rng.randn(B, c, hw + d - 1, hw + d - 1).astype(np.float32))
+            filt = torch.from_numpy(rng.randn(B, d * d, hw, hw).astype(np.float32))
+            inp, filt = inp.to(dev, dt_in), filt.to(dev)
+            nbytes = (inp.numel() + B * c * hw * hw) * inp.element_size() + filt.numel() * 4
+            tol = K4B_TOL if dt_in == f32 else K4A_TOL
+            checks.append((f"B={B} C={c} d={d} H=W={hw} inp {str(dt_in)[6:]} taps float32",
+                           _check(f"{key} {name} d={d} H=W={hw} C={c} inp {str(dt_in)[6:]}", tol,
+                                  lambda: fn(inp, filt, d),
+                                  lambda: adaptive_conv_tapmajor_plain(inp, filt, d),
+                                  lambda: adaptive_conv_tapmajor_plain(
+                                      inp, _last_tap_dropped(filt), d),
+                                  _bound(nbytes, fp32_ops=2 * B * c * hw * hw * d * d))))
+        rows[name] = _row(name, "rs_ov_torch/csrc/adaptive_conv_layouts.cu", tpu_line, checks)
     return rows
 
 
@@ -411,32 +576,36 @@ def _clearclip_cfg():
 
 
 KERNELS = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "adaptive_conv_bf16",
-           "adaptive_conv_f32", "fused_selfself_attention")
+           "adaptive_conv_f32", "fused_selfself_attention", "jbu_epilogue_fused",
+           "jbu_epilogue_fused_classify", "adaptive_conv_planes", "adaptive_conv_cl")
+
+
+def _counted():
+    """(module-level function, key of its launches dict or None) per kernel."""
+    from rs_ov_torch.kernels import adaptive_conv as ac
+    from rs_ov_torch.kernels import jbu_epilogue as epi
+    from rs_ov_torch.kernels.range_logits import range_logits
+    from rs_ov_torch.kernels.selfself_attention import fused_selfself_attention
+
+    return dict(zip(KERNELS, (
+        (range_logits, None), (epi.jbu_epilogue, None), (epi.jbu_epilogue_classify, None),
+        (ac.adaptive_conv_tapmajor, torch.bfloat16), (ac.adaptive_conv_tapmajor, torch.float32),
+        (fused_selfself_attention, None), (epi.jbu_epilogue_fused, None),
+        (epi.jbu_epilogue_fused_classify, None), (ac.adaptive_conv_planes, None),
+        (ac.adaptive_conv_cl, None))))
 
 
 def _launches():
-    from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_tapmajor
-    from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_classify
-    from rs_ov_torch.kernels.range_logits import range_logits
-    from rs_ov_torch.kernels.selfself_attention import fused_selfself_attention
-
-    return dict(zip(KERNELS, (range_logits.launches, jbu_epilogue.launches,
-                              jbu_epilogue_classify.launches,
-                              adaptive_conv_tapmajor.launches[torch.bfloat16],
-                              adaptive_conv_tapmajor.launches[torch.float32],
-                              fused_selfself_attention.launches)))
+    return {k: (fn.launches if key is None else fn.launches[key])
+            for k, (fn, key) in _counted().items()}
 
 
 def _reset_launches():
-    from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_tapmajor
-    from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_classify
-    from rs_ov_torch.kernels.range_logits import range_logits
-    from rs_ov_torch.kernels.selfself_attention import fused_selfself_attention
-
-    range_logits.launches = jbu_epilogue.launches = jbu_epilogue_classify.launches = 0
-    fused_selfself_attention.launches = 0
-    for dt in adaptive_conv_tapmajor.launches:
-        adaptive_conv_tapmajor.launches[dt] = 0
+    for fn, key in _counted().values():
+        if key is None:
+            fn.launches = 0
+        else:
+            fn.launches[key] = 0
 
 
 @contextlib.contextmanager
@@ -453,6 +622,24 @@ def _env(name, value):
             os.environ[name] = old
 
 
+def _check_results(route, seg, results):
+    for res in results:
+        probs, pred = res["seg_logits"], res["pred_sem_seg"]
+        assert tuple(pred.shape) == (1, 512, 512), pred.shape
+        assert tuple(probs.shape) == (seg.num_classes, 512, 512), probs.shape
+        assert bool(torch.isfinite(probs).all()), f"{route}: non-finite probabilities"
+        assert 0 <= int(pred.min()) and int(pred.max()) < seg.num_classes, "label range"
+
+
+def _expect_launches(route, n_images, want):
+    launches = _launches()
+    want = {k: want.get(k, 0) for k in KERNELS}
+    print(f"[slice] {route}: launches over {n_images} image(s) {launches} "
+          f"(expected {want})")
+    assert launches == want, (route, launches, want)
+    return launches
+
+
 def _drive(route, seg, images, want):
     """predict_raw on each image with every launch counter at 0 before and
     read after; checks the outputs and the counts; prints the tiles/s of the
@@ -461,22 +648,76 @@ def _drive(route, seg, images, want):
     secs = []
     for img in images:
         t0 = time.perf_counter()
-        res = seg.predict_raw(img)[0]
+        res = seg.predict_raw(img)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        probs, pred = res["seg_logits"], res["pred_sem_seg"]
-        assert tuple(pred.shape) == (1, 512, 512), pred.shape
-        assert tuple(probs.shape) == (seg.num_classes, 512, 512), probs.shape
-        assert bool(torch.isfinite(probs).all()), f"{route}: non-finite probabilities"
-        assert 0 <= int(pred.min()) and int(pred.max()) < seg.num_classes, "label range"
-    launches = _launches()
-    want = {k: want.get(k, 0) for k in KERNELS}
-    print(f"[slice] {route}: launches over {len(images)} image(s) {launches} "
-          f"(expected {want})")
-    assert launches == want, (route, launches, want)
+        _check_results(route, seg, res)
+    launches = _expect_launches(route, len(images), want)
     steady = float(np.median(secs[1:] if len(secs) > 1 else secs))
     print(f"[slice] {route}: request seconds {[round(x, 4) for x in secs]}; "
           f"{16 / steady:.2f} tiles/s (16 crops of 224 per 512x512 image) on {CARD['smi']}")
+    return launches
+
+
+def _drive_batch(route, seg, images, want):
+    """predict_batch_raw on all images as one batch, twice: the counters are
+    set to 0 before the second call and read after it, and the second call
+    is timed."""
+    batch = np.concatenate(images)
+    seg.predict_batch_raw(batch)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = seg.predict_batch_raw(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert len(res) == len(images)
+    _check_results(route, seg, res)
+    launches = _expect_launches(route, len(images), want)
+    n = 16 * len(images)
+    print(f"[slice] {route}: {secs:.4f} s for the batch; {n / secs:.2f} tiles/s "
+          f"({n} crops of 224) on {CARD['smi']}")
+    return launches
+
+
+@contextlib.contextmanager
+def _recording(module, name):
+    """Record (args, result) of every call of ``module.name``."""
+    fn, calls = getattr(module, name), []
+
+    def recording(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def _drive_entry_points(seg, image):
+    """K4c and K4d are the adaptive conv's own entry points, which no request
+    calls (as in the JAX package): they are driven on the stage operands of
+    one fp32 channel-first request, recorded at its adaptive conv (K4b), and
+    held against K4b's outputs (1e-5 of max|ref|)."""
+    from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_cl, adaptive_conv_planes
+    from rs_ov_torch.upsample import jbu
+
+    with _recording(jbu, "adaptive_conv_tapmajor") as calls:
+        seg.predict_raw(image)
+    _reset_launches()
+    worst = 0.0
+    for (inp, filt, d), ref in calls:
+        for fn in (adaptive_conv_planes, adaptive_conv_cl):
+            worst = max(worst, ((fn(inp, filt, d) - ref).abs().max() / ref.abs().max()).item())
+    torch.cuda.synchronize()
+    route = "entry points K4c K4d on one fp32 channel-first request's stage operands"
+    launches = _expect_launches(route, 1, {"adaptive_conv_planes": len(calls),
+                                           "adaptive_conv_cl": len(calls)})
+    print(f"[slice] {route}: {len(calls)} stages, max|d|/max|K4b| {worst:.3e} (tol {K4B_TOL})")
+    assert worst <= K4B_TOL, worst
     return launches
 
 
@@ -491,8 +732,8 @@ def phase_slice(rows):
     print(f"[slice] SegmentorEx built in {time.perf_counter() - t0:.2f} s: "
           f"{seg.cfg.vision.width} wide, {seg.cfg.vision.layers} layers, "
           f"Q={seg.num_queries}, {seg.num_classes} classes, stages={seg.jbu_stages}, "
-          f"tile_chunk={seg.tile_chunk}, dtype={seg.param_dtype}")
-    assert 16 // seg.tile_chunk == CHUNKS
+          f"tile_chunk={seg._chunk_size()}, dtype={seg.param_dtype}")
+    assert 16 // seg._chunk_size() == CHUNKS
     qf = seg.query_features.cpu().numpy()
     segs = {"base": seg,
             "base fp32": SegmentorEx(**_base_model_cfg(), param_dtype=torch.float32,
@@ -528,10 +769,27 @@ def phase_slice(rows):
         by_path["(c) ClearCLIP"] = _drive(
             "(c) ClearCLIP + layer fusion + outlier suppression, RS_OV_FUSED_ATTN=1 "
             "(K6 K1 K2 K3)", segs["clearclip"], images, k6)
+    fused = {"jbu_epilogue_fused": 3 * (s - 1) * CHUNKS, "jbu_epilogue_fused_classify": 3 * CHUNKS}
+    with _env("RS_OV_JBU_FUSED_RANGE", "1"):
+        by_path["(d) fused range"] = _drive(
+            "(d) base config, RS_OV_JBU_FUSED_RANGE=1 (K5a K5b)", seg, images, fused)
+        by_path["jbu_stack fused range"] = _drive(
+            "jbu_stack 4 stages, RS_OV_JBU_FUSED_RANGE=1 (K5a K5b at d=7)", segs["jbu_stack"],
+            images[:2], {"jbu_epilogue_fused": 2 * 3 * CHUNKS,
+                         "jbu_epilogue_fused_classify": 2 * CHUNKS})
+        by_path["batch, fused range"] = _drive_batch(
+            "predict_batch_raw of 3 images, RS_OV_JBU_FUSED_RANGE=1 (K5a K5b)", seg, images,
+            fused)
+    by_path["batch"] = _drive_batch("predict_batch_raw of 3 images (K1 K2 K3)", seg, images,
+                                    channel_last)
+    by_path["entry points"] = _drive_entry_points(segs["base fp32"], images[0])
     own = {"range_logits": "bf16 channel-last", "jbu_epilogue": "bf16 channel-last",
            "jbu_epilogue_classify": "bf16 channel-last",
            "adaptive_conv_f32": "fp32 channel-first", "adaptive_conv_bf16": "bf16 channel-first",
-           "fused_selfself_attention": "(a) fused attention"}
+           "fused_selfself_attention": "(a) fused attention",
+           "jbu_epilogue_fused": "(d) fused range",
+           "jbu_epilogue_fused_classify": "(d) fused range",
+           "adaptive_conv_planes": "entry points", "adaptive_conv_cl": "entry points"}
     for k in KERNELS:
         rows[k]["launches"] = by_path[own[k]][k]
         rows[k]["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
@@ -543,18 +801,10 @@ def _dbscan_labels():
     """Record the labels of every CTD clustering the segmentors run."""
     from rs_ov_torch.pipeline import segmentor as mod
 
-    fn, labels = mod.cluster_patch_tokens_dbscan, []
-
-    def recording(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        labels.append(out[1].cpu())
-        return out
-
-    mod.cluster_patch_tokens_dbscan = recording
-    try:
+    with _recording(mod, "cluster_patch_tokens_dbscan") as calls:
+        labels = []
         yield labels
-    finally:
-        mod.cluster_patch_tokens_dbscan = fn
+    labels += [out[1].cpu() for _, out in calls]
 
 
 def phase_e2e(segs):
@@ -579,6 +829,17 @@ def phase_e2e(segs):
         with _dbscan_labels() as labels["(b) fp32"]:
             out["(b) fp32"] = stack32.predict_raw(img)[0]
         out["(c) bf16"] = segs["clearclip"].predict_raw(img)[0]
+    with _env("RS_OV_JBU_FUSED_RANGE", "1"):
+        out["(d) fused range"] = segs["base"].predict_raw(img)[0]
+        out["jbu_stack fused range"] = segs["jbu_stack"].predict_raw(img)[0]
+    other = np.random.RandomState(3).randint(0, 256, (1, 336, 336, 3), np.uint8)
+    batch = np.concatenate([img, img, other])
+    # path (b) in bf16 sums its GEMMs differently at another batch size, and
+    # its chain of thresholds amplifies that as it does against the CPU
+    for name, seg in (("base", segs["base"]), ("(b) fp32", stack32), ("(b) bf16", segs["stack"])):
+        one = [seg.predict_raw(x[None])[0] for x in batch]
+        for i, res in enumerate(seg.predict_batch_raw(batch)):
+            out[f"{name} batch {i}"], out[f"{name} single {i}"] = res, one[i]
     t0 = time.perf_counter()
     cpu = dict(device="cpu", query_features=qf)
     out["fp32 CPU"] = SegmentorEx(**_base_model_cfg(), **cpu).predict_raw(img)[0]
@@ -600,7 +861,13 @@ def phase_e2e(segs):
                        ("(b) fp32", "(b) fp32 CPU", 0.99),
                        ("(a) bf16", "fp32 CPU", 0.95),
                        ("(b) bf16", "(b) fp32 CPU", 0.95),
-                       ("(c) bf16", "(c) fp32 CPU", 0.95)):
+                       ("(c) bf16", "(c) fp32 CPU", 0.95),
+                       ("(d) fused range", "bf16 channel-last", 0.99),
+                       ("(d) fused range", "fp32 CPU", 0.95),
+                       ("jbu_stack fused range", "jbu_stack 4 stages fp32 CPU", 0.95),
+                       *((f"base batch {i}", f"base single {i}", 0.999) for i in range(3)),
+                       *((f"(b) fp32 batch {i}", f"(b) fp32 single {i}", 0.99) for i in range(3)),
+                       *((f"(b) bf16 batch {i}", f"(b) bf16 single {i}", 0.95) for i in range(3))):
         pa, pb = out[a]["pred_sem_seg"].cpu(), out[b]["pred_sem_seg"].cpu()
         agree = (pa == pb).float().mean().item()
         dprob = (out[a]["seg_logits"].cpu() - out[b]["seg_logits"].cpu()).abs().max().item()

@@ -40,7 +40,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using rs_ov::from_f32;
+using rs_ov::to_f32;
 
 constexpr int TW = 64;       // output columns per block
 constexpr int CT = 64;       // channels per block
@@ -48,14 +53,6 @@ constexpr int NT = 256;      // threads: 16 pixel groups x 16 channel groups
 constexpr int P = 4;         // pixels per thread
 constexpr int CC = 4;        // channels per thread
 constexpr int NG = TW / P;   // pixel groups
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __host__ __device__ inline int taps_padded(int d) { return (d + 3) / 4 * 4; }
 // staged input row length: the last float4 a thread reads ends at column

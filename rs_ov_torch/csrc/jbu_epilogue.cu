@@ -1,7 +1,9 @@
-// JBU stage epilogue (K2) and its classify variant (K3) on Hopper (sm_90a).
+// JBU stage epilogue (K2) and its classify variant (K3), and the fused-range
+// stage (K5a) and its classify variant (K5b), on Hopper (sm_90a).
 //
 // Replaces the TPU kernels rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_pallas
-// (nhwc=True) and :jbu_epilogue_classify_pallas. Per output pixel:
+// (nhwc=True), :jbu_epilogue_classify_pallas, :jbu_epilogue_fused_pallas and
+// :jbu_epilogue_fused_classify_pallas. Per output pixel:
 //
 //   comb  = softmax_t(logits * temp) * spatial;  comb /= max(sum_t comb, 1e-7)
 //   fix   = W1 gelu(W0 [bf16(comb), guid] + b0) + b1
@@ -11,19 +13,36 @@
 //   K3:  yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
 //        rb = bf16(res * rsqrt(max(|res|^2, 1e-24)));  logits[q] = rb . bf16(Q[q])
 //
-// The casts sit where the TPU kernel puts them. The TPU kernel's lane
-// artefacts (taps padded to 128 lanes, Q <= 128, d <= 17, 16 x 112 tiles, the
-// rational erf) are not carried over: d, G, C and Q are runtime values and the
-// GELU uses erff.
+// K5a / K5b are K2 / K3 for a whole stage: they take the UNpadded source
+// [B, H, W, C] and the range projection proj [B, H, W, K] fp32, compute
+//   logits[t] = sum_k proj[h, w, k] * proj[h+u-r, w+v-r, k]      (fp32)
+// and read the source at h+u-r, w+v-r, both at reflected indices
+// (i < 0 -> -i, i >= n -> 2n-2-i, which needs r <= n-1): the split route's
+// range-logits kernel K1, its [B, H, W, d*d] logits round trip through
+// device memory and both reflect pads disappear. Their guidance arrives
+// channel-first, [B, G, H, W].
+//
+// The casts sit where the TPU kernels put them. The TPU kernels' lane
+// artefacts (taps padded to 128 lanes, Q <= 128, d <= 17, K <= 128, 16 x 112
+// tiles, the rational erf) are not carried over: d, K, G, C and Q are
+// runtime values and the GELU uses erff.
 //
 // What bounds it on the H100, at the main-path shapes (B=2, d=11, C=512,
-// G=3): K2 at H=W=28 reads the padded bf16 source (2*38*38*512*2 B = 3.0 MB)
-// and writes 1.6 MB, for 2*784*(121*512 + 30k) = 0.14 G multiply-adds; K3 at
-// H=W=56 adds the 512 x 512 fixup product per pixel, 2*3136*512*512 = 1.6 G
-// multiply-adds, which makes K3 compute-bound on the fp32 cores in this
+// G=3, K=32): K2 at H=W=28 reads the padded bf16 source (2*38*38*512*2 B =
+// 3.0 MB) and writes 1.6 MB, for 2*784*(121*512 + 30k) = 0.14 G multiply-adds;
+// K3 at H=W=56 adds the 512 x 512 fixup product per pixel, 2*3136*512*512 =
+// 1.6 G multiply-adds, which makes K3 compute-bound on the fp32 cores in this
 // first version (no tensor cores yet: a later PR moves the products to wgmma).
+// K5 adds d*d*K = 3.9k fp32 multiply-adds per pixel to K2's 62k and saves
+// K1's launch, the logits' write and read (3 MB at 56^2) and the pads.
 //
 // Design: one block of 256 threads per (b, row h, strip of 16 pixels).
+//   Phase 0 (K5 only, range logits): the strip's projection window,
+//     d rows x (16+d-1) columns x K, is staged in shared memory at reflected
+//     indices (K padded to an odd stride, so that lanes reading different taps
+//     at one k hit different banks; 37 KB at d=11, K=32); one warp per pixel
+//     then takes its d*d dot products over K, into the comb' buffer. The
+//     window shares its shared memory with phase 1's scratch.
 //   Phase 1 (comb'): one warp per pixel for the tap softmax and normalisation,
 //     then the two fixup 1x1 convs with threads over (pixel, output) pairs;
 //     comb' lands in shared memory [16][d*d] as bf16-rounded floats.
@@ -31,7 +50,8 @@
 //     warp reads 128 consecutive bytes of one source pixel); each source
 //     pixel of the strip's d x (16+d-1) window is loaded once and feeds every
 //     output pixel whose window covers it, summing taps in order t = 0..d*d-1.
-//   K3 tail: y goes to shared memory as bf16; the fixup product runs with
+//     K5 reads the unpadded source at reflected rows and columns.
+//   K3 / K5b tail: y goes to shared memory as bf16; the fixup product runs with
 //     threads over output-channel pairs reading the transposed weight
 //     [C_in][C_out] through L2 (512 KB at C=512); one warp per pixel reduces
 //     the L2 norm; one warp per (pixel, query) takes each cosine dot product.
@@ -47,17 +67,22 @@ constexpr int NT = 256;  // threads per block
 constexpr int NWARP = NT / 32;
 
 struct EpiArgs {
-  const __nv_bfloat16* inp;  // [B, H+d-1, W+d-1, C]
-  const float* logits;       // [B, H, W, d*d]
-  const __nv_bfloat16* guid; // [B, H, W, G]
+  const __nv_bfloat16* inp;  // K2/K3: [B, H+d-1, W+d-1, C]; K5: [B, H, W, C]
+  const float* logits;       // K2/K3: [B, H, W, d*d]; K5: unused
+  const float* proj;         // K5: [B, H, W, K]; K2/K3: unused
+  const __nv_bfloat16* guid; // K2/K3: [B, H, W, G]; K5: [B, G, H, W]
   const float* spatial;      // [d*d]
   const float* temp;         // [1]
   const float* w0;           // [cmid, d*d+G]
   const float* b0;           // [cmid]
   const float* w1;           // [d*d, cmid]
   const float* b1;           // [d*d]
-  int H, W, C, G, cmid, d;
+  int H, W, C, G, cmid, d, K;
 };
+
+__device__ __forceinline__ int reflect(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -79,7 +104,43 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
-// Phase 1: comb' of the strip's PIX pixels into s_comb [PIX][d*d].
+__host__ __device__ inline int window_stride(int K) { return K | 1; }
+
+// Phase 0 (K5): the raw range logits of the strip's PIX pixels into
+// s_lg [PIX][d*d], from the projection window staged in s_win
+// [d][PIX+d-1][K|1] at reflected indices (zeros past the right edge's reach,
+// which only pixels past W read).
+__device__ void range_phase(const EpiArgs& a, int b, int h, int w0,
+                            float* s_lg, float* s_win) {
+  const int d = a.d, r = d / 2, dd = d * d, K = a.K, ks = window_stride(K);
+  const int nx = PIX + d - 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < d * nx * K; i += NT) {
+    const int k = i % K, x = (i / K) % nx, u = i / (K * nx);
+    const int col = w0 - r + x;
+    float v = 0.f;
+    if (col <= a.W - 1 + r) {
+      const int hr = reflect(h - r + u, a.H), wr = reflect(col, a.W);
+      v = a.proj[(((size_t)b * a.H + hr) * a.W + wr) * K + k];
+    }
+    s_win[(u * nx + x) * ks + k] = v;
+  }
+  __syncthreads();
+  for (int p = warp; p < PIX; p += NWARP) {
+    const float* ctr = s_win + (r * nx + p + r) * ks;
+    for (int t = lane; t < dd; t += 32) {
+      const float* nb = s_win + ((t / d) * nx + p + t % d) * ks;
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) acc = fmaf(ctr[k], nb[k], acc);
+      s_lg[p * dd + t] = acc;
+    }
+  }
+  __syncthreads();  // phase 1 overwrites the window
+}
+
+// Phase 1: comb' of the strip's PIX pixels into s_comb [PIX][d*d]. K5 finds
+// its logits in s_comb already (phase 0), K2/K3 read them from a.logits.
+template <bool kFused>
 __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
                            float* s_comb, float* s_x, float* s_mid) {
   const int dd = a.d * a.d, nx = dd + a.G;
@@ -95,7 +156,7 @@ __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
       for (int i = lane; i < nx; i += 32) x[i] = 0.f;
       continue;
     }
-    const float* lg = a.logits + (((size_t)b * a.H + h) * a.W + w) * dd;
+    const float* lg = kFused ? c : a.logits + (((size_t)b * a.H + h) * a.W + w) * dd;
     float m = -INFINITY;
     for (int t = lane; t < dd; t += 32) {
       const float s = lg[t] * temp;
@@ -122,8 +183,11 @@ __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
       c[t] = v;
       x[t] = bf16_round(v);  // comb -> guidance dtype for the fixup input
     }
-    const __nv_bfloat16* g = a.guid + (((size_t)b * a.H + h) * a.W + w) * a.G;
-    for (int i = lane; i < a.G; i += 32) x[dd + i] = __bfloat162float(g[i]);
+    for (int i = lane; i < a.G; i += 32) {
+      const size_t gi = kFused ? (((size_t)b * a.G + i) * a.H + h) * a.W + w
+                               : (((size_t)b * a.H + h) * a.W + w) * a.G + i;
+      x[dd + i] = __bfloat162float(a.guid[gi]);
+    }
   }
   __syncthreads();
 
@@ -152,23 +216,27 @@ __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
 }
 
 // Phase 2: adaptive conv of the strip; emit(c2, acc0, acc1) receives the fp32
-// sums of channels 2*c2 and 2*c2+1 for every pixel of the strip.
-template <typename Emit>
+// sums of channels 2*c2 and 2*c2+1 for every pixel of the strip. K2/K3 read
+// the padded source at (h+u, w0+x), K5 the unpadded one at the reflected
+// (h+u-r, w0+x-r).
+template <bool kFused, typename Emit>
 __device__ __forceinline__ void conv_phase(const EpiArgs& a, int b, int h, int w0,
                            const float* s_comb, Emit emit) {
-  const int d = a.d, dd = d * d, C2 = a.C / 2;
-  const int Hp = a.H + d - 1, Wp = a.W + d - 1;
-  const int nxw = min(PIX + d - 1, Wp - w0);
+  const int d = a.d, r = d / 2, dd = d * d, C2 = a.C / 2;
+  const int Hs = kFused ? a.H : a.H + d - 1, Ws = kFused ? a.W : a.W + d - 1;
+  const int nxw = min(PIX + d - 1, a.W + d - 1 - w0);
   const __nv_bfloat162* in2 = reinterpret_cast<const __nv_bfloat162*>(a.inp);
   for (int c2 = threadIdx.x; c2 < C2; c2 += NT) {
     float acc0[PIX], acc1[PIX];
 #pragma unroll
     for (int p = 0; p < PIX; ++p) acc0[p] = acc1[p] = 0.f;
     for (int u = 0; u < d; ++u) {
-      const __nv_bfloat162* row = in2 + (((size_t)b * Hp + h + u) * Wp + w0) * C2 + c2;
+      const int hs = kFused ? reflect(h + u - r, a.H) : h + u;
+      const __nv_bfloat162* row = in2 + ((size_t)b * Hs + hs) * Ws * C2 + c2;
       const float* cu = s_comb + u * d;
       for (int x = 0; x < nxw; ++x) {
-        const float2 val = __bfloat1622float2(row[(size_t)x * C2]);
+        const int ws = kFused ? reflect(w0 + x - r, a.W) : w0 + x;
+        const float2 val = __bfloat1622float2(row[(size_t)ws * C2]);
 #pragma unroll
         for (int p = 0; p < PIX; ++p) {
           const int v = x - p;
@@ -189,6 +257,14 @@ __host__ __device__ inline size_t phase1_floats(int d, int G, int cmid) {
   return (size_t)PIX * (dd + dd + G + cmid);
 }
 
+// K5's shared memory: comb' beside the larger of the epilogue's own floats
+// past it and the projection window, which lies where phase 1's scratch will
+inline size_t fused_floats(size_t epilogue_floats, int d, int K) {
+  const size_t window = (size_t)PIX * d * d + (size_t)d * (PIX + d - 1) * window_stride(K);
+  return epilogue_floats > window ? epilogue_floats : window;
+}
+
+template <bool kFused>
 __global__ void __launch_bounds__(NT)
 jbu_epilogue_kernel(EpiArgs a, __nv_bfloat16* __restrict__ out) {
   extern __shared__ float smem[];
@@ -198,11 +274,12 @@ jbu_epilogue_kernel(EpiArgs a, __nv_bfloat16* __restrict__ out) {
   float* s_mid = s_x + PIX * (dd + a.G);
   const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * PIX;
 
-  comb_phase(a, b, h, w0, s_comb, s_x, s_mid);
+  if constexpr (kFused) range_phase(a, b, h, w0, s_comb, s_x);
+  comb_phase<kFused>(a, b, h, w0, s_comb, s_x, s_mid);
 
   const int C2 = a.C / 2;
   __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-  conv_phase(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
+  conv_phase<kFused>(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
 #pragma unroll
     for (int p = 0; p < PIX; ++p)
       if (w0 + p < a.W)
@@ -211,6 +288,7 @@ jbu_epilogue_kernel(EpiArgs a, __nv_bfloat16* __restrict__ out) {
   });
 }
 
+template <bool kFused>
 __global__ void __launch_bounds__(NT)
 jbu_epilogue_classify_kernel(EpiArgs a, const __nv_bfloat16* __restrict__ fwt,
                              const float* __restrict__ fb,
@@ -227,8 +305,9 @@ jbu_epilogue_classify_kernel(EpiArgs a, const __nv_bfloat16* __restrict__ fwt,
   const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * PIX;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  comb_phase(a, b, h, w0, s_comb, s_x, s_mid);
-  conv_phase(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
+  if constexpr (kFused) range_phase(a, b, h, w0, s_comb, s_x);
+  comb_phase<kFused>(a, b, h, w0, s_comb, s_x, s_mid);
+  conv_phase<kFused>(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
 #pragma unroll
     for (int p = 0; p < PIX; ++p) s_y[p * C2 + c2] = __floats2bfloat162_rn(acc0[p], acc1[p]);
   });
@@ -296,6 +375,32 @@ int set_smem(Kernel kernel, size_t bytes) {
                                    (int)bytes);
 }
 
+template <bool kFused>
+int launch_epilogue(const EpiArgs& a, void* out, int B, cudaStream_t stream) {
+  size_t floats = phase1_floats(a.d, a.G, a.cmid);
+  if (kFused) floats = fused_floats(floats, a.d, a.K);
+  const size_t smem = floats * sizeof(float);
+  if (int err = set_smem(jbu_epilogue_kernel<kFused>, smem)) return err;
+  dim3 grid((a.W + PIX - 1) / PIX, a.H, B);
+  jbu_epilogue_kernel<kFused><<<grid, NT, smem, stream>>>(a, static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <bool kFused>
+int launch_classify(const EpiArgs& a, const void* fwt, const float* fb, const void* qf,
+                    float* out, int B, int Q, cudaStream_t stream) {
+  // s_inv [PIX] and s_y, s_r [PIX][C] bf16 after phase 1's floats
+  size_t floats = phase1_floats(a.d, a.G, a.cmid) + PIX + (size_t)PIX * a.C;
+  if (kFused) floats = fused_floats(floats, a.d, a.K);
+  const size_t smem = floats * sizeof(float);
+  if (int err = set_smem(jbu_epilogue_classify_kernel<kFused>, smem)) return err;
+  dim3 grid((a.W + PIX - 1) / PIX, a.H, B);
+  jbu_epilogue_classify_kernel<kFused><<<grid, NT, smem, stream>>>(
+      a, static_cast<const __nv_bfloat16*>(fwt), fb,
+      static_cast<const __nv_bfloat16*>(qf), Q, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rs_jbu_epilogue(const void* inp, const float* logits, const void* guid,
@@ -304,14 +409,10 @@ extern "C" int rs_jbu_epilogue(const void* inp, const float* logits, const void*
                                const float* b1, void* out,
                                int B, int H, int W, int C, int G, int cmid, int d,
                                cudaStream_t stream) {
-  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), logits,
+  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), logits, nullptr,
             static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
-            H, W, C, G, cmid, d};
-  const size_t smem = phase1_floats(d, G, cmid) * sizeof(float);
-  if (int err = set_smem(jbu_epilogue_kernel, smem)) return err;
-  dim3 grid((W + PIX - 1) / PIX, H, B);
-  jbu_epilogue_kernel<<<grid, NT, smem, stream>>>(a, static_cast<__nv_bfloat16*>(out));
-  return (int)cudaGetLastError();
+            H, W, C, G, cmid, d, 0};
+  return launch_epilogue<false>(a, out, B, stream);
 }
 
 extern "C" int rs_jbu_epilogue_classify(const void* inp, const float* logits,
@@ -322,15 +423,34 @@ extern "C" int rs_jbu_epilogue_classify(const void* inp, const float* logits,
                                         const float* fb, const void* qf, float* out,
                                         int B, int H, int W, int C, int G, int cmid,
                                         int d, int Q, cudaStream_t stream) {
-  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), logits,
+  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), logits, nullptr,
             static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
-            H, W, C, G, cmid, d};
-  const size_t smem = (phase1_floats(d, G, cmid) + PIX) * sizeof(float) +
-                      2 * (size_t)PIX * C * sizeof(__nv_bfloat16);
-  if (int err = set_smem(jbu_epilogue_classify_kernel, smem)) return err;
-  dim3 grid((W + PIX - 1) / PIX, H, B);
-  jbu_epilogue_classify_kernel<<<grid, NT, smem, stream>>>(
-      a, static_cast<const __nv_bfloat16*>(fwt), fb,
-      static_cast<const __nv_bfloat16*>(qf), Q, out);
-  return (int)cudaGetLastError();
+            H, W, C, G, cmid, d, 0};
+  return launch_classify<false>(a, fwt, fb, qf, out, B, Q, stream);
+}
+
+extern "C" int rs_jbu_epilogue_fused(const void* inp, const float* proj, const void* guid,
+                                     const float* spatial, const float* temp,
+                                     const float* w0, const float* b0, const float* w1,
+                                     const float* b1, void* out,
+                                     int B, int H, int W, int C, int G, int cmid, int d,
+                                     int K, cudaStream_t stream) {
+  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), nullptr, proj,
+            static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
+            H, W, C, G, cmid, d, K};
+  return launch_epilogue<true>(a, out, B, stream);
+}
+
+extern "C" int rs_jbu_epilogue_fused_classify(const void* inp, const float* proj,
+                                              const void* guid, const float* spatial,
+                                              const float* temp, const float* w0,
+                                              const float* b0, const float* w1,
+                                              const float* b1, const void* fwt,
+                                              const float* fb, const void* qf, float* out,
+                                              int B, int H, int W, int C, int G, int cmid,
+                                              int d, int K, int Q, cudaStream_t stream) {
+  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), nullptr, proj,
+            static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
+            H, W, C, G, cmid, d, K};
+  return launch_classify<true>(a, fwt, fb, qf, out, B, Q, stream);
 }

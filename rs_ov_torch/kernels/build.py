@@ -42,8 +42,15 @@ _SIGNATURES = {
     "rs_jbu_epilogue_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_jbu_epilogue_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_jbu_epilogue_fused_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_planes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_cl": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_selfself_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }

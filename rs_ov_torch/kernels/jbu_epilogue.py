@@ -13,13 +13,25 @@ tail (rs_ov/kernels/jbu_epilogue.py:121-134): yb = out -> dtype; res =
 ((yb @ Wf^T + bf) * 0.1) -> dtype + yb; L2 normalisation (rsqrt, clamp
 1e-24) -> dtype; cosine logits against the queries with fp32 sums.
 
+``jbu_epilogue_fused`` and ``jbu_epilogue_fused_classify`` are the whole
+stage of the fused-range route (rs_ov/kernels/jbu_epilogue.py:456-718): from
+the UNpadded source ``inp [B, H, W, C]`` and range projection ``proj
+[B, H, W, K]`` they compute the logits themselves,
+
+    logits[p, u*d+v] = sum_k proj[h, w, k] * proj[h+u-r, w+v-r, k]
+
+at reflected indices (i < 0 -> -i, i >= n -> 2n-2-i), and reflect-pad the
+source inside, then continue as the two above. The guidance comes
+channel-first, ``guid_cf [B, G, H, W]``.
+
 Each dispatches on the device: a CPU tensor takes the plain version, a CUDA
 tensor the hand-written kernel in ``rs_ov_torch/csrc/jbu_epilogue.cu``, which
 replaces the TPU kernels ``jbu_epilogue_pallas(nhwc=True)``
-(rs_ov/kernels/jbu_epilogue.py:212) and ``jbu_epilogue_classify_pallas``
-(:333). The kernels take bf16 features and guidance; fp32 runs take the
-channel-first route (plain epilogue + adaptive-conv kernel K4b), as in the
-JAX package.
+(rs_ov/kernels/jbu_epilogue.py:212), ``jbu_epilogue_classify_pallas``
+(:333), ``jbu_epilogue_fused_pallas`` (:640) and
+``jbu_epilogue_fused_classify_pallas`` (:675). The kernels take bf16
+features and guidance; fp32 runs take the channel-first route (plain
+epilogue + adaptive-conv kernel K4b), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,9 +40,15 @@ import torch
 import torch.nn.functional as F
 
 from rs_ov_torch.kernels.build import check, load_library
+from rs_ov_torch.utils.resize import reflect_pad_nhwc
 
 __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
-           "jbu_epilogue_classify_plain"]
+           "jbu_epilogue_classify_plain", "jbu_epilogue_fused",
+           "jbu_epilogue_fused_classify", "jbu_epilogue_fused_plain",
+           "jbu_epilogue_fused_classify_plain"]
+
+PIX = 16  # output pixels per block of the CUDA kernels
+SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def _comb_fixed(logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, dtype):
@@ -64,6 +82,17 @@ def jbu_epilogue_plain(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
     return _adaptive_conv_nhwc(inp, comb, diameter).to(inp.dtype)
 
 
+def _cls_tail(y, fixup_w, fixup_b, query_features, dt):
+    """The classify tail on the fp32 conv output y [..., C] -> [..., Q] fp32."""
+    yb = y.to(dt)
+    fx = torch.matmul(yb.float(), fixup_w.to(dt).float().t())
+    res = ((fx + fixup_b.float()) * 0.1).to(dt) + yb
+    r32 = res.float()
+    inv = torch.rsqrt(r32.square().sum(-1, keepdim=True).clamp_min(1e-24))
+    rb = (r32 * inv).to(dt)
+    return torch.matmul(rb.float(), query_features.to(dt).float().t())
+
+
 def jbu_epilogue_classify_plain(inp, logits_t, guid_t, spatial, pos_temp, w0, b0,
                                 w1, b1, fixup_w, fixup_b, query_features,
                                 diameter: int) -> torch.Tensor:
@@ -71,13 +100,68 @@ def jbu_epilogue_classify_plain(inp, logits_t, guid_t, spatial, pos_temp, w0, b0
     [C], query_features [Q, C] -> [B, H, W, Q] fp32."""
     dt = inp.dtype
     comb = _comb_fixed(logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, dt)
-    yb = _adaptive_conv_nhwc(inp, comb, diameter).to(dt)
-    fx = torch.matmul(yb.float(), fixup_w.to(dt).float().t())
-    res = ((fx + fixup_b.float()) * 0.1).to(dt) + yb
-    r32 = res.float()
-    inv = torch.rsqrt(r32.square().sum(-1, keepdim=True).clamp_min(1e-24))
-    rb = (r32 * inv).to(dt)
-    return torch.matmul(rb.float(), query_features.to(dt).float().t())
+    return _cls_tail(_adaptive_conv_nhwc(inp, comb, diameter), fixup_w, fixup_b,
+                     query_features, dt)
+
+
+def _pad_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The fused stage's padding of the source and the projection: reflect."""
+    return reflect_pad_nhwc(x, r)
+
+
+def _fused_logits(proj: torch.Tensor, d: int) -> torch.Tensor:
+    """proj [B, H, W, K] -> [B, H, W, d*d] fp32 local self-correlation.
+
+    Summed over k = 0..K-1 in order, each step one fused multiply-add (the
+    exact product, held in fp64, added and rounded once), as the kernel and
+    K1's kernel sum: another order moves the logits' last bits, and those
+    flip the bf16 rounding of comb' taps, which the tight bound of the
+    classify tail would count against the kernel."""
+    b, h, w, k = proj.shape
+    p32 = proj.float()
+    # [B, H, W, K, d, d]: the d x d window of every pixel, a view
+    win = _pad_nhwc(p32, d // 2).unfold(1, d, 1).unfold(2, d, 1)
+    acc = torch.zeros((b, h, w, d * d), dtype=torch.float32, device=proj.device)
+    for i in range(k):
+        nb = win[:, :, :, i].reshape(b, h, w, d * d).double()
+        acc = (acc.double() + nb * p32[..., i:i + 1].double()).float()
+    return acc
+
+
+def _fused_front(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1, d):
+    """(padded source, comb') of one fused stage."""
+    comb = _comb_fixed(_fused_logits(proj, d), guid_cf.permute(0, 2, 3, 1), spatial,
+                       pos_temp, w0, b0, w1, b1, inp.dtype)
+    return _pad_nhwc(inp, d // 2), comb
+
+
+def jbu_epilogue_fused_plain(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                             diameter: int) -> torch.Tensor:
+    """inp [B, H, W, C] unpadded source; proj [B, H, W, K] range projection
+    (fp32); guid_cf [B, G, H, W]; the other operands as jbu_epilogue_plain ->
+    [B, H, W, C] in inp's dtype."""
+    padded, comb = _fused_front(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                                diameter)
+    return _adaptive_conv_nhwc(padded, comb, diameter).to(inp.dtype)
+
+
+def jbu_epilogue_fused_classify_plain(inp, proj, guid_cf, spatial, pos_temp, w0, b0,
+                                      w1, b1, fixup_w, fixup_b, query_features,
+                                      diameter: int) -> torch.Tensor:
+    """jbu_epilogue_fused_plain, then the classify tail -> [B, H, W, Q] fp32."""
+    padded, comb = _fused_front(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                                diameter)
+    return _cls_tail(_adaptive_conv_nhwc(padded, comb, diameter), fixup_w, fixup_b,
+                     query_features, inp.dtype)
+
+
+def _require(who: str, device: torch.device, want: dict) -> None:
+    """Each operand {name: (tensor, shape, dtype)} as the kernel reads it."""
+    for name, (t, shape, dtype) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{who}: {name} must be contiguous {dtype} {shape} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter):
@@ -89,17 +173,12 @@ def _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter):
             "the CUDA JBU epilogue takes bf16 features and guidance; fp32 takes "
             "the channel-first route (plain epilogue + adaptive conv K4b), as "
             "rs_ov/upsample/jbu.py does")
-    want = {"inp": (inp, (b, h + d - 1, w + d - 1, c), torch.bfloat16),
-            "logits_t": (logits_t, (b, h, w, d * d), torch.float32),
-            "guid_t": (guid_t, (b, h, w, guid_t.shape[-1]), torch.bfloat16),
-            "spatial": (spatial, (d * d,), torch.float32),
-            "pos_temp": (pos_temp, (), torch.float32)}
-    for name, (t, shape, dtype) in want.items():
-        if (tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous()
-                or t.device != inp.device):
-            raise ValueError(f"jbu_epilogue: {name} must be contiguous {dtype} "
-                             f"{shape} on {inp.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _require("jbu_epilogue", inp.device, {
+        "inp": (inp, (b, h + d - 1, w + d - 1, c), torch.bfloat16),
+        "logits_t": (logits_t, (b, h, w, d * d), torch.float32),
+        "guid_t": (guid_t, (b, h, w, guid_t.shape[-1]), torch.bfloat16),
+        "spatial": (spatial, (d * d,), torch.float32),
+        "pos_temp": (pos_temp, (), torch.float32)})
     if c % 2:
         raise ValueError(f"jbu_epilogue kernel takes an even channel count, got {c}")
     return b, h, w, c
@@ -126,6 +205,20 @@ def _fixup_weights(w0, b0, w1, b1, dd, g, device):
                   _f32(w1, (dd, cmid), device), _f32(b1, (dd,), device))
 
 
+def _tail_operands(fixup_w, fixup_b, query_features, c, device):
+    """The classify tail's operands as the kernels read them."""
+    q = query_features.shape[0]
+    if tuple(fixup_w.shape) != (c, c) or tuple(query_features.shape) != (q, c):
+        raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
+                         f"queries {tuple(query_features.shape)} do not match C={c}")
+    # the kernel reads the fixup conv transposed ([C_in, C_out]) so that
+    # threads over output channels load consecutive addresses
+    fwt = _on(fixup_w, device, "fixup_w").to(torch.bfloat16).t().contiguous()
+    fb = _f32(fixup_b, (c,), device)
+    qf = _on(query_features, device, "query_features").to(torch.bfloat16).contiguous()
+    return fwt, fb, qf
+
+
 def _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                        diameter):
     b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter)
@@ -149,14 +242,7 @@ def _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0
     g = guid_t.shape[-1]
     q = query_features.shape[0]
     cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
-    if tuple(fixup_w.shape) != (c, c) or tuple(query_features.shape) != (q, c):
-        raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
-                         f"queries {tuple(query_features.shape)} do not match C={c}")
-    # the kernel reads the fixup conv transposed ([C_in, C_out]) so that
-    # threads over output channels load consecutive addresses
-    fwt = _on(fixup_w, inp.device, "fixup_w").to(torch.bfloat16).t().contiguous()
-    fb = _f32(fixup_b, (c,), inp.device)
-    qf = _on(query_features, inp.device, "query_features").to(torch.bfloat16).contiguous()
+    fwt, fb, qf = _tail_operands(fixup_w, fixup_b, query_features, c, inp.device)
     out = torch.empty((b, h, w, q), dtype=torch.float32, device=inp.device)
     lib = load_library()
     with torch.cuda.device(inp.device):
@@ -167,6 +253,84 @@ def _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0
             fb.data_ptr(), qf.data_ptr(), out.data_ptr(),
             b, h, w, c, g, cmid, diameter, q, stream), "rs_jbu_epilogue_classify")
     jbu_epilogue_classify.launches += 1
+    return out
+
+
+def _fused_smem_bytes(d: int, g: int, cmid: int, k: int, c: int, classify: bool) -> int:
+    """Shared memory of a fused block (rs_jbu_epilogue_fused*): comb' [PIX][d*d]
+    beside the larger of the epilogue's scratch (with the classify tail's)
+    and the projection window [d][PIX+d-1][K | 1] fp32 that phase 0 stages
+    and phase 1 no longer needs."""
+    dd = d * d
+    epi = PIX * (2 * dd + g + cmid) + (PIX + PIX * c if classify else 0)
+    return 4 * max(epi, PIX * dd + d * (PIX + d - 1) * (k | 1))
+
+
+def _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, diameter,
+                          classify=False):
+    if inp.dim() != 4 or proj.dim() != 4 or guid_cf.dim() != 4:
+        raise ValueError(f"jbu_epilogue_fused: inp, proj and guid_cf must be 4-D, got "
+                         f"{tuple(inp.shape)}, {tuple(proj.shape)}, {tuple(guid_cf.shape)}")
+    b, h, w, c = inp.shape
+    k, g, d = proj.shape[-1], guid_cf.shape[1], diameter
+    if inp.dtype != torch.bfloat16 or guid_cf.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the CUDA fused JBU stage takes bf16 features and guidance; fp32 takes "
+            "the channel-first route (plain epilogue + adaptive conv K4b), as "
+            "rs_ov/upsample/jbu.py does")
+    _require("jbu_epilogue_fused", inp.device, {
+        "inp": (inp, (b, h, w, c), torch.bfloat16),
+        "proj": (proj, (b, h, w, k), torch.float32),
+        "guid_cf": (guid_cf, (b, g, h, w), torch.bfloat16),
+        "spatial": (spatial, (d * d,), torch.float32),
+        "pos_temp": (pos_temp, (), torch.float32)})
+    if c % 2 or k < 1:
+        raise ValueError(f"jbu_epilogue_fused kernel takes an even channel count and "
+                         f"K >= 1, got C={c}, K={k}")
+    if d % 2 == 0 or d // 2 > min(h, w) - 1:
+        raise ValueError(f"jbu_epilogue_fused: reflect padding by r = d // 2 needs an "
+                         f"odd d and r <= min(H, W) - 1, got d={d} on {h}x{w}")
+    smem = _fused_smem_bytes(d, g, w0.shape[0], k, c, classify)
+    if smem > SMEM_MAX:
+        raise ValueError(f"jbu_epilogue_fused: a block needs {smem} bytes of shared "
+                         f"memory at d={d}, K={k}, C={c}; the card gives {SMEM_MAX}")
+    return b, h, w, c, k, g
+
+
+def _jbu_epilogue_fused_cuda(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                             diameter):
+    b, h, w, c, k, g = _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0,
+                                             diameter)
+    cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
+    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=inp.device)
+    lib = load_library()
+    with torch.cuda.device(inp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(lib.rs_jbu_epilogue_fused(
+            inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
+            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
+            b, h, w, c, g, cmid, diameter, k, stream), "rs_jbu_epilogue_fused")
+    jbu_epilogue_fused.launches += 1
+    return out
+
+
+def _jbu_epilogue_fused_classify_cuda(inp, proj, guid_cf, spatial, pos_temp, w0, b0,
+                                      w1, b1, fixup_w, fixup_b, query_features, diameter):
+    q = query_features.shape[0]
+    b, h, w, c, k, g = _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0,
+                                             diameter, classify=True)
+    cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
+    fwt, fb, qf = _tail_operands(fixup_w, fixup_b, query_features, c, inp.device)
+    out = torch.empty((b, h, w, q), dtype=torch.float32, device=inp.device)
+    lib = load_library()
+    with torch.cuda.device(inp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(lib.rs_jbu_epilogue_fused_classify(
+            inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
+            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), fwt.data_ptr(),
+            fb.data_ptr(), qf.data_ptr(), out.data_ptr(),
+            b, h, w, c, g, cmid, diameter, k, q, stream), "rs_jbu_epilogue_fused_classify")
+    jbu_epilogue_fused_classify.launches += 1
     return out
 
 
@@ -200,5 +364,32 @@ def jbu_epilogue_classify(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, 
                                        query_features, diameter)
 
 
+def jbu_epilogue_fused(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                       diameter: int) -> torch.Tensor:
+    """See jbu_epilogue_fused_plain. CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    if _route(inp) == "cpu":
+        return jbu_epilogue_fused_plain(inp, proj, guid_cf, spatial, pos_temp,
+                                        w0, b0, w1, b1, diameter)
+    return _jbu_epilogue_fused_cuda(inp, proj, guid_cf, spatial, pos_temp,
+                                    w0, b0, w1, b1, diameter)
+
+
+def jbu_epilogue_fused_classify(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                                fixup_w, fixup_b, query_features,
+                                diameter: int) -> torch.Tensor:
+    """See jbu_epilogue_fused_classify_plain. CPU tensors take the plain
+    version, CUDA tensors the kernel (any number of queries)."""
+    if _route(inp) == "cpu":
+        return jbu_epilogue_fused_classify_plain(inp, proj, guid_cf, spatial, pos_temp,
+                                                 w0, b0, w1, b1, fixup_w, fixup_b,
+                                                 query_features, diameter)
+    return _jbu_epilogue_fused_classify_cuda(inp, proj, guid_cf, spatial, pos_temp,
+                                             w0, b0, w1, b1, fixup_w, fixup_b,
+                                             query_features, diameter)
+
+
 jbu_epilogue.launches = 0  # CUDA kernel launches, for the chip smoke run
 jbu_epilogue_classify.launches = 0
+jbu_epilogue_fused.launches = 0
+jbu_epilogue_fused_classify.launches = 0

@@ -1,15 +1,20 @@
-"""Open-vocabulary segmentor (rs_ov/pipeline/segmentor.py:70-487), CLIP branch.
+"""Open-vocabulary segmentor (rs_ov/pipeline/segmentor.py:70-812), CLIP branch.
 
-Per image: normalise (uint8 input: on the device) -> overlapping crops ->
-the decontaminating ViT over all crops at once (every attention mode of
+Per image, or per batch of N images of one geometry (``predict_batch_raw``):
+normalise (uint8 input: on the device) -> overlapping crops -> the
+decontaminating ViT over all N*T crops at once (every attention mode of
 ``ATTENTION_MODES``, SOM, layer fusion, self-attention enhancement, outlier
-suppression) -> optional cross-tile fusion over the image's crops -> in
-chunks of ``tile_chunk`` crops: global CLS debias, optional CTD (DBSCAN,
-then clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack`` or
+suppression) -> optional cross-tile fusion over each image's crops -> in
+chunks of ``tile_chunk`` crops (``RS_OV_TILE_CHUNK``; by default 2 with
+SimFeatUp, else all at once): global CLS debias, optional CTD (DBSCAN, then
+clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack`` or
 ``bilinear``) and the cosine classifier -> optional CLS-logit blend
 (``cls_token_lambda``) -> bilinear resize of the logits to the padded crop
--> overlap-average stitch -> resize to the original shape -> softmax,
-synonym merge, argmax, threshold.
+-> per image: overlap-average stitch -> resize to the original shape ->
+softmax, synonym merge, argmax, threshold. With ``shape_bucket`` (or
+``RS_OV_SHAPE_BUCKET``) ``predict_raw`` and ``predict`` pad each image up to
+a multiple of the bucket and crop the stitched logits back before the
+resize, as the JAX package does.
 
 The JBU route follows rs_ov/pipeline/segmentor.py:326-395, with "on the
 card" in place of the JAX package's "not on the CPU":
@@ -51,7 +56,7 @@ from rs_ov_torch.upsample.jbu import (get_upsampler, get_upsampler_nhwc,
                                       get_upsampler_nhwc_classify)
 from rs_ov_torch.utils.resize import resize_bilinear
 
-__all__ = ["SegmentorEx"]
+__all__ = ["SegmentorEx", "Segmentor"]
 
 
 def _not_ported(what: str, item: str):
@@ -91,6 +96,8 @@ class SegmentorEx:
                  cross_tile_fusion_cfg: Optional[dict] = None,
                  apply_som: bool = False,
                  som_cfg: Optional[dict] = None,
+                 result_dir: Optional[str] = None,
+                 heatmap_dir: Optional[str] = None,
                  checkpoint_path: Optional[str] = None,
                  params=None,
                  upsampler_params=None,
@@ -98,6 +105,7 @@ class SegmentorEx:
                  param_dtype: Optional[torch.dtype] = None,
                  templates=OPENAI_IMAGENET_TEMPLATES,
                  tile_chunk: int = 0,
+                 shape_bucket: int = 0,
                  seed: int = 0,
                  clip_config=None,
                  device=None):
@@ -108,7 +116,9 @@ class SegmentorEx:
         for flag, what, item in (
                 (clip_type != "CLIP", f"clip_type '{clip_type}'", "queue 1 item 8"),
                 (model_type == "GEM", "the GEM tower", "queue 1 item 8"),
-                (checkpoint_path is not None, "checkpoint loading", "queue 1 item 1")):
+                (checkpoint_path is not None, "checkpoint loading", "queue 1 item 1"),
+                (bool(result_dir or heatmap_dir), "result_dir / heatmap_dir",
+                 "queue 1 item 6")):
             if flag:
                 raise _not_ported(what, item)
         if model_type not in ATTENTION_MODES:
@@ -196,14 +206,16 @@ class SegmentorEx:
         self.global_debias_factor = float(global_debias_factor)
         self.cls_token_lambda = float(cls_token_lambda)
         self.bg_idx = int(bg_idx)
-        self.tile_chunk = tile_chunk or 2
+        self.tile_chunk = tile_chunk  # 0: RS_OV_TILE_CHUNK or the default, at call time
+        self.shape_bucket = shape_bucket or int(os.environ.get("RS_OV_SHAPE_BUCKET", "0"))
 
         self.apply_sim_feat_up = apply_sim_feat_up
         up_cfg = sim_feat_up_cfg or {}
         self.upsampler_name = up_cfg.get("model_name", "jbu_one")
         # 2 stages by default: classify at 4x the token grid and let the
-        # bilinear logit resize cover the rest (rs_ov/pipeline/segmentor.py:264-280)
-        self.jbu_stages = int(up_cfg.get("num_stages", 2))
+        # bilinear logit resize cover the rest; RS_OV_JBU_STAGES overrides
+        # (rs_ov/pipeline/segmentor.py:264-280)
+        self.jbu_stages = int(os.environ.get("RS_OV_JBU_STAGES", up_cfg.get("num_stages", 2)))
         if not 1 <= self.jbu_stages <= 4:
             raise ValueError(f"jbu stages must be in [1, 4], got {self.jbu_stages}")
         self.upsampler = None
@@ -284,27 +296,45 @@ class SegmentorEx:
         left, _, top, _ = pads
         return logits[:, :, top:top + tile_hw[0], left:left + tile_hw[1]]
 
+    def _chunk_size(self) -> int:
+        """Crops per decontam / JBU / classify chunk; 0 runs all at once
+        (rs_ov/pipeline/segmentor.py:496-497)."""
+        return self.tile_chunk or int(os.environ.get(
+            "RS_OV_TILE_CHUNK", "2" if self.apply_sim_feat_up else "0"))
+
     def _chunked_decontam(self, tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
                           tile_hw):
-        """Debias + JBU + classify in chunks of tile_chunk crops: the upsampler's
+        """Debias + JBU + classify in chunks of crops: the upsampler's
         temporaries scale with the chunk, the ViT still runs on all crops."""
-        c = self.tile_chunk
+        c, t = self._chunk_size(), tokens.shape[0]
+        if not c or t <= c:
+            return self._decontam_and_classify(tokens, cls_norm, cls_logits, tiles,
+                                               grid_hw, pads, tile_hw)
         return torch.cat([
             self._decontam_and_classify(tokens[i:i + c], cls_norm[i:i + c],
                                         cls_logits[i:i + c], tiles[i:i + c], grid_hw,
                                         pads, tile_hw)
-            for i in range(0, tokens.shape[0], c)])
+            for i in range(0, t, c)])
 
-    def _forward_image(self, img: torch.Tensor, ori_shape: tuple[int, int]):
-        """img [3, H, W] normalised, on the device -> (probs, pred)."""
-        h_img, w_img = img.shape[-2:]
+    def _fuse_tiles(self, tokens, grid_shape, grid_hw, n_images: int):
+        """Cross-tile fusion per image: the flat [N*T, P, C] batch is regrouped
+        so that fusion never crosses an image boundary
+        (rs_ov/pipeline/segmentor.py:421-432)."""
+        t = tokens.shape[0] // n_images
+        return torch.cat([fuse_tile_grid(tokens[i * t:(i + 1) * t], grid_shape, grid_hw,
+                                         self.ctf_cfg) for i in range(n_images)])
+
+    def _tile_logits(self, imgs: torch.Tensor):
+        """imgs [N, 3, H, W] normalised, on the device -> (per-crop logits
+        [N, T, Q, ch, cw], crop coordinates). The N*T crops are one batch."""
+        n, _, h_img, w_img = imgs.shape
         if self.slide_crop > 0:
             coords, grid_shape = tile_grid(h_img, w_img, self.slide_stride, self.slide_crop)
         else:
             coords, grid_shape = ((0, 0, h_img, w_img),), (1, 1)
         ch, cw = coords[0][2] - coords[0][0], coords[0][3] - coords[0][1]
         pads = compute_padsize(ch, cw, self.patch_size)
-        tiles = extract_tiles(img, coords)
+        tiles = torch.cat([extract_tiles(im, coords) for im in imgs])
         left, right, top, bottom = pads
         tiles = torch.nn.functional.pad(tiles, (left, right, top, bottom))
         tiles = tiles.to(self.param_dtype)
@@ -312,37 +342,107 @@ class SegmentorEx:
         pooled, tokens = vit_forward(self.clip.visual, tiles, self.cfg.vision, self.call)
         p32 = pooled.float()
         cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-        cls_logits = cls_norm @ self.query_features.t()  # [T, Q]
+        cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
-        if self.apply_cross_tile_fusion:  # over all of this image's crops
-            tokens = fuse_tile_grid(tokens, grid_shape, grid_hw, self.ctf_cfg)
+        if self.apply_cross_tile_fusion:
+            tokens = self._fuse_tiles(tokens, grid_shape, grid_hw, n)
         tile_logits = self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw,
                                              pads, (ch, cw))
-        preds = resize_bilinear(stitch(tile_logits, coords, h_img, w_img), ori_shape)
-        return postprocess_logits(preds, self._onehot, logit_scale=self.logit_scale,
-                                  prob_thd=self.prob_thd, bg_idx=self.bg_idx)
+        return tile_logits.reshape(n, len(coords), *tile_logits.shape[1:]), coords
 
-    def _results(self, images, data_samples, shape_of):
+    def _forward_images(self, imgs: torch.Tensor, ori_shape: tuple[int, int],
+                        extent: Optional[tuple[int, int]] = None):
+        """imgs [N, 3, H, W] -> one {'seg_logits', 'pred_sem_seg'} per image.
+        ``extent`` crops a bucket-padded logit canvas back to the image."""
+        tile_logits, coords = self._tile_logits(imgs)
+        h_img, w_img = imgs.shape[-2:]
+        eh, ew = extent or (h_img, w_img)
         results = []
-        for i, img in enumerate(images):
-            meta = (data_samples[i] if data_samples is not None else None) or {}
-            ori_shape = tuple(meta.get("ori_shape", shape_of(img)))[:2]
-            probs, pred = self._forward_image(img, ori_shape)
+        for tl in tile_logits:
+            canvas = stitch(tl, coords, h_img, w_img)[:, :eh, :ew]
+            probs, pred = postprocess_logits(
+                resize_bilinear(canvas, ori_shape), self._onehot,
+                logit_scale=self.logit_scale, prob_thd=self.prob_thd, bg_idx=self.bg_idx)
             results.append({"seg_logits": probs, "pred_sem_seg": pred})
         return results
+
+    def _bucket_pad(self, h: int, w: int) -> tuple[int, int]:
+        """(rows, columns) to pad an h x w image up to its shape bucket."""
+        b, crop = self.shape_bucket, self.slide_crop or 0
+        return max(-(-h // b) * b, crop) - h, max(-(-w // b) * b, crop) - w
+
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 [..., H, W, 3] on the device -> normalised fp32 [..., 3, H, W]."""
+        return ((x.float() - self._mean) / self._std).movedim(-1, -3)
+
+    @staticmethod
+    def _ori_shape(data_samples, i: int, default) -> tuple[int, int]:
+        meta = (data_samples[i] if data_samples is not None else None) or {}
+        return tuple(meta.get("ori_shape", default))[:2]
 
     @torch.no_grad()
     def predict_raw(self, inputs, data_samples=None):
         """inputs [B, H, W, 3] uint8 RGB. Mean/std normalisation and HWC->CHW
         run on the device. Returns one {'seg_logits': [C, oh, ow],
-        'pred_sem_seg': [1, oh, ow]} per image, on the device."""
+        'pred_sem_seg': [1, oh, ow]} per image, on the device. With a shape
+        bucket the uint8 image is padded with 0 (normalised: -mean/std)."""
         x = torch.as_tensor(np.asarray(inputs)).to(self.device)
-        images = (((im.float() - self._mean) / self._std).permute(2, 0, 1) for im in x)
-        return self._results(images, data_samples, lambda im: im.shape[-2:])
+        results = []
+        for i, im in enumerate(x):
+            h, w = im.shape[:2]
+            ori_shape = self._ori_shape(data_samples, i, (h, w))
+            if self.shape_bucket:
+                ph, pw = self._bucket_pad(h, w)
+                im = torch.nn.functional.pad(im, (0, 0, 0, pw, 0, ph))
+            results += self._forward_images(self._normalise(im)[None], ori_shape, (h, w))
+        return results
+
+    @torch.no_grad()
+    def predict_batch_raw(self, inputs, data_samples=None):
+        """predict_raw of N uint8 images of one geometry [N, H, W, 3] as one
+        batch of N*T crops (rs_ov/pipeline/segmentor.py:714-747): the same
+        predictions as per-image predict_raw. The images must share their
+        ori_shape; N == 1 is predict_raw. Shape buckets do not apply, as in
+        the JAX package."""
+        inputs = np.asarray(inputs)
+        n, h, w = inputs.shape[:3]
+        if n == 1:
+            return self.predict_raw(inputs, data_samples)
+        shapes = {self._ori_shape(data_samples, i, (h, w)) for i in range(n)}
+        if len(shapes) != 1:
+            raise ValueError(f"predict_batch_raw needs a shape-homogeneous batch, got "
+                             f"ori_shapes {sorted(shapes)}")
+        x = torch.as_tensor(inputs).to(self.device)
+        return self._forward_images(self._normalise(x), shapes.pop())
 
     @torch.no_grad()
     def predict(self, inputs, data_samples=None):
-        """inputs [B, 3, H, W] mean/std-normalised RGB (numpy or tensor)."""
+        """inputs [B, 3, H, W] mean/std-normalised RGB (numpy or tensor). With
+        a shape bucket the image is padded with 0 (the dataset mean)."""
         x = torch.as_tensor(np.asarray(inputs, np.float32) if not torch.is_tensor(inputs)
                             else inputs).to(self.device, torch.float32)
-        return self._results(x, data_samples, lambda im: im.shape[-2:])
+        results = []
+        for i, img in enumerate(x):
+            h, w = img.shape[-2:]
+            ori_shape = self._ori_shape(data_samples, i, (h, w))
+            if self.shape_bucket:
+                ph, pw = self._bucket_pad(h, w)
+                img = torch.nn.functional.pad(img, (0, pw, 0, ph))
+            results += self._forward_images(img[None], ori_shape, (h, w))
+        return results
+
+
+class Segmentor(SegmentorEx):
+    """The plain SegEarth-OV variant (rs_ov/pipeline/segmentor.py:801-812):
+    the same pipeline with SegEarth attention by default and without the CTD,
+    outlier-suppression, self-attention-enhancement, layer-fusion and
+    similarity-enhancement hooks, whose switches it drops."""
+
+    def __init__(self, clip_type="CLIP", vit_type="ViT-B/16", model_type="SegEarth",
+                 name_path="", **kwargs):
+        for banned in ("apply_ctd", "apply_outlier_suppression",
+                       "apply_self_attn_enhancement", "apply_layer_fusion",
+                       "apply_similarity_enhancement"):
+            kwargs.pop(banned, None)
+        super().__init__(clip_type=clip_type, vit_type=vit_type, model_type=model_type,
+                         name_path=name_path, **kwargs)

@@ -11,7 +11,12 @@ Two layouts, as in the JAX package:
   here, which the segmentor picks for bf16 on the card.
 * channel-last (``*_nhwc``, :231-442): the source is [B, h, w, C] and every
   stage's epilogue is K2, or for the classify forms K3 in the last stage
-  (final fixup, L2 norm and cosine classifier fused).
+  (final fixup, L2 norm and cosine classifier fused). With
+  ``RS_OV_JBU_FUSED_RANGE=1`` (read at each call, off by default as in the
+  JAX package, :245-262, :301-313) each stage is one fused-range kernel
+  instead, K5a or K5b in the last classify stage: it takes the projection
+  channel-last (``_proj2_nhwc``) and the unpadded bicubic source, and
+  computes the range logits and both reflect pads itself.
 
 The guidance stays channel-first in both. On the CPU every kernel wrapper
 takes its plain version.
@@ -20,6 +25,7 @@ takes its plain version.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -27,7 +33,9 @@ import torch.nn.functional as F
 
 from rs_ov_torch.core.params import init_jbu_one_params, init_jbu_stack_params
 from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_tapmajor
-from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_classify
+from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue, jbu_epilogue_classify,
+                                              jbu_epilogue_fused,
+                                              jbu_epilogue_fused_classify)
 from rs_ov_torch.kernels.range_logits import range_logits
 from rs_ov_torch.utils.resize import (adaptive_avg_pool2d, reflect_pad_2d,
                                       reflect_pad_nhwc, resize_bicubic,
@@ -84,6 +92,18 @@ def _conv1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _proj2(x: torch.Tensor, p) -> torch.Tensor:
     """conv1x1 -> exact GELU -> conv1x1 (the guidance range projection)."""
     return _conv1x1(F.gelu(_conv1x1(x, p.w0, p.b0)), p.w1, p.b1)
+
+
+def _conv1x1_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1x1 conv on [B, H, W, C] in fp32, returned in x's dtype."""
+    y = torch.matmul(x.float(), w.reshape(w.shape[0], -1).float().t())
+    return (y + b.float()).to(x.dtype)
+
+
+def _proj2_nhwc(x: torch.Tensor, p) -> torch.Tensor:
+    """_proj2 on [B, H, W, G]: the same fp32 math and round trips through
+    x's dtype (rs_ov/upsample/jbu.py:118-128)."""
+    return _conv1x1_nhwc(F.gelu(_conv1x1_nhwc(x, p.w0, p.b0)), p.w1, p.b1)
 
 
 def _range_logits(p, guidance_cf: torch.Tensor, radius: int) -> torch.Tensor:
@@ -169,10 +189,29 @@ def _stage_operands(p, source, guidance_cf, radius):
             _spatial_kernel(d, p.sigma_spatial), pos_temp, *_fixup_weights(p.fixup_proj))
 
 
+def _fused_range() -> bool:
+    return os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
+
+
+def _fused_stage_operands(p, source, guidance_cf, radius):
+    """What a fused-range stage's kernel takes, up to the fixup weights: the
+    unpadded bicubic source, the channel-last projection in fp32 and the
+    channel-first guidance."""
+    gh, gw = guidance_cf.shape[-2:]
+    proj = _proj2_nhwc(guidance_cf.permute(0, 2, 3, 1), p.range_proj).float().contiguous()
+    pos_temp = torch.exp(p.range_temp.float()).clamp(1e-4, 1e4)
+    return (resize_bicubic_nhwc(source, (gh, gw)).contiguous(), proj,
+            guidance_cf.contiguous(), _spatial_kernel(radius * 2 + 1, p.sigma_spatial),
+            pos_temp, *_fixup_weights(p.fixup_proj))
+
+
 def jbu_module_forward_nhwc(p, source: torch.Tensor, guidance_cf: torch.Tensor,
                             radius: int) -> torch.Tensor:
     """One JBU step: source [B, h, w, C] + guidance [B, G, GH, GW] ->
     [B, GH, GW, C]."""
+    if _fused_range():
+        return jbu_epilogue_fused(*_fused_stage_operands(p, source, guidance_cf, radius),
+                                  radius * 2 + 1)
     return jbu_epilogue(*_stage_operands(p, source, guidance_cf, radius),
                         radius * 2 + 1)
 
@@ -184,9 +223,11 @@ def jbu_module_forward_nhwc_classify(p, source: torch.Tensor,
     """The last JBU step with the final fixup, L2 norm and cosine classifier
     fused -> [B, GH, GW, Q] fp32 logits."""
     c = source.shape[-1]
-    return jbu_epilogue_classify(*_stage_operands(p, source, guidance_cf, radius),
-                                 final_fixup.w.reshape(c, c), final_fixup.b,
-                                 query_features, radius * 2 + 1)
+    tail = (final_fixup.w.reshape(c, c), final_fixup.b, query_features, radius * 2 + 1)
+    if _fused_range():
+        return jbu_epilogue_fused_classify(
+            *_fused_stage_operands(p, source, guidance_cf, radius), *tail)
+    return jbu_epilogue_classify(*_stage_operands(p, source, guidance_cf, radius), *tail)
 
 
 def _final_fixup_nhwc(x: torch.Tensor, p) -> torch.Tensor:

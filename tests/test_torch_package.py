@@ -49,13 +49,44 @@ def test_port_imports_without_jax():
 
 
 def test_chip_smoke_imports_neither_jax_nor_rs_ov():
+    """chip_smoke.py imports no jax and nothing of rs_ov, and reaches every
+    kernel module of the port (each one it checks on the card)."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    froms = {(n.module, a.name) for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+             for a in n.names}
     assert "rs_ov_torch.pipeline.segmentor" in names
+    kernels = [os.path.splitext(f)[0] for f in os.listdir(os.path.join(REPO, "rs_ov_torch",
+                                                                       "kernels"))
+               if f.endswith(".py") and f not in ("__init__.py", "build.py")]
+    for mod in kernels:
+        assert (f"rs_ov_torch.kernels.{mod}" in names
+                or ("rs_ov_torch.kernels", mod) in froms), mod
     bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "rs_ov")]
     assert not bad, bad
+
+
+def test_cuda_sources_note_their_tpu_kernel_and_export_the_bound_signatures():
+    """Each rs_ov_torch/csrc/*.cu opens with a note naming the TPU kernel it
+    replaces and what bounds it on the card; every C entry point that
+    kernels/build.py binds is defined in a source, and every one a source
+    defines is bound."""
+    import re
+
+    csrc = os.path.join(REPO, "rs_ov_torch", "csrc")
+    defined = set()
+    for name in sorted(os.listdir(csrc)):
+        if not name.endswith(".cu"):
+            continue
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        head = text[:text.index("#include")]
+        assert re.search(r"Replaces the TPU kernels? rs_ov/kernels/\w+\.py", head), name
+        assert "What bounds it on the H100" in head, name
+        defined |= set(re.findall(r'extern "C" (?:int|const char\*) (rs_\w+)\(', text))
+    assert defined == set(build._SIGNATURES) | {"rs_error_string"}
 
 
 @pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-B-32", "ViT-H-14",

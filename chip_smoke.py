@@ -9,7 +9,7 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 power limit.
   2. build    - compiles rs_ov_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                 per source, all at once.
-  3. kernels  - each CUDA kernel (K1-K3, K4a-K4d, K5a, K5b, K6) against its
+  3. kernels  - each CUDA kernel (K1-K3, K4a-K4f, K5a, K5b, K6) against its
                 plain PyTorch version on the card, at the shapes every driven
                 path gives it (jbu_one's d=11, jbu_stack's d=7 on 28^2 to
                 224^2; K6 in each of its six modes, with and without a sim
@@ -22,6 +22,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 modes, the time of one scaled_dot_product_attention call.
                 K5a and K5b are also held against the split pair they replace
                 (K1 + reflect pads + K2 / K3) on the card, and timed beside it.
+                K4e and K4f (both operands rounded to bf16) at d=11 on 28^2
+                and 56^2 and d=7 on 224^2 (K4f: two column chunks), with fp32,
+                bf16 and bf16-input/fp32-tap operands, also beside K4b's
+                unrounded function (fp32) and timed beside K4b/K4a and K4c.
   4. slice    - SegmentorEx from configs/base_config.py (CLIP ViT-B/16,
                 random weights) on the Potsdam vocabulary: predict_raw on
                 three 512x512 images on each route: bf16 channel-last (K1,
@@ -38,7 +42,8 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 predict_batch_raw on the three images as one batch, with the
                 fused-range switch off (K1 K2 K3) and on (K5a K5b); and the
                 adaptive-conv entry points K4c and K4d on the stage operands
-                of one fp32 channel-first request, against K4b's outputs.
+                of one fp32 channel-first request, against K4b's outputs, and
+                K4e and K4f on the same operands against their plain version.
                 Checks outputs and that every launch counter moved by
                 exactly the expected amount; prints tiles/s per route over
                 the requests after the first (batches: the second call).
@@ -58,6 +63,18 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 against predict_raw of each, >= 0.999 per image, and the same
                 with path (b)'s cross-tile fusion, >= 0.99 in fp32 and >= 0.95
                 in bf16.
+  6. eval     - twelve 512x512 images with Potsdam labels written as PNG
+                under a temporary RS_OV_DATA_ROOT in configs/cfg_potsdam.py's
+                layout; the port's run_eval from cfg_potsdam (ViT-B/16 at full
+                width, random weights, bf16 on the card) with batch_images 1
+                and 3: the on-device confusion state must equal the host
+                confusion_update summed over the same segmentor's per-image
+                predict_raw exactly, batch 3 must lie within 1e-3 of the
+                pixels of batch 1 per entry, two shards merged must equal the
+                single run, result_dir must get one PNG per image; prints the
+                sustained img/s and tiles/s; then rs_ov_torch.eval_all with
+                RS_OV_DATA_ROOT=data_synth, where the seven configs with
+                committed data must give metrics.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -70,6 +87,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -321,6 +339,7 @@ def phase_kernels():
     rows.update(_adaptive_conv_kernels(rng, dev))
     rows.update(_fused_range_kernels(rng, dev, tail))
     rows.update(_adaptive_layout_kernels(rng, dev))
+    rows.update(_bf16_conv_kernels(rng, dev))
     rows["fused_selfself_attention"] = _selfself_attention_kernel(rng, dev)
     return rows
 
@@ -461,6 +480,57 @@ def _adaptive_layout_kernels(rng, dev):
     return rows
 
 
+def _bf16_conv_kernels(rng, dev):
+    """K4e (adaptive_conv_v3) and K4f (adaptive_conv_v4), both operands
+    rounded to bf16, against their plain version at B=2, C=512: d=11 on 56^2
+    and 28^2 (jbu_one's stages), d=7 on 224^2 (jbu_stack's last; K4f in two
+    column chunks of 112), each with fp32 operands, bf16 operands and a bf16
+    input with fp32 taps. fp32 output within 1e-5, bf16 within 1e-2 of
+    max|ref|, beside the last tap dropped and, for fp32, K4b's unrounded
+    function. The bound: each operand's bytes at its dtype, the output at
+    the input's, and 2*d^2*C*H*W*B operations on bf16 operands. K4c and,
+    where the two dtypes match, K4b / K4a are timed on the same operands,
+    in turns with the plain version as the kernels are."""
+    from rs_ov_torch.kernels.adaptive_conv import (adaptive_conv_bf16_plain,
+                                                   adaptive_conv_planes, adaptive_conv_tapmajor,
+                                                   adaptive_conv_tapmajor_plain,
+                                                   adaptive_conv_v3, adaptive_conv_v4)
+
+    f32, bf = torch.float32, torch.bfloat16
+    checks = {"K4e": [], "K4f": []}
+    for d, hw in ((11, 56), (11, 28), (7, 224)):
+        for dt_in, dt_f in ((f32, f32), (bf, bf), (bf, f32)):
+            inp = torch.from_numpy(rng.randn(B, C, hw + d - 1, hw + d - 1).astype(np.float32))
+            filt = torch.from_numpy(rng.randn(B, d * d, hw, hw).astype(np.float32))
+            inp, filt = inp.to(dev, dt_in), filt.to(dev, dt_f)
+            nbytes = ((inp.numel() + B * C * hw * hw) * inp.element_size()
+                      + filt.numel() * filt.element_size())
+            bound = _bound(nbytes, bf16_ops=2 * B * C * hw * hw * d * d)
+            tag = f"inp {str(dt_in)[6:]} taps {str(dt_f)[6:]}"
+            faults = ([("unrounded operands", lambda: adaptive_conv_tapmajor_plain(inp, filt, d))]
+                      if dt_in == f32 else [])
+            yard = {"K4c": lambda: adaptive_conv_planes(inp, filt, d)}
+            if dt_in == dt_f:
+                yard["K4b" if dt_in == f32 else "K4a"] = lambda: adaptive_conv_tapmajor(inp, filt, d)
+            plain = lambda: adaptive_conv_bf16_plain(inp, filt, d)  # noqa: E731
+            # timed as the kernels are: in turns with the plain version
+            yard_ms = {f"{k}_ms": _timed_pair(fn, plain)[0] for k, fn in yard.items()}
+            print(f"[kernels] d={d} H=W={hw} {tag}: on the same operands "
+                  + ", ".join(f"{k[:-3]} {v:.4f} ms" for k, v in yard_ms.items()))
+            for key, fn in (("K4e", adaptive_conv_v3), ("K4f", adaptive_conv_v4)):
+                c = _check(f"{key} {fn.__name__} d={d} H=W={hw} {tag}",
+                           K4B_TOL if dt_in == f32 else K4A_TOL,
+                           lambda: fn(inp, filt, d), plain,
+                           lambda: adaptive_conv_bf16_plain(inp, _last_tap_dropped(filt), d),
+                           bound, faults=faults)
+                checks[key].append((f"B={B} C={C} d={d} H=W={hw} {tag}", {**c, **yard_ms}))
+    src = "rs_ov_torch/csrc/adaptive_conv_bf16.cu"
+    return {"adaptive_conv_v3": _row("adaptive_conv_v3", src,
+                                     "rs_ov/kernels/adaptive_conv_v3.py:96", checks["K4e"]),
+            "adaptive_conv_v4": _row("adaptive_conv_v4", src,
+                                     "rs_ov/kernels/adaptive_conv_v4.py:80", checks["K4f"])}
+
+
 def _adaptive_conv_kernels(rng, dev):
     """K4b (fp32) and K4a (bf16) against the plain loop, on normal-distributed
     taps, at the channel-first route's shapes: jbu_one's two stages (d=11 at
@@ -577,7 +647,8 @@ def _clearclip_cfg():
 
 KERNELS = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "adaptive_conv_bf16",
            "adaptive_conv_f32", "fused_selfself_attention", "jbu_epilogue_fused",
-           "jbu_epilogue_fused_classify", "adaptive_conv_planes", "adaptive_conv_cl")
+           "jbu_epilogue_fused_classify", "adaptive_conv_planes", "adaptive_conv_cl",
+           "adaptive_conv_v3", "adaptive_conv_v4")
 
 
 def _counted():
@@ -592,7 +663,7 @@ def _counted():
         (ac.adaptive_conv_tapmajor, torch.bfloat16), (ac.adaptive_conv_tapmajor, torch.float32),
         (fused_selfself_attention, None), (epi.jbu_epilogue_fused, None),
         (epi.jbu_epilogue_fused_classify, None), (ac.adaptive_conv_planes, None),
-        (ac.adaptive_conv_cl, None))))
+        (ac.adaptive_conv_cl, None), (ac.adaptive_conv_v3, None), (ac.adaptive_conv_v4, None))))
 
 
 def _launches():
@@ -698,26 +769,36 @@ def _recording(module, name):
 
 
 def _drive_entry_points(seg, image):
-    """K4c and K4d are the adaptive conv's own entry points, which no request
-    calls (as in the JAX package): they are driven on the stage operands of
-    one fp32 channel-first request, recorded at its adaptive conv (K4b), and
-    held against K4b's outputs (1e-5 of max|ref|)."""
-    from rs_ov_torch.kernels.adaptive_conv import adaptive_conv_cl, adaptive_conv_planes
+    """K4c, K4d, K4e and K4f are the adaptive conv's own entry points, which
+    no request calls (as in the JAX package): they are driven on the stage
+    operands of one fp32 channel-first request, recorded at its adaptive
+    conv (K4b). K4c and K4d are held against K4b's outputs, K4e and K4f
+    against their plain version of the bf16-rounded operands (1e-5 of
+    max|ref|)."""
+    from rs_ov_torch.kernels.adaptive_conv import (adaptive_conv_bf16_plain, adaptive_conv_cl,
+                                                   adaptive_conv_planes, adaptive_conv_v3,
+                                                   adaptive_conv_v4)
     from rs_ov_torch.upsample import jbu
 
     with _recording(jbu, "adaptive_conv_tapmajor") as calls:
         seg.predict_raw(image)
+    refs = [adaptive_conv_bf16_plain(*args) for args, _ in calls]
     _reset_launches()
-    worst = 0.0
-    for (inp, filt, d), ref in calls:
-        for fn in (adaptive_conv_planes, adaptive_conv_cl):
-            worst = max(worst, ((fn(inp, filt, d) - ref).abs().max() / ref.abs().max()).item())
+    worst = {"K4c K4d": 0.0, "K4e K4f": 0.0}
+    for ((inp, filt, d), ref), ref16 in zip(calls, refs):
+        for key, fns, want in (("K4c K4d", (adaptive_conv_planes, adaptive_conv_cl), ref),
+                               ("K4e K4f", (adaptive_conv_v3, adaptive_conv_v4), ref16)):
+            for fn in fns:
+                err = ((fn(inp, filt, d) - want).abs().max() / want.abs().max()).item()
+                worst[key] = max(worst[key], err)
     torch.cuda.synchronize()
-    route = "entry points K4c K4d on one fp32 channel-first request's stage operands"
-    launches = _expect_launches(route, 1, {"adaptive_conv_planes": len(calls),
-                                           "adaptive_conv_cl": len(calls)})
-    print(f"[slice] {route}: {len(calls)} stages, max|d|/max|K4b| {worst:.3e} (tol {K4B_TOL})")
-    assert worst <= K4B_TOL, worst
+    route = "entry points K4c K4d K4e K4f on one fp32 channel-first request's stage operands"
+    launches = _expect_launches(route, 1, {k: len(calls) for k in (
+        "adaptive_conv_planes", "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4")})
+    print(f"[slice] {route}: {len(calls)} stages, max|d|/max|ref| K4c K4d against K4b "
+          f"{worst['K4c K4d']:.3e}, K4e K4f against their plain version {worst['K4e K4f']:.3e} "
+          f"(tol {K4B_TOL})")
+    assert max(worst.values()) <= K4B_TOL, worst
     return launches
 
 
@@ -789,7 +870,8 @@ def phase_slice(rows):
            "fused_selfself_attention": "(a) fused attention",
            "jbu_epilogue_fused": "(d) fused range",
            "jbu_epilogue_fused_classify": "(d) fused range",
-           "adaptive_conv_planes": "entry points", "adaptive_conv_cl": "entry points"}
+           "adaptive_conv_planes": "entry points", "adaptive_conv_cl": "entry points",
+           "adaptive_conv_v3": "entry points", "adaptive_conv_v4": "entry points"}
     for k in KERNELS:
         rows[k]["launches"] = by_path[own[k]][k]
         rows[k]["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
@@ -881,11 +963,114 @@ def phase_e2e(segs):
     print(f"[e2e] CPU runs {cpu_s:.1f} s")
 
 
+EVAL_IMAGES = 12  # batch 3 then gives 4 batches: the sustained rates leave out the first 2
+EVAL_CFG = "configs/cfg_potsdam.py"
+SYNTH_CONFIGS = ("cfg_chn6-cug", "cfg_deepglobe_road", "cfg_massachusetts_road",
+                 "cfg_spacenet_road", "cfg_openearthmap", "cfg_whu_sat_II", "cfg_wbs-si")
+
+
+def _write_potsdam(root, rng):
+    """EVAL_IMAGES 512x512 RGB images and Potsdam labels (0 ignored, 1-6 the
+    six classes, in blocks of 32 pixels) as PNG in cfg_potsdam's layout."""
+    from rs_ov_torch.data.palette import save_png
+
+    base = os.path.join(root, "payload", "datasets", "Potsdam")
+    img_dir = os.path.join(base, "images", "validation")
+    ann_dir = os.path.join(base, "annotations", "validation")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    for i in range(EVAL_IMAGES):
+        save_png(rng.randint(0, 256, (512, 512, 3), np.uint8), os.path.join(img_dir, f"{i:02d}.png"))
+        blocks = rng.randint(0, 7, (16, 16)).astype(np.uint8)
+        save_png(np.kron(blocks, np.ones((32, 32), np.uint8)), os.path.join(ann_dir, f"{i:02d}.png"))
+    return img_dir, ann_dir
+
+
+def _state(work_dir):
+    return np.load(os.path.join(work_dir, "metric_state.npz"))["state"]
+
+
+def phase_eval(rows):
+    """run_eval on cfg_potsdam at full ViT-B/16 width on the card, checked
+    against the host metric, across batch sizes and shards; result_dir; then
+    eval_all over the committed data_synth configs."""
+    from rs_ov_torch import eval_all
+    from rs_ov_torch.data.loader import SegDataset
+    from rs_ov_torch.evalsuite.config import load_config
+    from rs_ov_torch.evalsuite.metrics import IoUMetric
+    from rs_ov_torch.evalsuite.runner import (build_segmentor_from_config, merge_eval_results,
+                                              run_eval)
+
+    n, pixels = EVAL_IMAGES, EVAL_IMAGES * 512 * 512
+    with tempfile.TemporaryDirectory() as tmp, _env("RS_OV_DATA_ROOT", os.path.join(tmp, "root")):
+        img_dir, ann_dir = _write_potsdam(os.path.join(tmp, "root"), np.random.RandomState(4))
+        seg = build_segmentor_from_config(load_config(EVAL_CFG),
+                                          {"device": DEV, "pred_dtype": "uint8"})
+        s = seg.jbu_stages
+        want = {"range_logits": n * s * CHUNKS, "jbu_epilogue": n * (s - 1) * CHUNKS,
+                "jbu_epilogue_classify": n * CHUNKS}
+        results, states = {}, {}
+        for batch in (1, 3):
+            work = os.path.join(tmp, f"batch{batch}")
+            _reset_launches()
+            results[batch] = run_eval(EVAL_CFG, work_dir=work, segmentor=seg,
+                                      batch_images=batch, verbose=False)
+            launches = _expect_launches(f"eval: run_eval batch_images={batch} (K1 K2 K3)", n, want)
+            for k in KERNELS:
+                rows[k]["launches_by_path"][f"eval batch {batch}"] = launches[k]
+            states[batch] = _state(work)
+            r = results[batch]
+            print(f"[eval] cfg_potsdam, {n} images of 512x512, batch_images={batch}: "
+                  f"aAcc {r['aAcc']:.4f} mIoU {r['mIoU']:.4f} mAcc {r['mAcc']:.4f}; "
+                  f"img_per_sec_sustained {r['img_per_sec_sustained']:.4f} "
+                  f"tiles512_per_sec_sustained {r['tiles512_per_sec_sustained']:.4f} "
+                  f"(tiles512_per_sec {r['tiles512_per_sec']:.4f}) on {CARD['smi']}")
+
+        host = IoUMetric(num_classes=seg.num_classes)
+        for sample in SegDataset("ISPRSDataset", img_dir, ann_dir, raw=True):
+            pred = seg.predict_raw(sample.img[None], [sample.meta])[0]["pred_sem_seg"]
+            host.process(pred[0].cpu().numpy(), sample.seg)
+        dev13 = np.abs(states[3] - states[1]).max()
+        print(f"[eval] device state equals the host confusion_update over per-image "
+              f"predict_raw: {np.array_equal(host.state, states[1])}; batch 3 vs batch 1: "
+              f"max |d entry| {dev13:.0f} of {pixels} pixels (need <= {1e-3 * pixels:.0f})")
+        assert np.array_equal(host.state, states[1]), (host.state, states[1])
+        assert dev13 <= 1e-3 * pixels, dev13
+
+        dist = os.path.join(tmp, "dist")
+        for rank in (0, 1):
+            run_eval(EVAL_CFG, work_dir=os.path.join(dist, f"rank{rank}"), shard=(rank, 2),
+                     segmentor=seg, verbose=False)
+        merged = merge_eval_results(dist, verbose=False)
+        shards = sum(_state(os.path.join(dist, f"rank{r}")) for r in (0, 1))
+        print(f"[eval] two shards merged: mIoU {merged['mIoU']:.4f}, state equal to the "
+              f"single run: {np.array_equal(shards, states[1])}")
+        assert np.array_equal(shards, states[1]) and merged["mIoU"] == results[1]["mIoU"]
+
+        seg_dir = os.path.join(tmp, "seg")
+        run_eval(EVAL_CFG, work_dir=os.path.join(tmp, "dump"), model_overrides={"device": DEV},
+                 save_seg_dir=seg_dir, verbose=False)
+        pngs = sorted(os.listdir(seg_dir))
+        dump13 = np.abs(_state(os.path.join(tmp, "dump")) - states[1]).max()
+        print(f"[eval] result_dir with run_eval's own segmentor: {len(pngs)} PNGs; "
+              f"max |d entry| against batch 1 {dump13:.0f}")
+        assert pngs == [f"{i:02d}.png" for i in range(n)], pngs
+        assert dump13 <= 1e-3 * pixels, dump13
+
+    with _env("RS_OV_DATA_ROOT", "data_synth"), tempfile.TemporaryDirectory() as tmp:
+        summary = eval_all.main(["--device", DEV.type, "--work-dir", tmp])
+    for name in SYNTH_CONFIGS:
+        r = summary[f"./configs/{name}.py"]
+        assert "mIoU" in r, (name, r)
+        print(f"[eval] eval_all {name}: {r['num_images']} images, mIoU {r['mIoU']:.4f}")
+
+
 def main():
     phase_device()
     phase_build()
     rows = phase_kernels()
     phase_e2e(phase_slice(rows))
+    phase_eval(rows)
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

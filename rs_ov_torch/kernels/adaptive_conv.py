@@ -20,6 +20,16 @@ output in the input's dtype). Their CUDA kernels are in
 ``rs_ov_torch/csrc/adaptive_conv_layouts.cu``: K4c computes on the NCHW
 planes, K4d channels-last on a permuted copy. Their plain version is
 ``adaptive_conv_tapmajor_plain``.
+
+``adaptive_conv_v3`` and ``adaptive_conv_v4`` are the entry points of
+``adaptive_conv_pallas_v3`` (rs_ov/kernels/adaptive_conv_v3.py:96, K4e) and
+``adaptive_conv_pallas_v4`` (rs_ov/kernels/adaptive_conv_v4.py:80, K4f), with
+the same NCHW contract but another function: both operands are rounded to
+bf16 first, the bf16 x bf16 products summed in fp32, the output in the
+input's dtype. K4f computes it in column chunks of min(112, pad8(W)) and
+takes d <= 17, as the JAX kernel does. Their CUDA kernels are in
+``rs_ov_torch/csrc/adaptive_conv_bf16.cu``, their plain version is
+``adaptive_conv_bf16_plain``.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import torch
 from rs_ov_torch.kernels.build import check, load_library
 
 __all__ = ["adaptive_conv_tapmajor", "adaptive_conv_tapmajor_plain", "adaptive_conv_planes",
-           "adaptive_conv_cl"]
+           "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4",
+           "adaptive_conv_bf16_plain"]
 
 _ENTRY = {torch.bfloat16: "rs_adaptive_conv_bf16", torch.float32: "rs_adaptive_conv_f32"}
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
@@ -203,3 +214,87 @@ def adaptive_conv_cl(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> 
 
 adaptive_conv_planes.launches = 0  # CUDA kernel launches (K4c), for the chip smoke run
 adaptive_conv_cl.launches = 0      # (K4d)
+
+
+# ---------------------------------------------------------------------------
+# K4e (v3) and K4f (v4): both operands rounded to bf16
+# ---------------------------------------------------------------------------
+
+V4_MAX_D = 17  # the JAX kernel's chunk + window must fit 128 lanes (WT + d - 1 <= 128)
+
+
+def adaptive_conv_bf16_plain(inp: torch.Tensor, filt_t: torch.Tensor,
+                             diameter: int) -> torch.Tensor:
+    """adaptive_conv_pallas_v3's function: the input and the taps rounded to
+    bf16 (round to nearest even), their products (exact in fp32) summed in
+    fp32 in tap order, the sum cast once to inp's dtype (K4b's loop on fp32
+    copies of the rounded operands, so that an fp32 input keeps an fp32
+    output)."""
+    return adaptive_conv_tapmajor_plain(inp.bfloat16().float(), filt_t.bfloat16().float(),
+                                        diameter).to(inp.dtype)
+
+
+def v4_chunk(w: int) -> int:
+    """K4f's output columns per block: min(112, W padded to a multiple of 8)
+    (rs_ov/kernels/adaptive_conv_v4.py:92)."""
+    return min(112, -(-w // 8) * 8)
+
+
+def _bf16_smem(tw: int, d: int) -> int:
+    """Shared memory of a K4e/K4f block: 32 channels x (8+d-1) rows x
+    (tw+d-1) columns of the input, in bf16."""
+    return 2 * 32 * (8 + d - 1) * (tw + d - 1)
+
+
+def _adaptive_conv_bf16_cuda(entry: str, inp: torch.Tensor, filt_t: torch.Tensor,
+                             d: int, tw: int) -> torch.Tensor:
+    _check_shapes(inp, filt_t, d)
+    if inp.dtype not in _TYPES or filt_t.dtype not in _TYPES:
+        raise ValueError(f"{entry} takes bf16 or fp32 for each operand, got inp "
+                         f"{inp.dtype} and filt_t {filt_t.dtype}")
+    smem = _bf16_smem(tw, d)
+    if smem > SMEM_MAX:
+        raise ValueError(f"{entry}: a block needs {smem} bytes of shared memory at d={d}; "
+                         f"the card gives {SMEM_MAX}")
+    b, c, _, _ = inp.shape
+    _, _, h, w = filt_t.shape
+    out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
+    lib = load_library()
+    flags = (int(inp.dtype == torch.bfloat16), int(filt_t.dtype == torch.bfloat16))
+    chunk = (tw,) if entry == "rs_adaptive_conv_v4" else ()
+    with torch.cuda.device(inp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(getattr(lib, entry)(inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(),
+                                  b, c, h, w, d, *chunk, *flags, stream), entry)
+    return out
+
+
+def adaptive_conv_v3(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
+    """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
+    or fp32 -> [B, C, H, W] in inp's dtype, both operands rounded to bf16
+    (adaptive_conv_pallas_v3's function). CPU tensors take the plain
+    version, CUDA tensors kernel K4e."""
+    if _on_cpu(inp, "adaptive_conv_v3"):
+        return adaptive_conv_bf16_plain(inp, filt_t, diameter)
+    out = _adaptive_conv_bf16_cuda("rs_adaptive_conv_v3", inp, filt_t, diameter, 32)
+    adaptive_conv_v3.launches += 1
+    return out
+
+
+def adaptive_conv_v4(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
+    """adaptive_conv_v3's function, computed in output-column chunks of
+    min(112, pad8(W)) (adaptive_conv_pallas_v4). Refuses d > 17, as the JAX
+    entry does: there a chunk and its window must fit 128 lanes. CPU tensors
+    take the plain version, CUDA tensors kernel K4f."""
+    if diameter > V4_MAX_D:
+        raise ValueError(f"adaptive_conv_v4 takes d <= {V4_MAX_D}, got d={diameter}")
+    if _on_cpu(inp, "adaptive_conv_v4"):
+        return adaptive_conv_bf16_plain(inp, filt_t, diameter)
+    out = _adaptive_conv_bf16_cuda("rs_adaptive_conv_v4", inp, filt_t, diameter,
+                                   v4_chunk(filt_t.shape[-1]))
+    adaptive_conv_v4.launches += 1
+    return out
+
+
+adaptive_conv_v3.launches = 0  # CUDA kernel launches (K4e), for the chip smoke run
+adaptive_conv_v4.launches = 0  # (K4f)

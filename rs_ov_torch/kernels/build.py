@@ -51,6 +51,8 @@ _SIGNATURES = {
     "rs_adaptive_conv_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_planes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_cl": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_v3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_v4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_selfself_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }

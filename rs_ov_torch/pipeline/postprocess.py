@@ -18,14 +18,17 @@ def query_onehot(query_idx: list[int]) -> np.ndarray:
 
 
 def postprocess_logits(seg_logits: torch.Tensor, onehot: torch.Tensor, *,
-                       logit_scale: float, prob_thd: float, bg_idx: int):
-    """seg_logits [Q, H, W] -> (probs [C, H, W] fp32, seg_pred [1, H, W] int64)."""
+                       logit_scale: float, prob_thd: float, bg_idx: int,
+                       pred_dtype: torch.dtype = torch.int32):
+    """seg_logits [Q, H, W] -> (probs [C, H, W] fp32, seg_pred [1, H, W] in
+    pred_dtype: int32 by default, as the JAX package; uint8 where the labels
+    and bg_idx fit)."""
     x = torch.softmax(seg_logits.float() * logit_scale, dim=0)
     num_cls, num_queries = onehot.shape
     if num_cls != num_queries:
         # per class, the max over its synonyms (probs >= 0, so the one-hot
         # product + max is exact)
         x = (x[None] * onehot[:, :, None, None]).amax(1)
-    seg_pred = x.argmax(0, keepdim=True)
+    seg_pred = x.argmax(0, keepdim=True).to(pred_dtype)
     return x, torch.where(x.amax(0, keepdim=True) < prob_thd,
                           torch.full_like(seg_pred, bg_idx), seg_pred)

@@ -40,9 +40,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rs_ov_torch.core.checkpoint import (clip_params_from_state_dict,
+                                         jbu_params_from_state_dict, load_torch_state_dict)
 from rs_ov_torch.core.config import get_model_config
-from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
 from rs_ov_torch.core.params import clip_params_from_numpy, init_clip_params, load_numpy_tree
+from rs_ov_torch.data.palette import colorize_mask, confidence_heatmap
+from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
 from rs_ov_torch.decontam.cross_tile import CrossTileFusionConfig, fuse_tile_grid
 from rs_ov_torch.decontam.ctd import adaptive_debiasing, cluster_patch_tokens_dbscan
 from rs_ov_torch.decontam.global_debias import global_debias
@@ -61,6 +64,11 @@ __all__ = ["SegmentorEx", "Segmentor"]
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or a numpy dtype or its name ("uint8"), as a torch dtype."""
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, np.dtype(dtype).name)
 
 
 class SegmentorEx:
@@ -105,6 +113,7 @@ class SegmentorEx:
                  param_dtype: Optional[torch.dtype] = None,
                  templates=OPENAI_IMAGENET_TEMPLATES,
                  tile_chunk: int = 0,
+                 pred_dtype=None,
                  shape_bucket: int = 0,
                  seed: int = 0,
                  clip_config=None,
@@ -113,18 +122,15 @@ class SegmentorEx:
         # numerics are held against the JAX package's fp32 islands
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        for flag, what, item in (
-                (clip_type != "CLIP", f"clip_type '{clip_type}'", "queue 1 item 8"),
-                (model_type == "GEM", "the GEM tower", "queue 1 item 8"),
-                (checkpoint_path is not None, "checkpoint loading", "queue 1 item 1"),
-                (bool(result_dir or heatmap_dir), "result_dir / heatmap_dir",
-                 "queue 1 item 6")):
+        for flag, what in ((clip_type != "CLIP", f"clip_type '{clip_type}'"),
+                           (model_type == "GEM", "the GEM tower")):
             if flag:
-                raise _not_ported(what, item)
+                raise _not_ported(what, "queue 1 item 8")
         if model_type not in ATTENTION_MODES:
             raise ValueError(f"Unknown attention mode '{model_type}'. "
                              f"Known: {ATTENTION_MODES}")
 
+        self.clip_type, self.vit_type, self.model_type = clip_type, vit_type, model_type
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("SegmentorEx runs on a CUDA card and found none "
@@ -139,9 +145,12 @@ class SegmentorEx:
             "ViT-B/16" if "B" in vit_type else "ViT-L/14")
         self.patch_size = self.cfg.vision.patch_size
 
-        gen = torch.Generator().manual_seed(seed)
-        clip = (clip_params_from_numpy(params, self.cfg) if params is not None
-                else init_clip_params(gen, self.cfg))
+        if params is not None:
+            clip = clip_params_from_numpy(params, self.cfg)
+        elif checkpoint_path:
+            clip = clip_params_from_state_dict(load_torch_state_dict(checkpoint_path), self.cfg)
+        else:  # no implicit download: random weights keep the pipeline runnable
+            clip = init_clip_params(torch.Generator().manual_seed(seed), self.cfg)
         self.clip = clip.to(device=self.device, dtype=param_dtype)
 
         query_words, self.query_idx = get_cls_idx(name_path)
@@ -206,6 +215,9 @@ class SegmentorEx:
         self.global_debias_factor = float(global_debias_factor)
         self.cls_token_lambda = float(cls_token_lambda)
         self.bg_idx = int(bg_idx)
+        self.pred_dtype = _torch_dtype(pred_dtype or torch.int32)
+        self.result_dir = result_dir
+        self.heatmap_dir = heatmap_dir
         self.tile_chunk = tile_chunk  # 0: RS_OV_TILE_CHUNK or the default, at call time
         self.shape_bucket = shape_bucket or int(os.environ.get("RS_OV_SHAPE_BUCKET", "0"))
 
@@ -226,13 +238,16 @@ class SegmentorEx:
             self._upsample_classify_nhwc = get_upsampler_nhwc_classify(
                 self.upsampler_name, self.jbu_stages)
             model_path = up_cfg.get("model_path")
-            # random init unless weights are given (the repo holds none), as
-            # the JAX package does; given weights overwrite every parameter
-            up = init(torch.Generator().manual_seed(seed + 1), self.cfg.embed_dim)
+            # random init unless weights are given, as the JAX package does:
+            # a missing model_path falls back to it
             if upsampler_params is not None:
-                load_numpy_tree(up, upsampler_params)
+                up = load_numpy_tree(init(torch.Generator(), self.cfg.embed_dim),
+                                     upsampler_params)
             elif model_path and os.path.exists(model_path):
-                raise _not_ported("loading an upsampler checkpoint", "queue 1 item 1")
+                up = jbu_params_from_state_dict(load_torch_state_dict(model_path),
+                                                self.upsampler_name)
+            else:
+                up = init(torch.Generator().manual_seed(seed + 1), self.cfg.embed_dim)
             self.upsampler = up.to(device=self.device, dtype=param_dtype)
 
     # ------------------------------------------------------------------
@@ -335,20 +350,25 @@ class SegmentorEx:
         ch, cw = coords[0][2] - coords[0][0], coords[0][3] - coords[0][1]
         pads = compute_padsize(ch, cw, self.patch_size)
         tiles = torch.cat([extract_tiles(im, coords) for im in imgs])
-        left, right, top, bottom = pads
-        tiles = torch.nn.functional.pad(tiles, (left, right, top, bottom))
-        tiles = tiles.to(self.param_dtype)
+        tiles = torch.nn.functional.pad(tiles, pads)  # (left, right, top, bottom)
+        tile_logits = self._forward_tiles(tiles, grid_shape, pads, (ch, cw), n)
+        return tile_logits.reshape(n, len(coords), *tile_logits.shape[1:]), coords
 
+    def _forward_tiles(self, tiles: torch.Tensor, grid_shape, pads, tile_hw,
+                       n_images: int = 1) -> torch.Tensor:
+        """Padded crops [T, 3, ch, cw] -> per-crop logits [T, Q, th, tw]
+        (rs_ov/pipeline/segmentor.py:434-487); cross-tile fusion regroups the
+        crops per image."""
+        tiles = tiles.to(self.param_dtype)
         pooled, tokens = vit_forward(self.clip.visual, tiles, self.cfg.vision, self.call)
         p32 = pooled.float()
         cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
         if self.apply_cross_tile_fusion:
-            tokens = self._fuse_tiles(tokens, grid_shape, grid_hw, n)
-        tile_logits = self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw,
-                                             pads, (ch, cw))
-        return tile_logits.reshape(n, len(coords), *tile_logits.shape[1:]), coords
+            tokens = self._fuse_tiles(tokens, grid_shape, grid_hw, n_images)
+        return self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
+                                      tile_hw)
 
     def _forward_images(self, imgs: torch.Tensor, ori_shape: tuple[int, int],
                         extent: Optional[tuple[int, int]] = None):
@@ -362,7 +382,8 @@ class SegmentorEx:
             canvas = stitch(tl, coords, h_img, w_img)[:, :eh, :ew]
             probs, pred = postprocess_logits(
                 resize_bilinear(canvas, ori_shape), self._onehot,
-                logit_scale=self.logit_scale, prob_thd=self.prob_thd, bg_idx=self.bg_idx)
+                logit_scale=self.logit_scale, prob_thd=self.prob_thd, bg_idx=self.bg_idx,
+                pred_dtype=self.pred_dtype)
             results.append({"seg_logits": probs, "pred_sem_seg": pred})
         return results
 
@@ -376,9 +397,43 @@ class SegmentorEx:
         return ((x.float() - self._mean) / self._std).movedim(-1, -3)
 
     @staticmethod
-    def _ori_shape(data_samples, i: int, default) -> tuple[int, int]:
-        meta = (data_samples[i] if data_samples is not None else None) or {}
-        return tuple(meta.get("ori_shape", default))[:2]
+    def _meta(data_samples, i: int) -> dict:
+        return (data_samples[i] if data_samples is not None else None) or {}
+
+    def _ori_shape(self, data_samples, i: int, default) -> tuple[int, int]:
+        return tuple(self._meta(data_samples, i).get("ori_shape", default))[:2]
+
+    def _maybe_dump(self, results, data_samples) -> None:
+        """With ``result_dir`` / ``heatmap_dir``: each image's colourised
+        prediction / confidence heatmap as ``<stem>.png``, the stem from its
+        meta's path, else ``sample_<i>`` (rs_ov/pipeline/segmentor.py:779-798)."""
+        if not (self.result_dir or self.heatmap_dir):
+            return
+        for i, result in enumerate(results):
+            meta = self._meta(data_samples, i)
+            stem = next((os.path.splitext(os.path.basename(meta[k]))[0]
+                         for k in ("img_path", "ori_path", "filename", "ori_filename")
+                         if meta.get(k)), f"sample_{i}")
+            if self.result_dir:
+                os.makedirs(self.result_dir, exist_ok=True)
+                colorize_mask(result["pred_sem_seg"][0].cpu().numpy(), self.num_classes,
+                              self.bg_idx, os.path.join(self.result_dir, f"{stem}.png"))
+            if self.heatmap_dir:
+                os.makedirs(self.heatmap_dir, exist_ok=True)
+                confidence_heatmap(result["seg_logits"].amax(0).cpu().numpy(),
+                                   os.path.join(self.heatmap_dir, f"{stem}.png"))
+
+    @torch.no_grad()
+    def forward_feature(self, img, logit_size=None) -> torch.Tensor:
+        """Per-pixel logits [B, Q, H, W] of normalised images [B, 3, H, W] in
+        one shot, without the sliding window (rs_ov/pipeline/segmentor.py:661-675);
+        resized to ``logit_size`` when given."""
+        x = torch.as_tensor(np.asarray(img, np.float32) if not torch.is_tensor(img)
+                            else img).to(self.device, torch.float32)
+        h, w = x.shape[-2:]
+        pads = compute_padsize(h, w, self.patch_size)
+        logits = self._forward_tiles(torch.nn.functional.pad(x, pads), (1, 1), pads, (h, w))
+        return logits if logit_size is None else resize_bilinear(logits, tuple(logit_size))
 
     @torch.no_grad()
     def predict_raw(self, inputs, data_samples=None):
@@ -395,6 +450,7 @@ class SegmentorEx:
                 ph, pw = self._bucket_pad(h, w)
                 im = torch.nn.functional.pad(im, (0, 0, 0, pw, 0, ph))
             results += self._forward_images(self._normalise(im)[None], ori_shape, (h, w))
+        self._maybe_dump(results, data_samples)
         return results
 
     @torch.no_grad()
@@ -413,7 +469,9 @@ class SegmentorEx:
             raise ValueError(f"predict_batch_raw needs a shape-homogeneous batch, got "
                              f"ori_shapes {sorted(shapes)}")
         x = torch.as_tensor(inputs).to(self.device)
-        return self._forward_images(self._normalise(x), shapes.pop())
+        results = self._forward_images(self._normalise(x), shapes.pop())
+        self._maybe_dump(results, data_samples)
+        return results
 
     @torch.no_grad()
     def predict(self, inputs, data_samples=None):
@@ -429,6 +487,7 @@ class SegmentorEx:
                 ph, pw = self._bucket_pad(h, w)
                 img = torch.nn.functional.pad(img, (0, pw, 0, ph))
             results += self._forward_images(img[None], ori_shape, (h, w))
+        self._maybe_dump(results, data_samples)
         return results
 
 

@@ -89,6 +89,42 @@ def test_cuda_sources_note_their_tpu_kernel_and_export_the_bound_signatures():
     assert defined == set(build._SIGNATURES) | {"rs_error_string"}
 
 
+def test_bf16_adaptive_conv_source_names_its_tpu_kernels():
+    """K4e/K4f's source names both JAX kernels it replaces, by file and
+    function."""
+    with open(os.path.join(REPO, "rs_ov_torch", "csrc", "adaptive_conv_bf16.cu")) as f:
+        head = f.read().split("#include")[0]
+    assert "rs_ov/kernels/adaptive_conv_v3.py" in head and "adaptive_conv_pallas_v3" in head
+    assert "rs_ov/kernels/adaptive_conv_v4.py" in head and "adaptive_conv_pallas_v4" in head
+
+
+def test_native_library_is_the_ports_own():
+    """rs_ov_torch.native builds its own copy of the decoder sources into the
+    port's build directory and loads nothing under rs_ov/."""
+    from rs_ov_torch import native
+
+    lib = native.get_lib()
+    assert lib is not None  # g++ is present here
+    path = os.path.realpath(lib._name)
+    assert path.startswith(os.path.realpath(native.BUILD_DIR) + os.sep), path
+    # a fresh process that decodes a committed image maps no file of rs_ov/
+    code = ("from rs_ov_torch.data.transforms import load_image\n"
+            "load_image('data_synth/data/CHN6-CUG/val/image_cvt/syn0.jpg')\n"
+            "print(open('/proc/self/maps').read())\n")
+    maps = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    assert "libpreprocess_decode" in maps
+    assert os.path.join(os.path.realpath(REPO), "rs_ov") + os.sep not in maps
+    for src in ("decode.cpp", "preprocess.cpp"):
+        assert os.path.exists(os.path.join(REPO, "rs_ov_torch", "native", src))
+    rgb = np.random.RandomState(0).randint(0, 256, (5, 7, 3), np.uint8)
+    from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
+
+    np.testing.assert_allclose(native.normalize_hwc_to_chw(rgb, PREPROC_MEAN, PREPROC_STD),
+                               ((rgb - PREPROC_MEAN) / PREPROC_STD).transpose(2, 0, 1),
+                               rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-B-32", "ViT-H-14",
                                   "ViT-M-16-alt", "ViT-bigG-14"])
 def test_config_copy_matches_the_jax_package(name):
@@ -115,15 +151,26 @@ def test_bridge_takes_the_ports_own_config():
                                   tree["text"]["token_embedding"])
 
 
-@pytest.mark.parametrize("path", ["configs/base_config.py", "configs/cfg_potsdam.py",
-                                  "configs/cfg_loveda.py"])
-def test_config_loader_matches_the_jax_package(path, monkeypatch):
+_CONFIGS = ["configs/base_config.py", "configs/cfg_potsdam.py", "configs/cfg_loveda.py"]
+
+
+@pytest.mark.parametrize("path,data_root", [pytest.param(p, None, id=p) for p in _CONFIGS] + [
+    pytest.param(p, root, id=f"{p}-RS_OV_DATA_ROOT={root}") for p in _CONFIGS[1:]
+    for root in ("data_synth", "/elsewhere/root")])
+def test_config_loader_matches_the_jax_package(path, data_root, monkeypatch):
+    """Also with the dataset paths rebased under RS_OV_DATA_ROOT."""
     from rs_ov.evalsuite.config import load_config as jax_load
     from rs_ov_torch.evalsuite.config import load_config
 
     monkeypatch.chdir(REPO)
-    monkeypatch.delenv("RS_OV_DATA_ROOT", raising=False)
-    assert load_config(path) == jax_load(path)
+    if data_root is None:
+        monkeypatch.delenv("RS_OV_DATA_ROOT", raising=False)
+    else:
+        monkeypatch.setenv("RS_OV_DATA_ROOT", data_root)
+    cfg = load_config(path)
+    assert cfg == jax_load(path)
+    if data_root and "test_dataloader" in cfg:
+        assert cfg["test_dataloader"]["dataset"]["data_root"].startswith(data_root)
 
 
 def test_transform_constants_match_the_jax_package():

@@ -110,7 +110,7 @@ def test_decontam_options_match_jax(weights, case):
 
 
 @pytest.mark.parametrize("option", [
-    dict(clip_type="BLIP"), dict(checkpoint_path="ViT-B-16.pt"),
+    dict(clip_type="BLIP"), dict(sim_feat_up_cfg=dict(model_name="ifa")),
     dict(sim_feat_up_cfg=dict(model_name="carafe")), dict(model_type="GEM"),
 ])
 def test_options_outside_the_slice_raise(weights, option):

@@ -178,6 +178,31 @@ def test_segmentor_matches_jax(weights):
 
 
 @pytest.mark.parametrize("option", [dict(result_dir="out"), dict(heatmap_dir="heat")])
-def test_dump_dirs_raise(weights, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        SegmentorEx(**_kwargs(weights, **option), device="cpu")
+def test_dump_dirs_raise(weights, option, tmp_path):
+    """result_dir / heatmap_dir no longer raise: on every entry both packages
+    write one PNG per image, named after its path (else sample_<i>), with
+    the same colours wherever the predictions agree (masks: >= 0.999 of the
+    pixels; heatmaps of the max probability, within 2e-3: one level of 255,
+    which the JET colour map spreads to up to 4 per channel)."""
+    from PIL import Image
+
+    option, = option
+    imgs = _images(2, 64, 96, seed=13)
+    metas = [{"img_path": "/data/a.png"}, {"img_path": "/data/b.jpg"}]
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    JaxSegmentorEx(**_kwargs(weights, **{option: str(jax_dir)})).predict_batch_raw(imgs, metas)
+    seg = SegmentorEx(**_kwargs(weights, **{option: str(port_dir)}), device="cpu")
+    seg.predict_batch_raw(imgs, metas)
+    seg.predict_raw(imgs[:1])
+    seg.predict(((imgs[1:].astype(np.float32) - PREPROC_MEAN) / PREPROC_STD).transpose(0, 3, 1, 2),
+                [{"filename": "c.png"}])
+    assert sorted(os.listdir(port_dir)) == ["a.png", "b.png", "c.png", "sample_0.png"]
+    for name in ("a.png", "b.png"):
+        want = np.asarray(Image.open(jax_dir / name)).astype(np.int64)
+        got = np.asarray(Image.open(port_dir / name)).astype(np.int64)
+        assert got.shape == want.shape == (64, 96, 3)
+        same = np.mean((got == want).all(-1))
+        if option == "result_dir":
+            assert same >= 0.999
+        else:
+            assert same >= 0.99 and np.abs(got - want).max() <= 4

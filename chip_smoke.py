@@ -16,8 +16,11 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 map, in bf16 and fp32, at 16 crops x 12 heads x 197 tokens x
                 64); prints the error beside that of the plain version with
                 its last tap (K6: its last key) dropped, and for K5a/K5b also
-                with zero padding in place of reflection, each of which must
-                exceed the bound, the median times (CUDA events, in turns),
+                with zero padding in place of reflection, and for K3 also
+                with its fixup bias left out and with the normalised vector
+                unrounded, each of which must exceed the bound; K3's bare
+                library call beside its wrapper's; the median times (CUDA
+                events, in turns),
                 the bound from the shapes and, for K6's vanilla and ClearCLIP
                 modes, the time of one scaled_dot_product_attention call.
                 K5a and K5b are also held against the split pair they replace
@@ -43,10 +46,14 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 fused-range switch off (K1 K2 K3) and on (K5a K5b); and the
                 adaptive-conv entry points K4c and K4d on the stage operands
                 of one fp32 channel-first request, against K4b's outputs, and
-                K4e and K4f on the same operands against their plain version.
+                K4e and K4f on the same operands against their plain version;
+                K3 on one default request's last-stage operands: how many of
+                its rounded sums land near a bf16 midpoint (the kernel takes
+                those again in order) and its time on them.
                 Checks outputs and that every launch counter moved by
-                exactly the expected amount; prints tiles/s per route over
-                the requests after the first (batches: the second call).
+                exactly the expected amount; prints crops/s (224²) and 512²
+                tiles/s (crops/s / 16) per route over the requests after the
+                first (batches: the second call).
   5. e2e      - one 336x336 image through every route on the card and
                 through the fp32 CPU route, with the same weights and
                 queries: argmax agreement >= 0.95 between routes and with
@@ -97,7 +104,8 @@ CARD = {}
 # Each bound is on max|kernel - plain| / max|plain|. K3's logits here reach
 # only ~0.18, so its bound is relative and tight: a few bf16 rounding flips
 # fit, while leaving out the 512x512 fixup product (1.1e-1), its bias
-# (1.1e-2) or the bf16 rounding of the normalised vector (1.9e-3) does not.
+# (1.1e-2) or the bf16 rounding of the normalised vector (1.9e-3) does not;
+# the last two are measured beside the bound on every K3 check.
 # K4b (fp32) and K4a (bf16) are held to 1e-5 and 1e-2 of max|ref|: K4a's
 # bound is one or two bf16 flips of an output (a step is 2^-8 of the value).
 # For every kernel and shape, the plain version without its last tap, on the
@@ -265,6 +273,65 @@ def _epilogue_conv_without_last_tap():
         mod._adaptive_conv_nhwc = conv
 
 
+@contextlib.contextmanager
+def _tail_without_rounding():
+    """The plain classify tail with the bf16 rounding of the normalised
+    vector left out."""
+    from rs_ov_torch.kernels import jbu_epilogue as mod
+
+    tail = mod._cls_tail
+
+    def faulty(y, fixup_w, fixup_b, query_features, dt):
+        yb = y.to(dt)
+        fx = torch.matmul(yb.float(), fixup_w.to(dt).float().t())
+        r32 = (((fx + fixup_b.float()) * 0.1).to(dt) + yb).float()
+        rn = r32 * torch.rsqrt(r32.square().sum(-1, keepdim=True).clamp_min(1e-24))
+        return torch.matmul(rn, query_features.to(dt).float().t())
+
+    mod._cls_tail = faulty
+    try:
+        yield
+    finally:
+        mod._cls_tail = tail
+
+
+def _classify_check(rng, dev, tail, d, hw):
+    """K3 at d, hw against its plain version, beside three faults of the plain
+    version (the last tap dropped, the fixup bias left out, the normalised
+    vector left unrounded), each of which must land above K3_TOL; then the
+    bare library call (one launch on operands checked once) timed in turns
+    with the wrapper's call, whose operand checks and allocation add host
+    time to the events' window. The row's ``ms`` is the wrapper's, as in
+    every row; ``kernel_ms`` the bare call's."""
+    from rs_ov_torch.kernels import jbu_epilogue as mod
+    from rs_ov_torch.kernels.build import load_library
+
+    a = {**_epilogue_inputs(rng, hw, hw, dev, d), **tail}
+    plain = lambda: mod.jbu_epilogue_classify_plain(**a, diameter=d)  # noqa: E731
+    wrapper = lambda: mod.jbu_epilogue_classify(**a, diameter=d)  # noqa: E731
+
+    def dropped():
+        with _epilogue_conv_without_last_tap():
+            return plain()
+
+    def unrounded():
+        with _tail_without_rounding():
+            return plain()
+
+    c = _check(f"K3 jbu_epilogue_classify d={d} H=W={hw}", K3_TOL, wrapper, plain, dropped,
+               _epilogue_bound(hw, hw, True, d),
+               faults=[("the fixup bias left out", lambda: mod.jbu_epilogue_classify_plain(
+                   **{**a, "fixup_b": torch.zeros_like(a["fixup_b"])}, diameter=d)),
+                       ("the normalised vector unrounded", unrounded)])
+    _, args, _keep = mod._classify_operands(**a, diameter=d)
+    lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    c["kernel_ms"], wrapper_ms = _timed_pair(
+        lambda: lib.rs_jbu_epilogue_classify(*args, stream), wrapper)
+    print(f"[kernels] K3 d={d} H=W={hw}: bare library call {c['kernel_ms']:.4f} ms, "
+          f"wrapper {wrapper_ms:.4f} ms in turns on {CARD['smi']}")
+    return c
+
+
 def _last_tap_dropped(t):
     t = t.clone()
     t[:, -1] = 0
@@ -274,9 +341,7 @@ def _last_tap_dropped(t):
 def phase_kernels():
     """K1-K3 at jbu_one's shapes (d=11) and at jbu_stack's (d=7, grids 28^2 to
     224^2, 4 stages), K4a/K4b at the channel-first route's."""
-    from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue, jbu_epilogue_classify,
-                                                  jbu_epilogue_classify_plain,
-                                                  jbu_epilogue_plain)
+    from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_plain
     from rs_ov_torch.kernels.range_logits import range_logits, range_logits_plain
     from rs_ov_torch.utils.resize import reflect_pad_2d
 
@@ -314,19 +379,8 @@ def phase_kernels():
     qf = torch.from_numpy(rng.randn(Q, C).astype(np.float32)).to(dev)
     qf = qf / qf.norm(dim=-1, keepdim=True)
     tail = dict(fixup_w=fw, fixup_b=fb, query_features=qf)
-    k3 = []
-    for d, hw in ((11, 56), (7, 224)):
-        a = {**_epilogue_inputs(rng, hw, hw, dev, d), **tail}
-
-        def faulty():
-            with _epilogue_conv_without_last_tap():
-                return jbu_epilogue_classify_plain(**a, diameter=d)
-
-        k3.append((f"B={B} d={d} C={C} G={G} Q={Q} H=W={hw}", _check(
-            f"K3 jbu_epilogue_classify d={d} H=W={hw}", K3_TOL,
-            lambda: jbu_epilogue_classify(**a, diameter=d),
-            lambda: jbu_epilogue_classify_plain(**a, diameter=d), faulty,
-            _epilogue_bound(hw, hw, True, d))))
+    k3 = [(f"B={B} d={d} C={C} G={G} Q={Q} H=W={hw}", _classify_check(rng, dev, tail, d, hw))
+          for d, hw in ((11, 56), (7, 224))]
 
     rows = {
         "range_logits": _row("range_logits", "rs_ov_torch/csrc/range_logits.cu",
@@ -334,7 +388,7 @@ def phase_kernels():
         "jbu_epilogue": _row("jbu_epilogue", "rs_ov_torch/csrc/jbu_epilogue.cu",
                              "rs_ov/kernels/jbu_epilogue.py:212", k2),
         "jbu_epilogue_classify": _row("jbu_epilogue_classify",
-                                      "rs_ov_torch/csrc/jbu_epilogue.cu",
+                                      "rs_ov_torch/csrc/jbu_classify_sm90.cu",
                                       "rs_ov/kernels/jbu_epilogue.py:333", k3)}
     rows.update(_adaptive_conv_kernels(rng, dev))
     rows.update(_fused_range_kernels(rng, dev, tail))
@@ -713,8 +767,8 @@ def _expect_launches(route, n_images, want):
 
 def _drive(route, seg, images, want):
     """predict_raw on each image with every launch counter at 0 before and
-    read after; checks the outputs and the counts; prints the tiles/s of the
-    requests after the first; returns the counts."""
+    read after; checks the outputs and the counts; prints the crops/s and
+    512² tiles/s of the requests after the first; returns the counts."""
     _reset_launches()
     secs = []
     for img in images:
@@ -726,7 +780,8 @@ def _drive(route, seg, images, want):
     launches = _expect_launches(route, len(images), want)
     steady = float(np.median(secs[1:] if len(secs) > 1 else secs))
     print(f"[slice] {route}: request seconds {[round(x, 4) for x in secs]}; "
-          f"{16 / steady:.2f} tiles/s (16 crops of 224 per 512x512 image) on {CARD['smi']}")
+          f"{16 / steady:.2f} crops/s (224²), {1 / steady:.2f} 512² tiles/s (16 crops per "
+          f"512x512 image) on {CARD['smi']}")
     return launches
 
 
@@ -746,8 +801,8 @@ def _drive_batch(route, seg, images, want):
     _check_results(route, seg, res)
     launches = _expect_launches(route, len(images), want)
     n = 16 * len(images)
-    print(f"[slice] {route}: {secs:.4f} s for the batch; {n / secs:.2f} tiles/s "
-          f"({n} crops of 224) on {CARD['smi']}")
+    print(f"[slice] {route}: {secs:.4f} s for the batch; {n / secs:.2f} crops/s (224²), "
+          f"{n / 16 / secs:.2f} 512² tiles/s ({n} crops) on {CARD['smi']}")
     return launches
 
 
@@ -800,6 +855,64 @@ def _drive_entry_points(seg, image):
           f"(tol {K4B_TOL})")
     assert max(worst.values()) <= K4B_TOL, worst
     return launches
+
+
+# The classify kernel's repair rule (rs_ov_torch/csrc/jbu_classify_sm90.cu):
+# a rounded sum within NEAR fp32 ulps of a bf16 midpoint is queued and taken
+# again in order; a block of ROWS x COLS pixels holds QCAP of them, past which
+# it takes every sum of the phase again.
+NEAR, QCAP, K3_ROWS, K3_COLS = 128, 512, 2, 16
+
+
+def _near_midpoint(v):
+    low = (v.float().contiguous().view(torch.int32) & 0xffff) - 0x8000 + NEAR
+    return (low >= 0) & (low < 2 * NEAR)
+
+
+def _per_block(near):
+    """[B, H, W, C] bool -> near sums per kernel block [B, H/2, W/16]."""
+    b, h, w, _ = near.shape
+    n = torch.nn.functional.pad(near.sum(-1), (0, -w % K3_COLS, 0, -h % K3_ROWS))
+    return n.reshape(b, n.shape[1] // K3_ROWS, K3_ROWS, -1, K3_COLS).sum((2, 4))
+
+
+def _classify_repairs(seg, image, rows):
+    """K3 on the operands of one default-route request's last stage (random
+    weights at full width): the sums of y and of t = (yb Wf^T + bf) * 0.1
+    that land near a bf16 midpoint (read on the plain version's sums), the
+    blocks whose queue overflows, and the bare kernel's time on these
+    operands beside its time on phase 3's random ones. Its launches are
+    outside every driven path's count."""
+    from rs_ov_torch.kernels import jbu_epilogue as mod
+    from rs_ov_torch.kernels.build import load_library
+    from rs_ov_torch.upsample import jbu
+
+    with _recording(jbu, "jbu_epilogue_classify") as calls:
+        seg.predict_raw(image)
+    args = calls[0][0]
+    inp, d, fw, fb = args[0], args[-1], args[9], args[10]
+    y = mod._adaptive_conv_nhwc(inp, mod._comb_fixed(*args[1:9], inp.dtype), d)
+    yb = y.to(inp.dtype)
+    t = (torch.matmul(yb.float(), fw.to(inp.dtype).float().t()) + fb.float()) * 0.1
+    _, largs, _keep = mod._classify_operands(*args)
+    lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    ms = _median_ms(lambda: lib.rs_jbu_epilogue_classify(*largs, stream))
+    out = {"shape": list(inp.shape[:1]) + list(y.shape[1:]) + [d], "kernel_ms": ms}
+    for name, v in (("y", y), ("t", t)):
+        near = _near_midpoint(v)
+        blocks = _per_block(near)
+        out[name] = dict(near=int(near.sum()), of=near.numel(),
+                         blocks_past_queue=int((blocks > QCAP).sum()), blocks=blocks.numel(),
+                         most_in_a_block=int(blocks.max()))
+    print(f"[slice] K3 on one request's last-stage operands (B, H, W, C, d = "
+          f"{out['shape']}): near a bf16 midpoint y {out['y']['near']} of {out['y']['of']}, "
+          f"t {out['t']['near']}; blocks past the queue's {QCAP}: y "
+          f"{out['y']['blocks_past_queue']}, t {out['t']['blocks_past_queue']} of "
+          f"{out['y']['blocks']} (most in a block {out['y']['most_in_a_block']} / "
+          f"{out['t']['most_in_a_block']}); bare kernel {ms:.4f} ms on them, "
+          f"{rows['jbu_epilogue_classify']['kernel_ms']:.4f} ms on phase 3's operands "
+          f"({rows['jbu_epilogue_classify']['shape']}) on {CARD['smi']}")
+    rows["jbu_epilogue_classify"]["request_operands"] = out
 
 
 def phase_slice(rows):
@@ -864,6 +977,7 @@ def phase_slice(rows):
     by_path["batch"] = _drive_batch("predict_batch_raw of 3 images (K1 K2 K3)", seg, images,
                                     channel_last)
     by_path["entry points"] = _drive_entry_points(segs["base fp32"], images[0])
+    _classify_repairs(seg, images[0], rows)
     own = {"range_logits": "bf16 channel-last", "jbu_epilogue": "bf16 channel-last",
            "jbu_epilogue_classify": "bf16 channel-last",
            "adaptive_conv_f32": "fp32 channel-first", "adaptive_conv_bf16": "bf16 channel-first",

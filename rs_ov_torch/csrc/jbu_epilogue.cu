@@ -1,8 +1,9 @@
-// JBU stage epilogue (K2) and its classify variant (K3), and the fused-range
-// stage (K5a) and its classify variant (K5b), on Hopper (sm_90a).
+// JBU stage epilogue (K2), and the fused-range stage (K5a) and its classify
+// variant (K5b), on Hopper (sm_90a). The split route's classify variant (K3)
+// is jbu_classify_sm90.cu, on the tensor cores.
 //
 // Replaces the TPU kernels rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_pallas
-// (nhwc=True), :jbu_epilogue_classify_pallas, :jbu_epilogue_fused_pallas and
+// (nhwc=True), :jbu_epilogue_fused_pallas and
 // :jbu_epilogue_fused_classify_pallas. Per output pixel:
 //
 //   comb  = softmax_t(logits * temp) * spatial;  comb /= max(sum_t comb, 1e-7)
@@ -10,7 +11,7 @@
 //   comb' = bf16(comb + 0.1 fix)
 //   y[c]  = sum_t comb'[t] * inp[h+u, w+v, c]            (t = u*d + v, fp32)
 //   K2:  out = bf16(y)
-//   K3:  yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
+//   K5b: yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
 //        rb = bf16(res * rsqrt(max(|res|^2, 1e-24)));  logits[q] = rb . bf16(Q[q])
 //
 // K5a / K5b are K2 / K3 for a whole stage: they take the UNpadded source
@@ -30,9 +31,9 @@
 // What bounds it on the H100, at the main-path shapes (B=2, d=11, C=512,
 // G=3, K=32): K2 at H=W=28 reads the padded bf16 source (2*38*38*512*2 B =
 // 3.0 MB) and writes 1.6 MB, for 2*784*(121*512 + 30k) = 0.14 G multiply-adds;
-// K3 at H=W=56 adds the 512 x 512 fixup product per pixel, 2*3136*512*512 =
-// 1.6 G multiply-adds, which makes K3 compute-bound on the fp32 cores in this
-// first version (no tensor cores yet: a later PR moves the products to wgmma).
+// K5b at H=W=56 adds the 512 x 512 fixup product per pixel, 2*3136*512*512 =
+// 1.6 G multiply-adds, which makes it compute-bound on the fp32 cores in this
+// first version (K3 has moved the same tail to mma.sync).
 // K5 adds d*d*K = 3.9k fp32 multiply-adds per pixel to K2's 62k and saves
 // K1's launch, the logits' write and read (3 MB at 56^2) and the pads.
 //
@@ -51,7 +52,7 @@
 //     pixel of the strip's d x (16+d-1) window is loaded once and feeds every
 //     output pixel whose window covers it, summing taps in order t = 0..d*d-1.
 //     K5 reads the unpadded source at reflected rows and columns.
-//   K3 / K5b tail: y goes to shared memory as bf16; the fixup product runs with
+//   K5b tail: y goes to shared memory as bf16; the fixup product runs with
 //     threads over output-channel pairs reading the transposed weight
 //     [C_in][C_out] through L2 (512 KB at C=512); one warp per pixel reduces
 //     the L2 norm; one warp per (pixel, query) takes each cosine dot product.
@@ -413,20 +414,6 @@ extern "C" int rs_jbu_epilogue(const void* inp, const float* logits, const void*
             static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
             H, W, C, G, cmid, d, 0};
   return launch_epilogue<false>(a, out, B, stream);
-}
-
-extern "C" int rs_jbu_epilogue_classify(const void* inp, const float* logits,
-                                        const void* guid, const float* spatial,
-                                        const float* temp, const float* w0,
-                                        const float* b0, const float* w1,
-                                        const float* b1, const void* fwt,
-                                        const float* fb, const void* qf, float* out,
-                                        int B, int H, int W, int C, int G, int cmid,
-                                        int d, int Q, cudaStream_t stream) {
-  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), logits, nullptr,
-            static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
-            H, W, C, G, cmid, d, 0};
-  return launch_classify<false>(a, fwt, fb, qf, out, B, Q, stream);
 }
 
 extern "C" int rs_jbu_epilogue_fused(const void* inp, const float* proj, const void* guid,

@@ -41,7 +41,7 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue_fused_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

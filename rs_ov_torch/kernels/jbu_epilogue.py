@@ -25,11 +25,13 @@ source inside, then continue as the two above. The guidance comes
 channel-first, ``guid_cf [B, G, H, W]``.
 
 Each dispatches on the device: a CPU tensor takes the plain version, a CUDA
-tensor the hand-written kernel in ``rs_ov_torch/csrc/jbu_epilogue.cu``, which
-replaces the TPU kernels ``jbu_epilogue_pallas(nhwc=True)``
-(rs_ov/kernels/jbu_epilogue.py:212), ``jbu_epilogue_classify_pallas``
-(:333), ``jbu_epilogue_fused_pallas`` (:640) and
-``jbu_epilogue_fused_classify_pallas`` (:675). The kernels take bf16
+tensor the hand-written kernel, which replaces a TPU kernel:
+``jbu_epilogue_pallas(nhwc=True)`` (rs_ov/kernels/jbu_epilogue.py:212),
+``jbu_epilogue_fused_pallas`` (:640) and ``jbu_epilogue_fused_classify_pallas``
+(:675) in ``rs_ov_torch/csrc/jbu_epilogue.cu``, and
+``jbu_epilogue_classify_pallas`` (:333) in
+``rs_ov_torch/csrc/jbu_classify_sm90.cu`` (its three products on the tensor
+cores; Q <= 128 and d <= 17, the TPU kernel's limits). The kernels take bf16
 features and guidance; fp32 runs take the channel-first route (plain
 epilogue + adaptive-conv kernel K4b), as in the JAX package.
 """
@@ -49,6 +51,7 @@ __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
 
 PIX = 16  # output pixels per block of the CUDA kernels
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
+CLASSIFY_MAX_Q, CLASSIFY_MAX_D = 128, 17  # the classify kernel's limits
 
 
 def _comb_fixed(logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, dtype):
@@ -206,7 +209,7 @@ def _fixup_weights(w0, b0, w1, b1, dd, g, device):
 
 
 def _tail_operands(fixup_w, fixup_b, query_features, c, device):
-    """The classify tail's operands as the kernels read them."""
+    """The fused classify tail's operands as its kernel reads them."""
     q = query_features.shape[0]
     if tuple(fixup_w.shape) != (c, c) or tuple(query_features.shape) != (q, c):
         raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
@@ -236,22 +239,75 @@ def _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
     return out
 
 
+def _classify_limits(c: int, d: int, q: int) -> None:
+    """What the classify kernel takes: an even channel count, d <= 17 and
+    1 <= Q <= 128 (the TPU kernel's asserts, and the route rule's Q limit)."""
+    if c % 2:
+        raise ValueError(f"jbu_epilogue_classify kernel takes an even channel count, got {c}")
+    if not 1 <= d <= CLASSIFY_MAX_D:
+        raise ValueError(f"jbu_epilogue_classify kernel takes d <= {CLASSIFY_MAX_D}, got {d}")
+    if not 1 <= q <= CLASSIFY_MAX_Q:
+        raise ValueError(f"jbu_epilogue_classify kernel takes 1 to {CLASSIFY_MAX_Q} "
+                         f"queries, got {q}")
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t as a contiguous tensor of dtype (itself when it is one already)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
+                       fixup_w, fixup_b, query_features, diameter):
+    """Check the operands and allocate the output. Returns (out, args, keep):
+    args are the library call's arguments up to the stream, keep the tensors
+    they point into (the caller's own, unless a dtype had to be cast)."""
+    q, d = query_features.shape[0], diameter
+    _classify_limits(inp.shape[-1], d, q)
+    b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, d)
+    g, cmid, dev = guid_t.shape[-1], w0.shape[0], inp.device
+    # the kernel reads the MLP weights and biases and the fixup bias in their
+    # dtype (all fp32 or all bf16), the queries in fp32 or bf16, and the fixup
+    # conv as it is held, [C_out, C_in] (mma's B operand in .col form): the
+    # usual call casts nothing
+    if fixup_w.shape != (c, c) or query_features.shape != (q, c):
+        raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
+                         f"queries {tuple(query_features.shape)} do not match C={c}")
+    ws = (w0, b0, w1, b1, fixup_b)
+    for t, shape in zip(ws, ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,), (c,))):
+        if t.shape != shape:
+            raise ValueError(f"jbu_epilogue_classify: weight of shape {tuple(t.shape)}, "
+                             f"want {shape}")
+        _on(t, dev, f"weight {shape}")
+    wdt = (w0.dtype if w0.dtype in (torch.float32, torch.bfloat16)
+           and all(t.dtype == w0.dtype for t in ws) else torch.float32)  # fp32: exact
+    ws = tuple(_as(t, wdt) for t in ws)
+    qf = _on(query_features, dev, "query_features")
+    qf = _as(qf, qf.dtype if qf.dtype in (torch.float32, torch.bfloat16) else torch.float32)
+    fw = _as(_on(fixup_w, dev, "fixup_w"), torch.bfloat16)
+    out = torch.empty((b, h, w, q), dtype=torch.float32, device=dev)
+    args = (inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
+            pos_temp.data_ptr(), *(t.data_ptr() for t in ws[:4]), fw.data_ptr(),
+            ws[4].data_ptr(), qf.data_ptr(), out.data_ptr(), b, h, w, c, g, cmid, d, q,
+            int(wdt == torch.bfloat16), int(qf.dtype == torch.bfloat16))
+    return out, args, (ws, fw, qf)
+
+
 def _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0,
                                 w1, b1, fixup_w, fixup_b, query_features, diameter):
-    b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter)
-    g = guid_t.shape[-1]
-    q = query_features.shape[0]
-    cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
-    fwt, fb, qf = _tail_operands(fixup_w, fixup_b, query_features, c, inp.device)
-    out = torch.empty((b, h, w, q), dtype=torch.float32, device=inp.device)
-    lib = load_library()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(lib.rs_jbu_epilogue_classify(
-            inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
-            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), fwt.data_ptr(),
-            fb.data_ptr(), qf.data_ptr(), out.data_ptr(),
-            b, h, w, c, g, cmid, diameter, q, stream), "rs_jbu_epilogue_classify")
+    out, args, _keep = _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0,
+                                          b0, w1, b1, fixup_w, fixup_b, query_features,
+                                          diameter)
+    lib, dev = load_library(), inp.device
+    # the raw stream handle: torch.cuda.current_stream() and the device guard
+    # each cost as much host time as the launch itself, and every microsecond
+    # here shows in a request's 8 calls; the guard is taken only when needed
+    if dev.index == torch.cuda.current_device():
+        code = lib.rs_jbu_epilogue_classify(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            code = lib.rs_jbu_epilogue_classify(
+                *args, torch._C._cuda_getCurrentRawStream(dev.index))
+    check(code, "rs_jbu_epilogue_classify")
     jbu_epilogue_classify.launches += 1
     return out
 
@@ -354,7 +410,7 @@ def jbu_epilogue(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
 def jbu_epilogue_classify(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                           fixup_w, fixup_b, query_features, diameter: int) -> torch.Tensor:
     """See jbu_epilogue_classify_plain. CPU tensors take the plain version,
-    CUDA tensors the kernel (any number of queries)."""
+    CUDA tensors the kernel (Q <= 128 queries, d <= 17)."""
     if _route(inp) == "cpu":
         return jbu_epilogue_classify_plain(inp, logits_t, guid_t, spatial, pos_temp,
                                            w0, b0, w1, b1, fixup_w, fixup_b,

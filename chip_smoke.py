@@ -18,9 +18,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 its last tap (K6: its last key) dropped, and for K5a/K5b also
                 with zero padding in place of reflection, and for K3 also
                 with its fixup bias left out and with the normalised vector
-                unrounded, each of which must exceed the bound; K3's bare
-                library call beside its wrapper's; the median times (CUDA
-                events, in turns),
+                unrounded, each of which must exceed the bound; the bare
+                library call of K2, K3 and K6 beside the wrapper's; the
+                median times (CUDA events, in turns),
                 the bound from the shapes and, for K6's vanilla and ClearCLIP
                 modes, the time of one scaled_dot_product_attention call.
                 K5a and K5b are also held against the split pair they replace
@@ -304,7 +304,6 @@ def _classify_check(rng, dev, tail, d, hw):
     time to the events' window. The row's ``ms`` is the wrapper's, as in
     every row; ``kernel_ms`` the bare call's."""
     from rs_ov_torch.kernels import jbu_epilogue as mod
-    from rs_ov_torch.kernels.build import load_library
 
     a = {**_epilogue_inputs(rng, hw, hw, dev, d), **tail}
     plain = lambda: mod.jbu_epilogue_classify_plain(**a, diameter=d)  # noqa: E731
@@ -323,13 +322,22 @@ def _classify_check(rng, dev, tail, d, hw):
                faults=[("the fixup bias left out", lambda: mod.jbu_epilogue_classify_plain(
                    **{**a, "fixup_b": torch.zeros_like(a["fixup_b"])}, diameter=d)),
                        ("the normalised vector unrounded", unrounded)])
-    _, args, _keep = mod._classify_operands(**a, diameter=d)
-    lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
-    c["kernel_ms"], wrapper_ms = _timed_pair(
-        lambda: lib.rs_jbu_epilogue_classify(*args, stream), wrapper)
-    print(f"[kernels] K3 d={d} H=W={hw}: bare library call {c['kernel_ms']:.4f} ms, "
-          f"wrapper {wrapper_ms:.4f} ms in turns on {CARD['smi']}")
+    _out, args, _keep = mod._classify_operands(**a, diameter=d)  # _out outlives the calls
+    _bare_beside_wrapper(f"K3 d={d} H=W={hw}", c, "rs_jbu_epilogue_classify", args, wrapper)
     return c
+
+
+def _bare_beside_wrapper(label, c, entry, args, wrapper):
+    """The bare library call ``entry(*args, stream)`` (one launch on operands
+    checked once, no launch count) timed in turns with the wrapper's call,
+    whose operand checks and allocation add host time to the events'
+    window; into c["kernel_ms"]."""
+    from rs_ov_torch.kernels.build import load_library
+
+    fn, stream = getattr(load_library(), entry), torch.cuda.current_stream().cuda_stream
+    c["kernel_ms"], wrapper_ms = _timed_pair(lambda: fn(*args, stream), wrapper)
+    print(f"[kernels] {label}: bare library call {c['kernel_ms']:.4f} ms, "
+          f"wrapper {wrapper_ms:.4f} ms in turns on {CARD['smi']}")
 
 
 def _last_tap_dropped(t):
@@ -341,7 +349,8 @@ def _last_tap_dropped(t):
 def phase_kernels():
     """K1-K3 at jbu_one's shapes (d=11) and at jbu_stack's (d=7, grids 28^2 to
     224^2, 4 stages), K4a/K4b at the channel-first route's."""
-    from rs_ov_torch.kernels.jbu_epilogue import jbu_epilogue, jbu_epilogue_plain
+    from rs_ov_torch.kernels.jbu_epilogue import (_epilogue_operands, jbu_epilogue,
+                                                  jbu_epilogue_plain)
     from rs_ov_torch.kernels.range_logits import range_logits, range_logits_plain
     from rs_ov_torch.utils.resize import reflect_pad_2d
 
@@ -368,11 +377,13 @@ def phase_kernels():
             with _epilogue_conv_without_last_tap():
                 return jbu_epilogue_plain(**a, diameter=d)
 
-        k2.append((f"B={B} d={d} C={C} G={G} H=W={hw}", _check(
-            f"K2 jbu_epilogue d={d} H=W={hw}", K2_TOL,
-            lambda: jbu_epilogue(**a, diameter=d),
-            lambda: jbu_epilogue_plain(**a, diameter=d), faulty,
-            _epilogue_bound(hw, hw, False, d))))
+        wrapper = lambda: jbu_epilogue(**a, diameter=d)  # noqa: E731
+        c = _check(f"K2 jbu_epilogue d={d} H=W={hw}", K2_TOL, wrapper,
+                   lambda: jbu_epilogue_plain(**a, diameter=d), faulty,
+                   _epilogue_bound(hw, hw, False, d))
+        _out, args, _keep = _epilogue_operands(**a, diameter=d)  # _out outlives the calls
+        _bare_beside_wrapper(f"K2 d={d} H=W={hw}", c, "rs_jbu_epilogue", args, wrapper)
+        k2.append((f"B={B} d={d} C={C} G={G} H=W={hw}", c))
 
     fw = torch.from_numpy((rng.randn(C, C) / np.sqrt(C)).astype(np.float32)).to(dev, torch.bfloat16)
     fb = torch.from_numpy((rng.randn(C) * 0.1).astype(np.float32)).to(dev, torch.bfloat16)
@@ -385,7 +396,7 @@ def phase_kernels():
     rows = {
         "range_logits": _row("range_logits", "rs_ov_torch/csrc/range_logits.cu",
                              "rs_ov/kernels/range_logits.py:64", k1),
-        "jbu_epilogue": _row("jbu_epilogue", "rs_ov_torch/csrc/jbu_epilogue.cu",
+        "jbu_epilogue": _row("jbu_epilogue", "rs_ov_torch/csrc/jbu_classify_sm90.cu",
                              "rs_ov/kernels/jbu_epilogue.py:212", k2),
         "jbu_epilogue_classify": _row("jbu_epilogue_classify",
                                       "rs_ov_torch/csrc/jbu_classify_sm90.cu",
@@ -621,20 +632,27 @@ def _adaptive_conv_kernels(rng, dev):
 K6_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 K6_SCORES = {"vanilla": 1, "ClearCLIP": 1, "SCLIP": 2, "SegEarth": 3, "SFP": 2,
              "Experimental": 2}
+K6_TERMS = {"SCLIP": 2, "SegEarth": 3}  # softmaxes whose weights meet v apart (others: 1)
+K6_SOURCE = {torch.bfloat16: "rs_ov_torch/csrc/selfself_attention_sm90.cu",
+             torch.float32: "rs_ov_torch/csrc/selfself_attention.cu"}
 
 
 def _selfself_attention_kernel(rng, dev):
     """K6 at the main path's shapes (16 crops of a 512x512 image, 12 heads,
     L=197, hd=64) in each mode, with and without the sim map, in bf16
     (within 1e-2 of max|ref|: a bf16 step of the output) and fp32 (1e-5).
-    The row leads with the base config's case: Experimental, bf16, sim map.
-    The fault is the plain version with its last key masked out of every
-    softmax, through a -inf in the sim map's last column. For vanilla and
-    ClearCLIP one scaled_dot_product_attention call (in the inputs' dtype;
-    its bf16 version rounds the weights, so it is a yardstick of time, not
-    of numbers) is timed as the library call; no single call computes the
-    other modes."""
-    from rs_ov_torch.kernels.selfself_attention import (SUPPORTED_MODES,
+    The row leads with the base config's case: Experimental, bf16, sim map;
+    the fp32 cases name their own source. The fault is the plain version
+    with its last key masked out of every softmax, through a -inf in the sim
+    map's last column. Each case times the bare library call beside the
+    wrapper. For vanilla and ClearCLIP one scaled_dot_product_attention call
+    (in the inputs' dtype; its bf16 version rounds the weights, so it is a
+    yardstick of time, not of numbers) is timed as the library call; no
+    single call computes the other modes. The bf16 bound counts what the
+    kernel multiplies on the tensor cores: the score products and, per
+    softmax term, weights @ v as the pair hi + lo; beside it the earlier
+    reckoning, weights @ v once at the fp32 rate."""
+    from rs_ov_torch.kernels.selfself_attention import (SUPPORTED_MODES, _attention_operands,
                                                         fused_selfself_attention,
                                                         fused_selfself_attention_plain)
 
@@ -655,14 +673,26 @@ def _selfself_attention_kernel(rng, dev):
         prod = 2 * b * h * l * l * hd
         nbytes = 4 * b * h * l * hd * q.element_size() + (4 * b * l * l if with_sim else 0)
         n = K6_SCORES[mode]
-        bound = (_bound(nbytes, fp32_ops=prod, bf16_ops=n * prod) if dtype == torch.bfloat16
-                 else _bound(nbytes, fp32_ops=(n + 1) * prod))
+        if dtype == torch.bfloat16:
+            bound = _bound(nbytes, bf16_ops=(n + 2 * K6_TERMS.get(mode, 1)) * prod)
+            earlier = _bound(nbytes, fp32_ops=prod, bf16_ops=n * prod)
+        else:
+            bound = _bound(nbytes, fp32_ops=(n + 1) * prod)
         tag = f"{mode} {str(dtype)[6:]} {'sim' if with_sim else 'no sim'}"
-        c = _check(f"K6 fused_selfself_attention {tag}", K6_TOL[dtype],
-                   lambda: fused_selfself_attention(q, k, v, sm, mode=mode),
+        wrapper = lambda: fused_selfself_attention(q, k, v, sm, mode=mode)  # noqa: E731
+        c = _check(f"K6 fused_selfself_attention {tag}", K6_TOL[dtype], wrapper,
                    lambda: fused_selfself_attention_plain(q, k, v, sm, mode=mode),
                    lambda: fused_selfself_attention_plain(q, k, v, masked, mode=mode),
                    bound, dropped="key")
+        _out, entry, args = _attention_operands(q, k, v, sm, mode, 1.0)  # _out outlives them
+        _bare_beside_wrapper(f"K6 {tag}", c, entry, args, wrapper)
+        if dtype == torch.bfloat16:
+            c["bound_ms_weights_v_fp32"] = earlier[0]
+            print(f"[kernels] K6 {tag}: bound {bound[0]:.4f} ms by {bound[1]} (weights @ v on "
+                  f"the tensor cores); {earlier[0]:.4f} ms by {earlier[1]} reckoned with "
+                  f"weights @ v at the fp32 rate")
+        else:
+            c["source"] = K6_SOURCE[dtype]
         if mode in ("vanilla", "ClearCLIP"):
             keys = k if mode == "vanilla" else q
             mask = None if sm is None else sm[:, None].to(dtype)
@@ -673,7 +703,7 @@ def _selfself_attention_kernel(rng, dev):
             c["library"] = f"scaled_dot_product_attention ({str(dtype)[6:]})"
             print(f"[kernels] {tag}: scaled_dot_product_attention {c['library_ms']:.4f} ms")
         checks.append((f"B={b} H={h} L={l} hd={hd} {tag}", c))
-    return _row("fused_selfself_attention", "rs_ov_torch/csrc/selfself_attention.cu",
+    return _row("fused_selfself_attention", K6_SOURCE[torch.bfloat16],
                 "rs_ov/kernels/selfself_attention.py:78", checks)
 
 
@@ -894,7 +924,7 @@ def _classify_repairs(seg, image, rows):
     y = mod._adaptive_conv_nhwc(inp, mod._comb_fixed(*args[1:9], inp.dtype), d)
     yb = y.to(inp.dtype)
     t = (torch.matmul(yb.float(), fw.to(inp.dtype).float().t()) + fb.float()) * 0.1
-    _, largs, _keep = mod._classify_operands(*args)
+    _out, largs, _keep = mod._classify_operands(*args)  # _out outlives the calls
     lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
     ms = _median_ms(lambda: lib.rs_jbu_epilogue_classify(*largs, stream))
     out = {"shape": list(inp.shape[:1]) + list(y.shape[1:]) + [d], "kernel_ms": ms}

@@ -1,15 +1,16 @@
-// The last JBU stage's epilogue with the classify tail (K3), on Hopper's
-// tensor cores (sm_90a).
+// The JBU stage epilogue (K2) and the last stage's epilogue with the
+// classify tail (K3), on Hopper's tensor cores (sm_90a).
 //
-// Replaces the TPU kernel rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_classify_pallas.
-// Per output pixel:
+// Replaces the TPU kernels rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_pallas
+// (nhwc=True; K2) and :jbu_epilogue_classify_pallas (K3). Per output pixel:
 //
 //   comb  = softmax_t(logits * temp) * spatial;  comb /= max(sum_t comb, 1e-7)
 //   fix   = W1 gelu(W0 [bf16(comb), guid] + b0) + b1            (fp32)
 //   comb' = bf16(comb + 0.1 fix)
 //   y[c]  = sum_t comb'[t] * inp[h+u, w+v, c]                   (t = u*d + v)
-//   yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
-//   rb = bf16(res * rsqrt(max(|res|^2, 1e-24)));  logits[q] = rb . bf16(Q[q])
+//   K2: out = bf16(y)
+//   K3: yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
+//       rb = bf16(res * rsqrt(max(|res|^2, 1e-24)));  logits[q] = rb . bf16(Q[q])
 //
 // The operands of the three products (the adaptive conv, the C x C fixup
 // product and the cosine) are bf16, and a product of two bf16 values is exact
@@ -19,18 +20,24 @@
 // 0.1) that lands within NEAR fp32 ulps of a bf16 rounding midpoint may round
 // to the other neighbour than the same sum taken in order, and one such flip
 // moves a logit by up to ~1e-3 of the largest. Those sums (~0.4% of them) are
-// taken again in order on the fp32 cores, as the plain version takes them.
+// taken again in order on the fp32 cores, as the plain version takes them;
+// so K2's y rounds as the tap-ordered sum does.
 //
 // What bounds it on the H100, at the main path's shapes (B=2, d=11, C=512,
-// G=3, Q=8, 56^2): 2*6272*512*512 = 3.3 G operations of the fixup product and
-// the banded conv's ~2.3 G, both bf16 operands (~6 us at mma.sync's rate),
-// the fp32 range MLP's 0.37 G (~6 us), and ~12 MB of bytes (~4 us); the
-// first versions on the fp32 cores were latency-bound instead: 16 pixels per
-// block, each block re-reading the whole 512 KB fixup weight through L2.
+// G=3, Q=8): K3 at 56^2: 2*6272*512*512 = 3.3 G operations of the fixup
+// product and the banded conv's ~2.3 G, both bf16 operands (~6 us at
+// mma.sync's rate), the fp32 range MLP's 0.37 G (~6 us), and ~12 MB of bytes
+// (~4 us). K2 at 28^2 reads the padded source (3.0 MB) and the logits (0.8
+// MB) and writes 1.6 MB (1.6 us), for 0.19 G conv and 0.09 G MLP operations;
+// at d=7, 112^2 (jbu_stack) 59 MB of bytes (18 us). The first versions on the
+// fp32 cores were latency-bound instead: 16 pixels per block, K3's blocks
+// each re-reading the whole 512 KB fixup weight through L2.
 //
-// Design: one block of 256 threads (8 warps) per (b, R = 2 output rows x 16
-// columns), M = 32 pixels; two blocks per SM at d <= 11 and C = 512 (113 KB of
-// shared memory each). R = 2 beat R = 1 and R = 4 on the H100 (PERF.md).
+// Design: K2 and K3 alike, one block of 256 threads (8 warps) per (b, R = 2
+// output rows x 16 columns) over all of C, M = 32 pixels; two blocks per SM
+// at d <= 11 and C = 512 (113 KB of shared memory each). R = 2 beat R = 1 and
+// R = 4 for K3 on the H100, and beat R = 1 and splitting the channels across
+// blocks for K2 at 28^2 and 112^2 (PERF.md).
 //   comb': one warp per pixel for the tap softmax and normalisation; the two
 //     fixup 1x1 convs as register-tiled products (4 pixels x 4 outputs per
 //     thread) over weight chunks of KC input rows staged in shared memory;
@@ -44,16 +51,17 @@
 //     loaded once per chunk and feeds every output row j it reaches. Each
 //     warp owns CCH/8 channels for all R rows; the fp32 sums are rounded to
 //     bf16 into y [M][Cp]. The band wastes (16 + d - 1)/d of the products,
-//     the trade the TPU kernel makes too.
-//   fixup product: A = yb [M][Cp] bf16 in shared memory (ldmatrix), B = the
-//     fixup weight as the caller holds it, [C_out][C_in], which is mma's
+//     the trade the TPU kernel makes too. K2 then writes y out, 16 bytes a
+//     thread.
+//   fixup product (K3): A = yb [M][Cp] bf16 in shared memory (ldmatrix), B =
+//     the fixup weight as the caller holds it, [C_out][C_in], which is mma's
 //     .col layout of [k][n]: streamed by cp.async in [128 n][64 k] stages,
 //     double buffered; each warp owns 16 output columns of a 128-wide chunk
 //     for all M rows. The epilogue adds the bias, scales, rounds and adds yb
 //     into res [M][Cp] bf16.
-//   norm: one warp per pixel; rb = bf16(res * inv) in place.
-//   cosine: the same streamed product with B = the queries [Q][C] (Q <= 128,
-//     one chunk), written as fp32 [B, H, W, Q].
+//   norm (K3): one warp per pixel; rb = bf16(res * inv) in place.
+//   cosine (K3): the same streamed product with B = the queries [Q][C] (Q <=
+//     128, one chunk), written as fp32 [B, H, W, Q].
 //   repairs: the sums near a midpoint are queued in shared memory and taken
 //     again in order after the conv and after the fixup product, one per
 //     thread; past QCAP of them, every sum of the phase is taken again.
@@ -69,7 +77,11 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace rs_ov;
 
 constexpr int NT = 256;  // threads per block
 constexpr int ROWS = 2;  // output rows per block
@@ -92,14 +104,14 @@ struct Args {
   const bf16* guid;     // [B, H, W, G]
   const float* spatial; // [d*d]
   const float* temp;    // [1]
-  const void* w0;       // [cmid, d*d+G]   (w0, b0, w1, b1, fb: all fp32 or all bf16)
+  const void* w0;       // [cmid, d*d+G]   (w0, b0, w1, b1 and K3's fb: all fp32 or all bf16)
   const void* b0;       // [cmid]
   const void* w1;       // [d*d, cmid]
   const void* b1;       // [d*d]
-  const bf16* fw;       // [C, C] (out, in)
-  const void* fb;       // [C]
-  const void* qf;       // [Q, C], fp32 or bf16
-  float* out;           // [B, H, W, Q]
+  const bf16* fw;       // [C, C] (out, in) (K3)
+  const void* fb;       // [C] (K3)
+  const void* qf;       // [Q, C], fp32 or bf16 (K3)
+  void* out;            // K2: [B, H, W, C] bf16; K3: [B, H, W, Q] fp32
   int H, W, C, G, cmid, d, Q;
   int wbf16, qbf16;     // the weights' and the queries' dtype: 1 for bf16
 };
@@ -111,7 +123,8 @@ __host__ __device__ inline size_t up128(size_t x) { return (x + 127) & ~(size_t)
 __host__ __device__ inline size_t maxz(size_t a, size_t b) { return a > b ? a : b; }
 
 // Byte offsets of a block's shared memory. y and comb' live throughout; the
-// work region holds in turn the comb' scratch, and res with the tail stages.
+// work region holds in turn the comb' scratch, the conv's ring, and (K3) res
+// with the tail stages.
 struct Layout {
   int M, Cp, ldy, nin, ldw;
   size_t y, cb, queue, work;  // regions
@@ -175,52 +188,6 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 (or 4) bytes global -> shared, zero-filled where src_bytes is 0
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-// D += A B: A 16x16 row-major, B 16x8 column-major, bf16 operands, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Whether v lies within NEAR fp32 ulps of a bf16 rounding midpoint, where the
@@ -732,7 +699,7 @@ __global__ void __launch_bounds__(NT, 2) jbu_classify_kernel(Args a) {
         const int m = 16 * i + g + 8 * hf;
         const int h = h0 + m / COLS, w = w0 + m % COLS;
         if (h >= a.H || w >= a.W) continue;
-        float* o = a.out + (((size_t)b * a.H + h) * a.W + w) * a.Q;
+        float* o = static_cast<float*>(a.out) + (((size_t)b * a.H + h) * a.W + w) * a.Q;
 #pragma unroll
         for (int t = 0; t < 2; ++t) {
           const int q = n + t * 8 + 2 * tq;
@@ -743,13 +710,43 @@ __global__ void __launch_bounds__(NT, 2) jbu_classify_kernel(Args a) {
   });
 }
 
-// A block whose shared memory does not fit (with the MLP d*d wide: C past 1408
-// at d <= 11, past 896 at d = 17) is refused with cudaErrorInvalidValue.
+// K2: the epilogue alone; y (repaired) written out as bf16 [B, H, W, C].
 template <bool kVec16>
-int launch(const Args& a, int B, cudaStream_t stream) {
+__global__ void __launch_bounds__(NT, 2) jbu_epilogue_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = ROWS, M = COLS * R;
+  const Layout L = make_layout(a.d, a.G, a.cmid, a.C);
+  bf16* s_y = reinterpret_cast<bf16*>(smem + L.y);
+  bf16* s_cb = reinterpret_cast<bf16*>(smem + L.cb);
+  int* q = reinterpret_cast<int*>(smem + L.queue);
+  const int b = blockIdx.z, h0 = blockIdx.y * R, w0 = blockIdx.x * COLS;
+  if (threadIdx.x == 0) q[0] = 0;  // comb_phase's barriers order it before the pushes
+
+  comb_phase<R>(a, L, b, h0, w0, smem + L.work, s_cb);
+  conv_phase<R, kVec16>(a, L, b, h0, w0, s_cb, s_y, smem + L.work, q);
+
+  // conv_phase ends on a barrier
+  const int V = kVec16 ? 8 : 2, per = a.C / V;
+  bf16* out = static_cast<bf16*>(a.out);
+  for (int i = threadIdx.x; i < M * per; i += NT) {
+    const int m = i / per, c = i % per * V, h = h0 + m / COLS, w = w0 + m % COLS;
+    if (h >= a.H || w >= a.W) continue;
+    bf16* dst = out + (((size_t)b * a.H + h) * a.W + w) * a.C + c;
+    if (kVec16)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(s_y + m * L.ldy + c);
+    else
+      *reinterpret_cast<uint32_t*>(dst) =
+          *reinterpret_cast<const uint32_t*>(s_y + m * L.ldy + c);
+  }
+}
+
+// A block whose shared memory does not fit (with the MLP d*d wide: C past 1408
+// at d <= 11, past 896 at d = 17) is refused with cudaErrorInvalidValue; K2
+// and K3 share the layout, so they take the same shapes.
+template <typename Kernel>
+int launch(Kernel kernel, const Args& a, int B, cudaStream_t stream) {
   const Layout L = make_layout(a.d, a.G, a.cmid, a.C);
   if (L.bytes > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = jbu_classify_kernel<kVec16>;
   if (int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)L.bytes))
     return err;
@@ -769,7 +766,7 @@ extern "C" int rs_jbu_epilogue_classify(const void* inp, const float* logits,
                                         const float* temp, const void* w0,
                                         const void* b0, const void* w1,
                                         const void* b1, const void* fw,
-                                        const void* fb, const void* qf, float* out,
+                                        const void* fb, const void* qf, void* out,
                                         int B, int H, int W, int C, int G, int cmid,
                                         int d, int Q, int wbf16, int qbf16,
                                         cudaStream_t stream) {
@@ -779,7 +776,24 @@ extern "C" int rs_jbu_epilogue_classify(const void* inp, const float* logits,
          H, W, C, G, cmid, d, Q, wbf16, qbf16};
   if (!aligned(qf, qbf16 ? 4 : 8)) return (int)cudaErrorMisalignedAddress;
   if (C % 8 == 0 && aligned(inp, 16) && aligned(fw, 16) && (!qbf16 || aligned(qf, 16)))
-    return launch<true>(a, B, stream);
+    return launch(jbu_classify_kernel<true>, a, B, stream);
   if (!aligned(inp, 4) || !aligned(fw, 4)) return (int)cudaErrorMisalignedAddress;
-  return launch<false>(a, B, stream);
+  return launch(jbu_classify_kernel<false>, a, B, stream);
+}
+
+// K2: w0, b0, w1 and b1 are fp32 (wbf16 = 0) or bf16 (1); out [B, H, W, C]
+// bf16; the rest as the plain version takes them.
+extern "C" int rs_jbu_epilogue(const void* inp, const float* logits, const void* guid,
+                               const float* spatial, const float* temp, const void* w0,
+                               const void* b0, const void* w1, const void* b1, void* out,
+                               int B, int H, int W, int C, int G, int cmid, int d, int wbf16,
+                               cudaStream_t stream) {
+  if (C % 2 || d < 1 || d > MAXD) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const bf16*>(inp), logits, static_cast<const bf16*>(guid), spatial,
+         temp, w0, b0, w1, b1, nullptr, nullptr, nullptr, out,
+         H, W, C, G, cmid, d, 0, wbf16, 0};
+  if (C % 8 == 0 && aligned(inp, 16) && aligned(out, 16))
+    return launch(jbu_epilogue_kernel<true>, a, B, stream);
+  if (!aligned(inp, 4) || !aligned(out, 4)) return (int)cudaErrorMisalignedAddress;
+  return launch(jbu_epilogue_kernel<false>, a, B, stream);
 }

@@ -1,16 +1,15 @@
-// JBU stage epilogue (K2), and the fused-range stage (K5a) and its classify
-// variant (K5b), on Hopper (sm_90a). The split route's classify variant (K3)
-// is jbu_classify_sm90.cu, on the tensor cores.
+// The fused-range JBU stage (K5a) and its classify variant (K5b) on Hopper
+// (sm_90a). The split route's epilogue (K2) and its classify variant (K3)
+// are jbu_classify_sm90.cu, on the tensor cores.
 //
-// Replaces the TPU kernels rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_pallas
-// (nhwc=True), :jbu_epilogue_fused_pallas and
-// :jbu_epilogue_fused_classify_pallas. Per output pixel:
+// Replaces the TPU kernels rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_fused_pallas
+// and :jbu_epilogue_fused_classify_pallas. Per output pixel:
 //
 //   comb  = softmax_t(logits * temp) * spatial;  comb /= max(sum_t comb, 1e-7)
 //   fix   = W1 gelu(W0 [bf16(comb), guid] + b0) + b1
 //   comb' = bf16(comb + 0.1 fix)
-//   y[c]  = sum_t comb'[t] * inp[h+u, w+v, c]            (t = u*d + v, fp32)
-//   K2:  out = bf16(y)
+//   y[c]  = sum_t comb'[t] * inp[h+u-r, w+v-r, c]        (t = u*d + v, fp32)
+//   K5a: out = bf16(y)
 //   K5b: yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
 //        rb = bf16(res * rsqrt(max(|res|^2, 1e-24)));  logits[q] = rb . bf16(Q[q])
 //
@@ -29,8 +28,8 @@
 // runtime values and the GELU uses erff.
 //
 // What bounds it on the H100, at the main-path shapes (B=2, d=11, C=512,
-// G=3, K=32): K2 at H=W=28 reads the padded bf16 source (2*38*38*512*2 B =
-// 3.0 MB) and writes 1.6 MB, for 2*784*(121*512 + 30k) = 0.14 G multiply-adds;
+// G=3, K=32): K5a at H=W=28 reads the bf16 source (2*28*28*512*2 B = 1.6 MB)
+// and writes 1.6 MB, for 2*784*(121*512 + 30k + 3.9k) = 0.15 G multiply-adds;
 // K5b at H=W=56 adds the 512 x 512 fixup product per pixel, 2*3136*512*512 =
 // 1.6 G multiply-adds, which makes it compute-bound on the fp32 cores in this
 // first version (K3 has moved the same tail to mma.sync).
@@ -38,7 +37,7 @@
 // K1's launch, the logits' write and read (3 MB at 56^2) and the pads.
 //
 // Design: one block of 256 threads per (b, row h, strip of 16 pixels).
-//   Phase 0 (K5 only, range logits): the strip's projection window,
+//   Phase 0 (range logits): the strip's projection window,
 //     d rows x (16+d-1) columns x K, is staged in shared memory at reflected
 //     indices (K padded to an odd stride, so that lanes reading different taps
 //     at one k hit different banks; 37 KB at d=11, K=32); one warp per pixel
@@ -50,13 +49,12 @@
 //   Phase 2 (adaptive conv): threads over channel pairs (bf16x2 loads, so a
 //     warp reads 128 consecutive bytes of one source pixel); each source
 //     pixel of the strip's d x (16+d-1) window is loaded once and feeds every
-//     output pixel whose window covers it, summing taps in order t = 0..d*d-1.
-//     K5 reads the unpadded source at reflected rows and columns.
+//     output pixel whose window covers it, summing taps in order t = 0..d*d-1,
+//     from the unpadded source at reflected rows and columns.
 //   K5b tail: y goes to shared memory as bf16; the fixup product runs with
 //     threads over output-channel pairs reading the transposed weight
 //     [C_in][C_out] through L2 (512 KB at C=512); one warp per pixel reduces
 //     the L2 norm; one warp per (pixel, query) takes each cosine dot product.
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,10 +66,9 @@ constexpr int NT = 256;  // threads per block
 constexpr int NWARP = NT / 32;
 
 struct EpiArgs {
-  const __nv_bfloat16* inp;  // K2/K3: [B, H+d-1, W+d-1, C]; K5: [B, H, W, C]
-  const float* logits;       // K2/K3: [B, H, W, d*d]; K5: unused
-  const float* proj;         // K5: [B, H, W, K]; K2/K3: unused
-  const __nv_bfloat16* guid; // K2/K3: [B, H, W, G]; K5: [B, G, H, W]
+  const __nv_bfloat16* inp;  // [B, H, W, C]
+  const float* proj;         // [B, H, W, K]
+  const __nv_bfloat16* guid; // [B, G, H, W]
   const float* spatial;      // [d*d]
   const float* temp;         // [1]
   const float* w0;           // [cmid, d*d+G]
@@ -107,7 +104,7 @@ __device__ __forceinline__ float gelu_exact(float x) {
 
 __host__ __device__ inline int window_stride(int K) { return K | 1; }
 
-// Phase 0 (K5): the raw range logits of the strip's PIX pixels into
+// Phase 0: the raw range logits of the strip's PIX pixels into
 // s_lg [PIX][d*d], from the projection window staged in s_win
 // [d][PIX+d-1][K|1] at reflected indices (zeros past the right edge's reach,
 // which only pixels past W read).
@@ -139,9 +136,8 @@ __device__ void range_phase(const EpiArgs& a, int b, int h, int w0,
   __syncthreads();  // phase 1 overwrites the window
 }
 
-// Phase 1: comb' of the strip's PIX pixels into s_comb [PIX][d*d]. K5 finds
-// its logits in s_comb already (phase 0), K2/K3 read them from a.logits.
-template <bool kFused>
+// Phase 1: comb' of the strip's PIX pixels into s_comb [PIX][d*d], from the
+// logits that phase 0 left there.
 __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
                            float* s_comb, float* s_x, float* s_mid) {
   const int dd = a.d * a.d, nx = dd + a.G;
@@ -157,10 +153,9 @@ __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
       for (int i = lane; i < nx; i += 32) x[i] = 0.f;
       continue;
     }
-    const float* lg = kFused ? c : a.logits + (((size_t)b * a.H + h) * a.W + w) * dd;
     float m = -INFINITY;
     for (int t = lane; t < dd; t += 32) {
-      const float s = lg[t] * temp;
+      const float s = c[t] * temp;
       c[t] = s;
       m = fmaxf(m, s);
     }
@@ -185,8 +180,7 @@ __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
       x[t] = bf16_round(v);  // comb -> guidance dtype for the fixup input
     }
     for (int i = lane; i < a.G; i += 32) {
-      const size_t gi = kFused ? (((size_t)b * a.G + i) * a.H + h) * a.W + w
-                               : (((size_t)b * a.H + h) * a.W + w) * a.G + i;
+      const size_t gi = (((size_t)b * a.G + i) * a.H + h) * a.W + w;
       x[dd + i] = __bfloat162float(a.guid[gi]);
     }
   }
@@ -217,14 +211,12 @@ __device__ void comb_phase(const EpiArgs& a, int b, int h, int w0,
 }
 
 // Phase 2: adaptive conv of the strip; emit(c2, acc0, acc1) receives the fp32
-// sums of channels 2*c2 and 2*c2+1 for every pixel of the strip. K2/K3 read
-// the padded source at (h+u, w0+x), K5 the unpadded one at the reflected
-// (h+u-r, w0+x-r).
-template <bool kFused, typename Emit>
+// sums of channels 2*c2 and 2*c2+1 for every pixel of the strip, read from
+// the unpadded source at the reflected (h+u-r, w0+x-r).
+template <typename Emit>
 __device__ __forceinline__ void conv_phase(const EpiArgs& a, int b, int h, int w0,
                            const float* s_comb, Emit emit) {
   const int d = a.d, r = d / 2, dd = d * d, C2 = a.C / 2;
-  const int Hs = kFused ? a.H : a.H + d - 1, Ws = kFused ? a.W : a.W + d - 1;
   const int nxw = min(PIX + d - 1, a.W + d - 1 - w0);
   const __nv_bfloat162* in2 = reinterpret_cast<const __nv_bfloat162*>(a.inp);
   for (int c2 = threadIdx.x; c2 < C2; c2 += NT) {
@@ -232,11 +224,11 @@ __device__ __forceinline__ void conv_phase(const EpiArgs& a, int b, int h, int w
 #pragma unroll
     for (int p = 0; p < PIX; ++p) acc0[p] = acc1[p] = 0.f;
     for (int u = 0; u < d; ++u) {
-      const int hs = kFused ? reflect(h + u - r, a.H) : h + u;
-      const __nv_bfloat162* row = in2 + ((size_t)b * Hs + hs) * Ws * C2 + c2;
+      const int hs = reflect(h + u - r, a.H);
+      const __nv_bfloat162* row = in2 + ((size_t)b * a.H + hs) * a.W * C2 + c2;
       const float* cu = s_comb + u * d;
       for (int x = 0; x < nxw; ++x) {
-        const int ws = kFused ? reflect(w0 + x - r, a.W) : w0 + x;
+        const int ws = reflect(w0 + x - r, a.W);
         const float2 val = __bfloat1622float2(row[(size_t)ws * C2]);
 #pragma unroll
         for (int p = 0; p < PIX; ++p) {
@@ -265,7 +257,6 @@ inline size_t fused_floats(size_t epilogue_floats, int d, int K) {
   return epilogue_floats > window ? epilogue_floats : window;
 }
 
-template <bool kFused>
 __global__ void __launch_bounds__(NT)
 jbu_epilogue_kernel(EpiArgs a, __nv_bfloat16* __restrict__ out) {
   extern __shared__ float smem[];
@@ -275,12 +266,12 @@ jbu_epilogue_kernel(EpiArgs a, __nv_bfloat16* __restrict__ out) {
   float* s_mid = s_x + PIX * (dd + a.G);
   const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * PIX;
 
-  if constexpr (kFused) range_phase(a, b, h, w0, s_comb, s_x);
-  comb_phase<kFused>(a, b, h, w0, s_comb, s_x, s_mid);
+  range_phase(a, b, h, w0, s_comb, s_x);
+  comb_phase(a, b, h, w0, s_comb, s_x, s_mid);
 
   const int C2 = a.C / 2;
   __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-  conv_phase<kFused>(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
+  conv_phase(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
 #pragma unroll
     for (int p = 0; p < PIX; ++p)
       if (w0 + p < a.W)
@@ -289,7 +280,6 @@ jbu_epilogue_kernel(EpiArgs a, __nv_bfloat16* __restrict__ out) {
   });
 }
 
-template <bool kFused>
 __global__ void __launch_bounds__(NT)
 jbu_epilogue_classify_kernel(EpiArgs a, const __nv_bfloat16* __restrict__ fwt,
                              const float* __restrict__ fb,
@@ -306,9 +296,9 @@ jbu_epilogue_classify_kernel(EpiArgs a, const __nv_bfloat16* __restrict__ fwt,
   const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * PIX;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  if constexpr (kFused) range_phase(a, b, h, w0, s_comb, s_x);
-  comb_phase<kFused>(a, b, h, w0, s_comb, s_x, s_mid);
-  conv_phase<kFused>(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
+  range_phase(a, b, h, w0, s_comb, s_x);
+  comb_phase(a, b, h, w0, s_comb, s_x, s_mid);
+  conv_phase(a, b, h, w0, s_comb, [&](int c2, const float* acc0, const float* acc1) {
 #pragma unroll
     for (int p = 0; p < PIX; ++p) s_y[p * C2 + c2] = __floats2bfloat162_rn(acc0[p], acc1[p]);
   });
@@ -376,27 +366,25 @@ int set_smem(Kernel kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-template <bool kFused>
 int launch_epilogue(const EpiArgs& a, void* out, int B, cudaStream_t stream) {
   size_t floats = phase1_floats(a.d, a.G, a.cmid);
-  if (kFused) floats = fused_floats(floats, a.d, a.K);
+  floats = fused_floats(floats, a.d, a.K);
   const size_t smem = floats * sizeof(float);
-  if (int err = set_smem(jbu_epilogue_kernel<kFused>, smem)) return err;
+  if (int err = set_smem(jbu_epilogue_kernel, smem)) return err;
   dim3 grid((a.W + PIX - 1) / PIX, a.H, B);
-  jbu_epilogue_kernel<kFused><<<grid, NT, smem, stream>>>(a, static_cast<__nv_bfloat16*>(out));
+  jbu_epilogue_kernel<<<grid, NT, smem, stream>>>(a, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 
-template <bool kFused>
 int launch_classify(const EpiArgs& a, const void* fwt, const float* fb, const void* qf,
                     float* out, int B, int Q, cudaStream_t stream) {
   // s_inv [PIX] and s_y, s_r [PIX][C] bf16 after phase 1's floats
   size_t floats = phase1_floats(a.d, a.G, a.cmid) + PIX + (size_t)PIX * a.C;
-  if (kFused) floats = fused_floats(floats, a.d, a.K);
+  floats = fused_floats(floats, a.d, a.K);
   const size_t smem = floats * sizeof(float);
-  if (int err = set_smem(jbu_epilogue_classify_kernel<kFused>, smem)) return err;
+  if (int err = set_smem(jbu_epilogue_classify_kernel, smem)) return err;
   dim3 grid((a.W + PIX - 1) / PIX, a.H, B);
-  jbu_epilogue_classify_kernel<kFused><<<grid, NT, smem, stream>>>(
+  jbu_epilogue_classify_kernel<<<grid, NT, smem, stream>>>(
       a, static_cast<const __nv_bfloat16*>(fwt), fb,
       static_cast<const __nv_bfloat16*>(qf), Q, out);
   return (int)cudaGetLastError();
@@ -404,28 +392,16 @@ int launch_classify(const EpiArgs& a, const void* fwt, const float* fb, const vo
 
 }  // namespace
 
-extern "C" int rs_jbu_epilogue(const void* inp, const float* logits, const void* guid,
-                               const float* spatial, const float* temp,
-                               const float* w0, const float* b0, const float* w1,
-                               const float* b1, void* out,
-                               int B, int H, int W, int C, int G, int cmid, int d,
-                               cudaStream_t stream) {
-  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), logits, nullptr,
-            static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
-            H, W, C, G, cmid, d, 0};
-  return launch_epilogue<false>(a, out, B, stream);
-}
-
 extern "C" int rs_jbu_epilogue_fused(const void* inp, const float* proj, const void* guid,
                                      const float* spatial, const float* temp,
                                      const float* w0, const float* b0, const float* w1,
                                      const float* b1, void* out,
                                      int B, int H, int W, int C, int G, int cmid, int d,
                                      int K, cudaStream_t stream) {
-  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), nullptr, proj,
+  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), proj,
             static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
             H, W, C, G, cmid, d, K};
-  return launch_epilogue<true>(a, out, B, stream);
+  return launch_epilogue(a, out, B, stream);
 }
 
 extern "C" int rs_jbu_epilogue_fused_classify(const void* inp, const float* proj,
@@ -436,8 +412,8 @@ extern "C" int rs_jbu_epilogue_fused_classify(const void* inp, const float* proj
                                               const float* fb, const void* qf, float* out,
                                               int B, int H, int W, int C, int G, int cmid,
                                               int d, int K, int Q, cudaStream_t stream) {
-  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), nullptr, proj,
+  EpiArgs a{static_cast<const __nv_bfloat16*>(inp), proj,
             static_cast<const __nv_bfloat16*>(guid), spatial, temp, w0, b0, w1, b1,
             H, W, C, G, cmid, d, K};
-  return launch_classify<true>(a, fwt, fb, qf, out, B, Q, stream);
+  return launch_classify(a, fwt, fb, qf, out, B, Q, stream);
 }

@@ -1,6 +1,7 @@
-// Fused self-self attention (K6) on Hopper (sm_90a).
+// Fused self-self attention (K6) in fp32 on Hopper (sm_90a), on the fp32
+// cores. The bf16 entry is selfself_attention_sm90.cu, on the tensor cores.
 //
-//   out[b, h, i, :] = sum_j A[i, j] * v[b, h, j, :]      (fp32, one cast at the end)
+//   out[b, h, i, :] = sum_j A[i, j] * v[b, h, j, :]      (fp32)
 //
 // with the attention weights A of one of six modes (s = hd^-0.5, S = sim * w):
 //   0 vanilla       softmax(q k^T s + S)
@@ -13,33 +14,27 @@
 // softmax with or without a sim map.
 //
 // Replaces the TPU kernel rs_ov/kernels/selfself_attention.py:
-// fused_selfself_attention (pallas_call at :103).
+// fused_selfself_attention (pallas_call at :103), for fp32 operands.
 //
 // What bounds it on the H100: operations. At the main path's shapes (B=16
 // crops, H=12, L=197, hd=64) one score product is 2*B*H*L^2*hd = 0.954
 // GFLOP; Experimental has two, SegEarth three, and the product with the
-// fp32 weights a third or fourth. On the fp32 cores (67 TFLOP/s) that is
-// 28-57 us; from bf16 operands the score products would be exact on the
-// tensor cores, which leaves the fp32 weights @ v product (14 us) as the
-// bound. The bytes (q, k, v, out in bf16: 9.7 MB; the sim map: 2.5 MB) take
-// 3.6 us. This first kernel computes everything on the fp32 cores; tensor
-// cores and TMA are later work.
+// weights a third or fourth. On the fp32 cores (67 TFLOP/s) that is 28-57
+// us; the bytes (q, k, v, out in fp32: 38.7 MB; the sim map: 2.5 MB) take
+// 12 us. This kernel computes everything on the fp32 cores.
 //
 // Design: one block of 16 warps per (b*h, tile of about 64 query rows). The
 // block stages the head's q, k and v (only the operands the mode needs) in
-// their own dtype in shared memory, each row padded by 16 bytes so that the
-// 16-byte loads of 8 lanes from 8 different rows hit 8 different banks. Each
-// warp owns one query row at a time: lane t holds the scores of the keys
-// j = t + 32m (m < 9, so L <= 288) in registers, computed with fp32 FMAs
-// from 16-byte vector loads; each softmax is a warp-shuffle max, exp and a
-// warp-shuffle sum. The weights row goes to the warp's own row of shared
-// memory, and each lane then accumulates the output channel pairs 2t + 64m
-// (hd <= 128) over all L keys in fp32. Two blocks of 16 warps fit an SM in
-// bf16 (88 KB of shared memory each, at most 64 registers a thread); the
-// warps hide each other's shared-memory latency. The sim map is read per image (b = bh / H), not
-// per head, straight from device memory (each row once per head).
+// shared memory, each row padded by 16 bytes so that the 16-byte loads of 8
+// lanes from 8 different rows hit 8 different banks. Each warp owns one
+// query row at a time: lane t holds the scores of the keys j = t + 32m (m <
+// 9, so L <= 288) in registers, computed with fp32 FMAs from 16-byte vector
+// loads; each softmax is a warp-shuffle max, exp and a warp-shuffle sum. The
+// weights row goes to the warp's own row of shared memory, and each lane
+// then accumulates the output channel pairs 2t + 64m (hd <= 128) over all L
+// keys in fp32. The sim map is read per image (b = bh / H), not per head,
+// straight from device memory (each row once per head).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -52,7 +47,7 @@ constexpr int ROWS_TARGET = 64; // query rows per block, about
 
 enum Mode { VANILLA = 0, CLEARCLIP = 1, SCLIP = 2, SEGEARTH = 3, SFP = 4, EXPERIMENTAL = 5 };
 
-// A 16-byte vector of T, widened to fp32.
+// A 16-byte vector of T.
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4;
@@ -61,32 +56,12 @@ template <> struct Vec<float> {
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
   }
 };
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// Two adjacent elements, widened to fp32; and stored back in T.
+// Two adjacent elements, loaded and stored.
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store2(float* p, float2 x) {
   *reinterpret_cast<float2*>(p) = x;
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 x) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x.x, x.y);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -306,14 +281,6 @@ int dispatch(const T* q, const T* k, const T* v, const float* sim, T* out, int B
 }
 
 }  // namespace
-
-extern "C" int rs_selfself_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                          const __nv_bfloat16* v, const float* sim,
-                                          __nv_bfloat16* out, int B, int H, int L, int hd,
-                                          int mode, float scale, float sim_weight,
-                                          cudaStream_t stream) {
-  return dispatch(q, k, v, sim, out, B, H, L, hd, mode, scale, sim_weight, stream);
-}
 
 extern "C" int rs_selfself_attention_f32(const float* q, const float* k, const float* v,
                                          const float* sim, float* out, int B, int H, int L,

@@ -10,8 +10,8 @@ fallback: a missing ``nvcc`` or a failed build raises. Each source's
 library as ``<library>.<source>.log``.
 
 Each C entry point takes device pointers, ints, floats and the CUDA stream, launches
-on that stream and returns ``cudaGetLastError()``; ``check`` raises on a
-non-zero code.
+on that stream and returns ``cudaGetLastError()``; ``launch`` calls one on the
+current stream of a device, ``check`` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["load_library", "check", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["load_library", "launch", "check", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,7 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "rs_range_logits": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -110,6 +112,18 @@ def load_library() -> ctypes.CDLL:
     lib.rs_error_string.argtypes = [_I]
     lib.rs_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(fn, args: tuple, device: torch.device) -> int:
+    """``fn(*args, stream)`` on the current stream of the CUDA ``device``;
+    returns fn's error code. The raw stream handle: torch.cuda.current_stream()
+    and the device guard each cost as much host time as the launch itself, so
+    the guard is entered only for a device other than the current one."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(code: int, name: str) -> None:

@@ -26,14 +26,15 @@ channel-first, ``guid_cf [B, G, H, W]``.
 
 Each dispatches on the device: a CPU tensor takes the plain version, a CUDA
 tensor the hand-written kernel, which replaces a TPU kernel:
-``jbu_epilogue_pallas(nhwc=True)`` (rs_ov/kernels/jbu_epilogue.py:212),
-``jbu_epilogue_fused_pallas`` (:640) and ``jbu_epilogue_fused_classify_pallas``
-(:675) in ``rs_ov_torch/csrc/jbu_epilogue.cu``, and
+``jbu_epilogue_pallas(nhwc=True)`` (rs_ov/kernels/jbu_epilogue.py:212) and
 ``jbu_epilogue_classify_pallas`` (:333) in
-``rs_ov_torch/csrc/jbu_classify_sm90.cu`` (its three products on the tensor
-cores; Q <= 128 and d <= 17, the TPU kernel's limits). The kernels take bf16
-features and guidance; fp32 runs take the channel-first route (plain
-epilogue + adaptive-conv kernel K4b), as in the JAX package.
+``rs_ov_torch/csrc/jbu_classify_sm90.cu`` (the adaptive conv, and K3's
+fixup and cosine products, on the tensor cores; d <= 17 and K3's Q <= 128,
+the TPU kernels' limits), ``jbu_epilogue_fused_pallas`` (:640) and
+``jbu_epilogue_fused_classify_pallas`` (:675) in
+``rs_ov_torch/csrc/jbu_epilogue.cu``. The kernels take bf16 features and
+guidance; fp32 runs take the channel-first route (plain epilogue +
+adaptive-conv kernel K4b), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from rs_ov_torch.kernels.build import check, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library
 from rs_ov_torch.utils.resize import reflect_pad_nhwc
 
 __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
@@ -49,9 +50,10 @@ __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
            "jbu_epilogue_fused_classify", "jbu_epilogue_fused_plain",
            "jbu_epilogue_fused_classify_plain"]
 
-PIX = 16  # output pixels per block of the CUDA kernels
+PIX = 16  # output pixels per block of the fused-range kernels K5a/K5b
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
-CLASSIFY_MAX_Q, CLASSIFY_MAX_D = 128, 17  # the classify kernel's limits
+MAX_D = 17  # the largest diameter K2 and K3 take
+CLASSIFY_MAX_Q = 128  # the most queries K3 takes
 
 
 def _comb_fixed(logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, dtype):
@@ -182,8 +184,6 @@ def _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter):
         "guid_t": (guid_t, (b, h, w, guid_t.shape[-1]), torch.bfloat16),
         "spatial": (spatial, (d * d,), torch.float32),
         "pos_temp": (pos_temp, (), torch.float32)})
-    if c % 2:
-        raise ValueError(f"jbu_epilogue kernel takes an even channel count, got {c}")
     return b, h, w, c
 
 
@@ -222,33 +222,13 @@ def _tail_operands(fixup_w, fixup_b, query_features, c, device):
     return fwt, fb, qf
 
 
-def _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
-                       diameter):
-    b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, diameter)
-    g = guid_t.shape[-1]
-    cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
-    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=inp.device)
-    lib = load_library()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(lib.rs_jbu_epilogue(
-            inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
-            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
-            b, h, w, c, g, cmid, diameter, stream), "rs_jbu_epilogue")
-    jbu_epilogue.launches += 1
-    return out
-
-
-def _classify_limits(c: int, d: int, q: int) -> None:
-    """What the classify kernel takes: an even channel count, d <= 17 and
-    1 <= Q <= 128 (the TPU kernel's asserts, and the route rule's Q limit)."""
+def _epilogue_limits(who: str, c: int, d: int) -> None:
+    """What K2 and K3 take: an even channel count and d <= 17 (the TPU
+    kernels' limit: the band of 16 + d - 1 columns fits 32)."""
     if c % 2:
-        raise ValueError(f"jbu_epilogue_classify kernel takes an even channel count, got {c}")
-    if not 1 <= d <= CLASSIFY_MAX_D:
-        raise ValueError(f"jbu_epilogue_classify kernel takes d <= {CLASSIFY_MAX_D}, got {d}")
-    if not 1 <= q <= CLASSIFY_MAX_Q:
-        raise ValueError(f"jbu_epilogue_classify kernel takes 1 to {CLASSIFY_MAX_Q} "
-                         f"queries, got {q}")
+        raise ValueError(f"{who} kernel takes an even channel count, got {c}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"{who} kernel takes d <= {MAX_D}, got {d}")
 
 
 def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -256,31 +236,65 @@ def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
+def _mlp_weights(who, ws, shapes, device):
+    """The range MLP's weights and biases (and K3's fixup bias) as K2 and K3
+    read them: in their dtype when all are fp32 or all bf16, else cast to
+    fp32 (exactly), so the usual call casts nothing. Returns (tensors, 1
+    for bf16 or 0)."""
+    for t, shape in zip(ws, shapes):
+        if t.shape != shape:
+            raise ValueError(f"{who}: weight of shape {tuple(t.shape)}, want {shape}")
+        _on(t, device, f"weight {shape}")
+    wdt = (ws[0].dtype if ws[0].dtype in (torch.float32, torch.bfloat16)
+           and all(t.dtype == ws[0].dtype for t in ws) else torch.float32)
+    return tuple(_as(t, wdt) for t in ws), int(wdt == torch.bfloat16)
+
+
+def _epilogue_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, diameter):
+    """K2's operands checked and its output allocated. Returns (out, args,
+    keep): args are the library call's arguments up to the stream, keep the
+    tensors they point into (the caller's own, unless a dtype had to be
+    cast)."""
+    d = diameter
+    _epilogue_limits("jbu_epilogue", inp.shape[-1], d)
+    b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, d)
+    g, cmid = guid_t.shape[-1], w0.shape[0]
+    ws, wbf16 = _mlp_weights("jbu_epilogue", (w0, b0, w1, b1),
+                             ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,)), inp.device)
+    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=inp.device)
+    args = (inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
+            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
+            b, h, w, c, g, cmid, d, wbf16)
+    return out, args, ws
+
+
+def _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
+                       diameter):
+    out, args, _keep = _epilogue_operands(inp, logits_t, guid_t, spatial, pos_temp,
+                                          w0, b0, w1, b1, diameter)
+    check(launch(load_library().rs_jbu_epilogue, args, inp.device), "rs_jbu_epilogue")
+    jbu_epilogue.launches += 1
+    return out
+
+
 def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                        fixup_w, fixup_b, query_features, diameter):
-    """Check the operands and allocate the output. Returns (out, args, keep):
-    args are the library call's arguments up to the stream, keep the tensors
-    they point into (the caller's own, unless a dtype had to be cast)."""
+    """K3's operands checked and its output allocated; returns (out, args,
+    keep) as ``_epilogue_operands``. The queries are read in fp32 or bf16 and
+    the fixup conv as it is held, [C_out, C_in] (mma's B operand in .col
+    form)."""
     q, d = query_features.shape[0], diameter
-    _classify_limits(inp.shape[-1], d, q)
+    _epilogue_limits("jbu_epilogue_classify", inp.shape[-1], d)
+    if not 1 <= q <= CLASSIFY_MAX_Q:
+        raise ValueError(f"jbu_epilogue_classify kernel takes 1 to {CLASSIFY_MAX_Q} "
+                         f"queries, got {q}")
     b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, d)
     g, cmid, dev = guid_t.shape[-1], w0.shape[0], inp.device
-    # the kernel reads the MLP weights and biases and the fixup bias in their
-    # dtype (all fp32 or all bf16), the queries in fp32 or bf16, and the fixup
-    # conv as it is held, [C_out, C_in] (mma's B operand in .col form): the
-    # usual call casts nothing
     if fixup_w.shape != (c, c) or query_features.shape != (q, c):
         raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
                          f"queries {tuple(query_features.shape)} do not match C={c}")
-    ws = (w0, b0, w1, b1, fixup_b)
-    for t, shape in zip(ws, ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,), (c,))):
-        if t.shape != shape:
-            raise ValueError(f"jbu_epilogue_classify: weight of shape {tuple(t.shape)}, "
-                             f"want {shape}")
-        _on(t, dev, f"weight {shape}")
-    wdt = (w0.dtype if w0.dtype in (torch.float32, torch.bfloat16)
-           and all(t.dtype == w0.dtype for t in ws) else torch.float32)  # fp32: exact
-    ws = tuple(_as(t, wdt) for t in ws)
+    ws, wbf16 = _mlp_weights("jbu_epilogue_classify", (w0, b0, w1, b1, fixup_b),
+                             ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,), (c,)), dev)
     qf = _on(query_features, dev, "query_features")
     qf = _as(qf, qf.dtype if qf.dtype in (torch.float32, torch.bfloat16) else torch.float32)
     fw = _as(_on(fixup_w, dev, "fixup_w"), torch.bfloat16)
@@ -288,7 +302,7 @@ def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
     args = (inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
             pos_temp.data_ptr(), *(t.data_ptr() for t in ws[:4]), fw.data_ptr(),
             ws[4].data_ptr(), qf.data_ptr(), out.data_ptr(), b, h, w, c, g, cmid, d, q,
-            int(wdt == torch.bfloat16), int(qf.dtype == torch.bfloat16))
+            wbf16, int(qf.dtype == torch.bfloat16))
     return out, args, (ws, fw, qf)
 
 
@@ -297,17 +311,8 @@ def _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0
     out, args, _keep = _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0,
                                           b0, w1, b1, fixup_w, fixup_b, query_features,
                                           diameter)
-    lib, dev = load_library(), inp.device
-    # the raw stream handle: torch.cuda.current_stream() and the device guard
-    # each cost as much host time as the launch itself, and every microsecond
-    # here shows in a request's 8 calls; the guard is taken only when needed
-    if dev.index == torch.cuda.current_device():
-        code = lib.rs_jbu_epilogue_classify(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            code = lib.rs_jbu_epilogue_classify(
-                *args, torch._C._cuda_getCurrentRawStream(dev.index))
-    check(code, "rs_jbu_epilogue_classify")
+    check(launch(load_library().rs_jbu_epilogue_classify, args, inp.device),
+          "rs_jbu_epilogue_classify")
     jbu_epilogue_classify.launches += 1
     return out
 
@@ -399,7 +404,8 @@ def _route(inp: torch.Tensor) -> str:
 def jbu_epilogue(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                  diameter: int) -> torch.Tensor:
     """See jbu_epilogue_plain. CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    tensors the kernel (d <= 17, even C; it shares K3's blocks, so the
+    library refuses C past 1408, or past 896 at d = 17, as K3's does)."""
     if _route(inp) == "cpu":
         return jbu_epilogue_plain(inp, logits_t, guid_t, spatial, pos_temp,
                                   w0, b0, w1, b1, diameter)

@@ -19,31 +19,38 @@ to bf16 before the product with v. ``fused_selfself_attention_plain`` below is
 the fp32 formula, the oracle of the kernel.
 
 ``fused_selfself_attention`` dispatches on the device: a CPU tensor takes the
-plain version, a CUDA tensor the hand-written kernel in
-``rs_ov_torch/csrc/selfself_attention.cu``, which replaces the TPU kernel
-``fused_selfself_attention`` (rs_ov/kernels/selfself_attention.py:78).
+plain version, a CUDA tensor the hand-written kernel, which replaces the TPU
+kernel ``fused_selfself_attention`` (rs_ov/kernels/selfself_attention.py:78):
+bf16 in ``rs_ov_torch/csrc/selfself_attention_sm90.cu`` (the products on the
+tensor cores, the weights meeting v as a bf16 pair hi + lo), fp32 in
+``rs_ov_torch/csrc/selfself_attention.cu`` (the fp32 cores).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library
 
 __all__ = ["fused_selfself_attention", "fused_selfself_attention_plain", "SUPPORTED_MODES"]
 
 SUPPORTED_MODES = ("vanilla", "ClearCLIP", "SCLIP", "SegEarth", "SFP", "Experimental")
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
-WARPS = 16         # warps per block; the kernel's NWARPS
-LMAX = 288         # keys a lane holds in registers: 9 per lane
-HDMAX = 128        # output channels: 4 per lane
+WARPS = 16         # warps per block of the fp32 kernel; its NWARPS
+LMAX = 288         # keys a row's scores hold in registers
+HDMAX = 128        # output channels
 
 
-def _smem_bytes(mode: str, l: int, hd: int, esz: int) -> int:
-    """The kernel's shared memory: the operands the mode needs, rows padded
-    by 16 bytes, and one fp32 weights row per warp."""
+def _smem_bytes(mode: str, l: int, hd: int, dtype: torch.dtype) -> int:
+    """A block's shared memory: the operands the mode needs, each row 16
+    bytes longer. bf16 pads hd to a multiple of 16 and the last operand, v,
+    to a multiple of 16 rows (the tensor cores' tiles); fp32 adds one fp32
+    weights row per warp."""
     n_ops = 2 if mode == "ClearCLIP" else 3
-    return n_ops * l * (hd + 16 // esz) * esz + WARPS * l * 4
+    if dtype == torch.bfloat16:
+        lp, hp = -(-l // 16) * 16, -(-hd // 16) * 16
+        return ((n_ops - 1) * l + lp) * (hp + 8) * 2
+    return n_ops * l * (hd + 4) * 4 + WARPS * l * 4
 
 
 def fused_selfself_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,8 +95,9 @@ _ENTRY = {torch.bfloat16: "rs_selfself_attention_bf16",
           torch.float32: "rs_selfself_attention_f32"}
 
 
-def _fused_selfself_attention_cuda(q, k, v, sim_map, mode: str,
-                                   sim_weight: float) -> torch.Tensor:
+def _attention_operands(q, k, v, sim_map, mode: str, sim_weight: float):
+    """The operands checked and the output allocated. Returns (out, entry,
+    args): the library entry's name and its arguments up to the stream."""
     if mode not in SUPPORTED_MODES:
         raise ValueError(f"fused_selfself_attention: unsupported mode '{mode}', "
                          f"supported: {SUPPORTED_MODES}")
@@ -113,24 +121,24 @@ def _fused_selfself_attention_cuda(q, k, v, sim_map, mode: str,
         raise ValueError(f"fused_selfself_attention: sim_map must be contiguous fp32 "
                          f"{(b, l, l)} on {q.device}, got {sim_map.dtype} "
                          f"{tuple(sim_map.shape)} on {sim_map.device}")
-    esz = q.element_size()
-    if not (1 <= l <= LMAX and hd <= HDMAX and hd % 8 == 0):
+    if not (1 <= l <= LMAX and 8 <= hd <= HDMAX and hd % 8 == 0):
         raise ValueError(f"fused_selfself_attention kernel takes L <= {LMAX} and hd a "
                          f"multiple of 8 up to {HDMAX}, got L={l}, hd={hd}")
-    if _smem_bytes(mode, l, hd, esz) > SMEM_MAX:
+    smem = _smem_bytes(mode, l, hd, q.dtype)
+    if smem > SMEM_MAX:
         raise ValueError(f"fused_selfself_attention: L={l}, hd={hd} in {q.dtype} needs "
-                         f"{_smem_bytes(mode, l, hd, esz)} B of shared memory, "
-                         f"more than {SMEM_MAX}")
+                         f"{smem} B of shared memory, more than {SMEM_MAX}")
     out = torch.empty_like(q)
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if sim_map is None else sim_map.data_ptr(), out.data_ptr(),
-            b, h, l, hd, SUPPORTED_MODES.index(mode), hd ** -0.5, float(sim_weight),
-            stream),
-            _ENTRY[q.dtype])
+            b, h, l, hd, SUPPORTED_MODES.index(mode), hd ** -0.5, float(sim_weight))
+    return out, _ENTRY[q.dtype], args
+
+
+def _fused_selfself_attention_cuda(q, k, v, sim_map, mode: str,
+                                   sim_weight: float) -> torch.Tensor:
+    out, entry, args = _attention_operands(q, k, v, sim_map, mode, sim_weight)
+    check(launch(getattr(load_library(), entry), args, q.device), entry)
     fused_selfself_attention.launches += 1
     return out
 

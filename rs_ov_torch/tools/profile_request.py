@@ -1,0 +1,117 @@
+"""Where a request's device time goes, from one ``torch.profiler`` pass.
+
+    python3 -m rs_ov_torch.tools.profile_request [--requests 3] [--fused-attn]
+        [--out work_dirs/profile_request.json]
+
+Builds ``SegmentorEx`` from ``configs/base_config.py`` (CLIP ViT-B/16 at full
+width, random weights from its seed, the Potsdam vocabulary) on the card in
+its default precision (bf16, the channel-last JBU route: K1, K2, K3), runs
+two warm-up requests of one 512x512 image, then profiles ``--requests``
+more, and prints the device time per request split by kernel group (the
+port's kernels by name, GEMMs, elementwise casts and copies, softmax and
+reductions, the rest), the device's busy share of the profiled wall time,
+the peak device memory and the card's name and power limit. With
+``--fused-attn`` the last block's attention takes K6 (``RS_OV_FUSED_ATTN=1``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+# kernel-name substrings of each group, first match wins
+GROUPS = (
+    ("K3 jbu_epilogue_classify", ("jbu_classify_kernel",)),
+    ("K2 jbu_epilogue", ("jbu_epilogue_kernel",)),
+    ("K1 range_logits", ("range_logits",)),
+    ("K6 fused_selfself_attention", ("selfself_attention",)),
+    ("GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "cublas", "sm90_", "sm80_")),
+    ("softmax", ("softmax", "Softmax")),
+    ("reductions", ("reduce", "Reduce")),
+    ("casts and copies", ("copy", "Copy", "cast", "Cast", "convert")),
+    ("other elementwise", ("elementwise", "Elementwise")),
+)
+
+
+def _group(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--fused-attn", action="store_true")
+    ap.add_argument("--out", default=os.path.join("work_dirs", "profile_request.json"))
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_request: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from rs_ov_torch.evalsuite.config import load_config
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    if opts.fused_attn:
+        os.environ["RS_OV_FUSED_ATTN"] = "1"
+    cfg = dict(load_config("configs/base_config.py")["model"])
+    cfg.pop("type")
+    cfg["name_path"] = "configs/cls_potsdam.txt"
+    seg = SegmentorEx(**cfg, device=torch.device("cuda"))
+    image = np.random.RandomState(1).randint(0, 256, (1, 512, 512, 3), np.uint8)
+    for _ in range(2):
+        seg.predict_raw(image)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(opts.requests):
+            seg.predict_raw(image)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = opts.requests
+    per_kernel, groups = {}, {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if not us or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = us / 1e3 / n
+        per_kernel[evt.key] = {"ms_per_request": ms, "calls_per_request": evt.count / n}
+        g = _group(evt.key)
+        groups[g] = groups.get(g, 0.0) + ms
+    device_ms = sum(groups.values())
+    result = {"card": card, "requests": n, "fused_attn": opts.fused_attn,
+              "wall_ms_per_request": wall * 1e3 / n, "device_ms_per_request": device_ms,
+              "busy_share": device_ms / (wall * 1e3 / n),
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "groups_ms_per_request": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+              "kernels": dict(sorted(per_kernel.items(),
+                                     key=lambda kv: -kv[1]["ms_per_request"])[:40])}
+    print(card)
+    print(f"[profile] {n} requests of one 512x512 image (16 crops of 224²), "
+          f"{'K6 on' if opts.fused_attn else 'default route'}: wall "
+          f"{result['wall_ms_per_request']:.3f} ms, device {device_ms:.3f} ms per request "
+          f"(busy {100 * result['busy_share']:.1f}%), peak {result['peak_memory_gib']:.3f} GiB")
+    for g, ms in result["groups_ms_per_request"].items():
+        print(f"[profile]   {g}: {ms:.3f} ms")
+    for k, v in list(result["kernels"].items())[:25]:
+        print(f"[profile]   {v['ms_per_request']:.4f} ms x{v['calls_per_request']:.0f}  {k[:110]}")
+    os.makedirs(os.path.dirname(opts.out) or ".", exist_ok=True)
+    with open(opts.out, "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -172,6 +172,39 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
         fused_selfself_attention(q, q, q, mode="SCLIP")
 
 
+@pytest.mark.parametrize("mode,l,hd,match", [
+    ("SCLIP", 288, 128, "shared memory"),  # q, k, v: 3 x 288 x 136 x 2 B > 232448
+    ("SegEarth", 289, 64, "L <= 288"),
+    ("ClearCLIP", 17, 136, "multiple of 8 up to 128"),
+    ("vanilla", 17, 4, "multiple of 8 up to 128"),
+])
+def test_fused_bf16_wrapper_refuses_past_its_limits(mode, l, hd, match):
+    """The bf16 kernel's wrapper raises, before it loads the library, past
+    L = 288, hd = 128 (or hd not a multiple of 8) and past the shared memory
+    of a block holding the mode's padded operands."""
+    from rs_ov_torch.kernels.selfself_attention import _fused_selfself_attention_cuda as k6
+
+    x = torch.empty(1, 2, l, hd, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=match):
+        k6(x, x, x, None, mode, 1.0)
+
+
+def test_fused_bf16_kernel_takes_what_the_fp32_core_kernel_took():
+    """Every (mode, L, hd) whose operands fitted the earlier bf16 kernel's
+    block (rows of hd + 8 and a weights row per warp) fits the tensor-core
+    kernel's (L and hd padded to 16, rows of hd + 8): it refuses nothing the
+    earlier one took. ClearCLIP (two operands) takes L = 288 at hd = 128."""
+    from rs_ov_torch.kernels.selfself_attention import LMAX, SMEM_MAX, _smem_bytes
+
+    for mode in SUPPORTED_MODES:
+        n_ops = 2 if mode == "ClearCLIP" else 3
+        for l in range(1, LMAX + 1):
+            for hd in range(8, 129, 8):
+                if n_ops * l * (hd + 8) * 2 + 16 * l * 4 <= SMEM_MAX:
+                    assert _smem_bytes(mode, l, hd, torch.bfloat16) <= SMEM_MAX, (mode, l, hd)
+    assert _smem_bytes("ClearCLIP", 288, 128, torch.bfloat16) <= SMEM_MAX
+
+
 # ---------------------------------------------------------------------------
 # K6 against its plain version (skipped without a card)
 # ---------------------------------------------------------------------------
@@ -199,3 +232,22 @@ def test_fused_kernel_matches_plain(cuda, mode, with_sim, dtype):
         ref = fused_selfself_attention_plain(q, k, v, sim, mode=mode, sim_weight=0.8).float()
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
         assert rel <= (1e-5 if dtype == "float32" else 1e-2), (l, hd, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,hd", [(257, 64), (288, 64), (288, 112), (50, 80)],
+                         ids=["vitl14", "lmax", "lmax-hd112", "vith14-b32grid"])
+@pytest.mark.parametrize("with_sim", [False, True], ids=["nosim", "sim"])
+@pytest.mark.parametrize("mode", SUPPORTED_MODES)
+def test_fused_bf16_kernel_at_the_wrappers_limits(cuda, mode, with_sim, l, hd):
+    """The bf16 kernel at shapes the wrapper takes beyond the main path's:
+    ViT-L/14 at 224² (L=257, hd=64), the limit L=288 (hd=64, and hd=112, the
+    widest whose three operands fit a block), and ViT-H/14's hd=80 on a
+    ViT-B/32 grid (L=50); within 1e-2 of max|ref|."""
+    q, k, v, sim = (torch.from_numpy(a).to(cuda) for a in _qkv(13, l=l, hd=hd))
+    q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+    sim = sim if with_sim else None
+    got = fused_selfself_attention(q, k, v, sim, mode=mode, sim_weight=0.8).float()
+    ref = fused_selfself_attention_plain(q, k, v, sim, mode=mode, sim_weight=0.8).float()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-2, (l, hd, rel)

@@ -169,7 +169,8 @@ def test_range_logits_kernel_matches_plain(cuda, d, h, w):
 EPILOGUE_CASES = ([(d, h, w, 64, 5, 17) for d, h, w in SHAPES + [(11, 28, 28)]]
                   + [(d, 13, 19, c, q, 17) for d in (3, 7, 11, 17) for c in (72, 512)
                      for q in (1, 13, 128)]
-                  + [(17, 13, 19, 72, 128, 1)])
+                  + [(17, 13, 19, 72, 128, 1)]
+                  + [(d, 13, 19, 768, 8, 17) for d in (7, 11)])  # ViT-L/14's width
 
 
 def _matmul_in_order(x, wt):
@@ -206,8 +207,10 @@ def _held_in_order(label, got, args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,w,c,q,seed", EPILOGUE_CASES)
 def test_jbu_epilogue_kernels_match_plain(cuda, d, h, w, c, q, seed):
-    """K2 within 1e-2 of max|ref| (a bf16 rounding flip of comb' or of the
-    output is allowed); K3 within 1e-3 of max|ref| of the plain version with
+    """K2 within 1e-2 of max|ref| (a bf16 rounding flip of comb' is allowed;
+    y rounds as the tap-ordered sum does), with the count of its outputs
+    that differ from the plain version printed; K3 within 1e-3 of max|ref|
+    of the plain version with
     its fp32 products summed in order: a few bf16 rounding flips fit, while
     leaving out the fixup product (1.5e-1), its bias (1.8e-2) or the bf16
     rounding of the normalised vector (1.7e-3) at the first cases' inputs
@@ -218,6 +221,8 @@ def test_jbu_epilogue_kernels_match_plain(cuda, d, h, w, c, q, seed):
     args = [a.to(cuda) for a in _torch_args(case, d, torch.bfloat16)]
     got = jbu_epilogue(*args, d).float()
     ref = jbu_epilogue_plain(*args, d).float()
+    print(f"K2 d={d} {h}x{w} C={c} seed={seed}: {int((got != ref).sum())} of {ref.numel()} "
+          f"outputs differ from the plain version")
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-2
     tail = (_t(case["fw"], torch.bfloat16).to(cuda),
             _t(case["fb"], torch.bfloat16).to(cuda),
@@ -261,14 +266,16 @@ def _midpoint_case(d, h, w, c, q, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [72, 512])
+@pytest.mark.parametrize("c", [72, 512, 768])
 def test_classify_kernel_repairs_every_sum_past_its_queue(cuda, c):
     """Every sum of both rounded products near a midpoint (checked on the
     plain version's y): the kernel's repair queue overflows in the conv and in
     the fixup product, so a block takes all of its sums again in order (at
     C = 72 the 1 x 4 pixel block at the corner queues them instead), and the
     result holds within 1e-3 of max|ref| of the in-order plain version, on
-    blocks cut by the image's edges (5 x 20 pixels)."""
+    blocks cut by the image's edges (5 x 20 pixels). K2's conv shares the
+    repair: on the same operands (comb' exact: 0.5 at two taps) it re-takes
+    every y in tap order and equals its plain version."""
     from rs_ov_torch.kernels.jbu_epilogue import _adaptive_conv_nhwc, _comb_fixed
 
     args = _midpoint_case(3, 5, 20, c, 5, cuda)
@@ -277,6 +284,19 @@ def test_classify_kernel_repairs_every_sum_past_its_queue(cuda, c):
     assert bool(((y.view(torch.int32) & 0xffff) == 0x8000).all())  # every y a midpoint
     got = jbu_epilogue_classify(*args)
     assert _held_in_order(f"every sum repaired C={c}", got, args) <= 1e-3
+    assert torch.equal(jbu_epilogue(*args[:9], 3), jbu_epilogue_plain(*args[:9], 3))
+
+
+@pytest.mark.parametrize("c,d", [(64, 19), (64, 18), (63, 5)])
+def test_epilogue_kernel_refuses_what_it_does_not_take(c, d):
+    """K2's wrapper raises, before it loads the kernel library, for d > 17
+    (the band of 16 + d - 1 columns no longer fits 32, the TPU kernel's
+    limit) and an odd channel count."""
+    from rs_ov_torch.kernels.jbu_epilogue import _jbu_epilogue_cuda
+
+    case = _epilogue_case(d, 3, 4, seed=19, c=c)
+    with pytest.raises(ValueError, match="d <= 17|even channel"):
+        _jbu_epilogue_cuda(*_torch_args(case, d, torch.bfloat16), d)
 
 
 @pytest.mark.parametrize("c,d,q", [(64, 5, 129), (64, 19, 5), (63, 5, 5), (64, 5, 0)])

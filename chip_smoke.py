@@ -19,7 +19,7 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 with zero padding in place of reflection, and for K3 also
                 with its fixup bias left out and with the normalised vector
                 unrounded, each of which must exceed the bound; the bare
-                library call of K2, K3 and K6 beside the wrapper's; the
+                library call of K1, K2, K3 and K6 beside the wrapper's; the
                 median times (CUDA events, in turns),
                 the bound from the shapes and, for K6's vanilla and ClearCLIP
                 modes, the time of one scaled_dot_product_attention call.
@@ -39,7 +39,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 bf16 channel-last route): (a) the base config, (b) the full
                 stack (SegEarth, CTD, self-attention enhancement, SOM and
                 cross-tile fusion on top of it), (c) ClearCLIP with layer
-                fusion and outlier suppression; then with
+                fusion and outlier suppression, and the base config in fp32
+                (fp32 K6 once per request, K1 K4b as on the fp32
+                channel-first route); then with
                 RS_OV_JBU_FUSED_RANGE=1: (d) the base config (K5a, K5b) and
                 jbu_stack at 4 stages (K5a, K5b at d=7, two images);
                 predict_batch_raw on the three images as one batch, with the
@@ -59,7 +61,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 queries: argmax agreement >= 0.95 between routes and with
                 the CPU, >= 0.999 between fp32 on the card and on the CPU;
                 jbu_stack at 4 stages on the card against the same
-                configuration in fp32 on the CPU, >= 0.95; (a) and (b) with
+                configuration in fp32 on the CPU, >= 0.95; the base config in
+                fp32 with RS_OV_FUSED_ATTN=1 against 0 on the card, >= 0.999;
+                (a) and (b) with
                 RS_OV_FUSED_ATTN=1 against 0 on the card, >= 0.99; (b) in fp32
                 on the card against the CPU, >= 0.99; (a), (b) and (c) in bf16
                 against the CPU, >= 0.95 (with the share of CTD's DBSCAN
@@ -115,7 +119,7 @@ CARD = {}
 K1_TOL, K2_TOL, K3_TOL, K4B_TOL, K4A_TOL = 1e-5, 1e-2, 1e-3, 1e-5, 1e-2
 B, D, K, C, G, Q = 2, 11, 32, 512, 3, 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+HBM_BPS, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
 CHUNKS = 8  # 16 crops of a 512x512 image in chunks of 2
 DEV = torch.device("cuda")
 
@@ -172,11 +176,12 @@ def _timed_pair(kernel, plain):
     return float(np.median(k)), float(np.median(p))
 
 
-def _bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0):
+def _bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0,
+           tf32_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
     the operations over the peak rate of their operand type."""
     t_bytes = nbytes / HBM_BPS
-    t_ops = fp32_ops / FP32_FLOPS + bf16_ops / BF16_FLOPS
+    t_ops = fp32_ops / FP32_FLOPS + bf16_ops / BF16_FLOPS + tf32_ops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -351,7 +356,8 @@ def phase_kernels():
     224^2, 4 stages), K4a/K4b at the channel-first route's."""
     from rs_ov_torch.kernels.jbu_epilogue import (_epilogue_operands, jbu_epilogue,
                                                   jbu_epilogue_plain)
-    from rs_ov_torch.kernels.range_logits import range_logits, range_logits_plain
+    from rs_ov_torch.kernels.range_logits import (_range_logits_operands, range_logits,
+                                                  range_logits_plain)
     from rs_ov_torch.utils.resize import reflect_pad_2d
 
     dev = DEV
@@ -363,11 +369,13 @@ def phase_kernels():
         padded = reflect_pad_2d(proj, d // 2).contiguous()
         bound = _bound(4 * B * K * ((hw + d - 1) ** 2 + hw * hw) + 4 * B * d * d * hw * hw,
                        fp32_ops=2 * B * K * d * d * hw * hw)
-        k1.append((f"B={B} K={K} d={d} H=W={hw}", _check(
-            f"K1 range_logits d={d} H=W={hw}", K1_TOL,
-            lambda: range_logits(padded, proj, d),
-            lambda: range_logits_plain(padded, proj, d),
-            lambda: _last_tap_dropped(range_logits_plain(padded, proj, d)), bound)))
+        wrapper = lambda: range_logits(padded, proj, d)  # noqa: E731
+        c = _check(f"K1 range_logits d={d} H=W={hw}", K1_TOL, wrapper,
+                   lambda: range_logits_plain(padded, proj, d),
+                   lambda: _last_tap_dropped(range_logits_plain(padded, proj, d)), bound)
+        _out, args = _range_logits_operands(padded, proj, d)  # _out outlives the calls
+        _bare_beside_wrapper(f"K1 d={d} H=W={hw}", c, "rs_range_logits", args, wrapper)
+        k1.append((f"B={B} K={K} d={d} H=W={hw}", c))
 
     k2 = []
     for d, hw in ((11, 28), (7, 28), (7, 112)):
@@ -634,7 +642,7 @@ K6_SCORES = {"vanilla": 1, "ClearCLIP": 1, "SCLIP": 2, "SegEarth": 3, "SFP": 2,
              "Experimental": 2}
 K6_TERMS = {"SCLIP": 2, "SegEarth": 3}  # softmaxes whose weights meet v apart (others: 1)
 K6_SOURCE = {torch.bfloat16: "rs_ov_torch/csrc/selfself_attention_sm90.cu",
-             torch.float32: "rs_ov_torch/csrc/selfself_attention.cu"}
+             torch.float32: "rs_ov_torch/csrc/selfself_attention_f32_sm90.cu"}
 
 
 def _selfself_attention_kernel(rng, dev):
@@ -648,10 +656,12 @@ def _selfself_attention_kernel(rng, dev):
     wrapper. For vanilla and ClearCLIP one scaled_dot_product_attention call
     (in the inputs' dtype; its bf16 version rounds the weights, so it is a
     yardstick of time, not of numbers) is timed as the library call; no
-    single call computes the other modes. The bf16 bound counts what the
-    kernel multiplies on the tensor cores: the score products and, per
-    softmax term, weights @ v as the pair hi + lo; beside it the earlier
-    reckoning, weights @ v once at the fp32 rate."""
+    single call computes the other modes. Each bound counts what the kernel
+    multiplies on the tensor cores: in bf16 the score products and, per
+    softmax term, weights @ v as the pair hi + lo; in fp32 the score
+    products and weights @ v per term, each as three TF32 products (3xTF32).
+    Beside each, the earlier reckoning: bf16 with weights @ v once at the
+    fp32 rate, fp32 with every product once at the fp32 cores' rate."""
     from rs_ov_torch.kernels.selfself_attention import (SUPPORTED_MODES, _attention_operands,
                                                         fused_selfself_attention,
                                                         fused_selfself_attention_plain)
@@ -677,7 +687,8 @@ def _selfself_attention_kernel(rng, dev):
             bound = _bound(nbytes, bf16_ops=(n + 2 * K6_TERMS.get(mode, 1)) * prod)
             earlier = _bound(nbytes, fp32_ops=prod, bf16_ops=n * prod)
         else:
-            bound = _bound(nbytes, fp32_ops=(n + 1) * prod)
+            bound = _bound(nbytes, tf32_ops=3 * (n + K6_TERMS.get(mode, 1)) * prod)
+            earlier = _bound(nbytes, fp32_ops=(n + 1) * prod)
         tag = f"{mode} {str(dtype)[6:]} {'sim' if with_sim else 'no sim'}"
         wrapper = lambda: fused_selfself_attention(q, k, v, sm, mode=mode)  # noqa: E731
         c = _check(f"K6 fused_selfself_attention {tag}", K6_TOL[dtype], wrapper,
@@ -693,6 +704,10 @@ def _selfself_attention_kernel(rng, dev):
                   f"weights @ v at the fp32 rate")
         else:
             c["source"] = K6_SOURCE[dtype]
+            c["bound_ms_fp32_cores"] = earlier[0]
+            print(f"[kernels] K6 {tag}: bound {bound[0]:.4f} ms by {bound[1]} (3xTF32 on the "
+                  f"tensor cores); {earlier[0]:.4f} ms by {earlier[1]} reckoned with every "
+                  f"product once at the fp32 cores' rate")
         if mode in ("vanilla", "ClearCLIP"):
             keys = k if mode == "vanilla" else q
             mask = None if sm is None else sm[:, None].to(dtype)
@@ -993,6 +1008,10 @@ def phase_slice(rows):
         by_path["(c) ClearCLIP"] = _drive(
             "(c) ClearCLIP + layer fusion + outlier suppression, RS_OV_FUSED_ATTN=1 "
             "(K6 K1 K2 K3)", segs["clearclip"], images, k6)
+        by_path["fp32 fused attention"] = _drive(
+            "fp32 channel-first, RS_OV_FUSED_ATTN=1 (fp32 K6, K1, K4b)", segs["base fp32"],
+            images, {"fused_selfself_attention": 3, "range_logits": 3 * s * CHUNKS,
+                     "adaptive_conv_f32": 3 * s * CHUNKS})
     fused = {"jbu_epilogue_fused": 3 * (s - 1) * CHUNKS, "jbu_epilogue_fused_classify": 3 * CHUNKS}
     with _env("RS_OV_JBU_FUSED_RANGE", "1"):
         by_path["(d) fused range"] = _drive(
@@ -1049,6 +1068,7 @@ def phase_e2e(segs):
     stack32 = SegmentorEx(**_stack_cfg(), param_dtype=torch.float32, device=DEV,
                           query_features=qf)
     with _env("RS_OV_FUSED_ATTN", "1"):
+        out["fp32 fused attention"] = segs["base fp32"].predict_raw(img)[0]
         out["(a) bf16"] = segs["base"].predict_raw(img)[0]
         with _dbscan_labels() as labels["(b) bf16"]:
             out["(b) bf16"] = segs["stack"].predict_raw(img)[0]
@@ -1079,6 +1099,7 @@ def phase_e2e(segs):
     for a, b, need in (("bf16 channel-first", "bf16 channel-last", 0.95),
                        ("fp32 channel-first", "bf16 channel-last", 0.95),
                        ("fp32 channel-first", "fp32 CPU", 0.999),
+                       ("fp32 fused attention", "fp32 channel-first", 0.999),
                        ("bf16 channel-last", "fp32 CPU", 0.95),
                        ("jbu_stack 4 stages bf16 channel-last",
                         "jbu_stack 4 stages fp32 CPU", 0.95),

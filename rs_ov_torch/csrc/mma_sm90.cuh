@@ -1,7 +1,9 @@
-// The PTX building blocks shared by the tensor-core kernels (K2/K3 in
-// jbu_classify_sm90.cu, K6 in selfself_attention_sm90.cu): cp.async copies
-// into shared memory, ldmatrix loads of mma fragments, and mma.sync m16n8k16
-// with bf16 operands and fp32 sums.
+// The PTX building blocks shared by the hand-written kernels (K2/K3 in
+// jbu_classify_sm90.cu, K6 in selfself_attention_sm90.cu and
+// selfself_attention_f32_sm90.cu, K1 in range_logits.cu): cp.async copies
+// into shared memory, ldmatrix loads of mma fragments, mma.sync m16n8k16
+// with bf16 operands and m16n8k8 with TF32 operands, both with fp32 sums,
+// and the split of an fp32 value into two TF32 parts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +55,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A B: A 16x8 row-major, B 8x8 column-major, TF32 operands, fp32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo: hi = x rounded to the nearest TF32 value (ties away from zero;
+// x finite), lo = x - hi, exact in fp32 and within 2^-11 of |x|. The tensor
+// core reads a TF32 operand's top 19 bits, so lo enters a product as its own
+// first 11 bits: hi b + lo b is x b within ~2^-21 of |x b|. Three integer
+// and float operations; cvt.rna.tf32.f32 takes four for hi alone.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 }  // namespace rs_ov

@@ -10,8 +10,9 @@
 //   4 SFP           softmax(0.5 (q q^T s + k k^T s) + S)
 //   5 Experimental  softmax(softmax(k k^T s + q q^T s) + S)
 // Sums of softmaxes are not renormalised; Experimental takes its second
-// softmax with or without a sim map. The fp32 entry stays in
-// selfself_attention.cu.
+// softmax with or without a sim map. The fp32 entry is
+// selfself_attention_f32_sm90.cu (the same design on TF32 operands); the
+// row softmax and the sim-row staging are shared, in selfself_attention.cuh.
 //
 // Replaces the TPU kernel rs_ov/kernels/selfself_attention.py:
 // fused_selfself_attention (pallas_call at :103), for bf16 operands.
@@ -62,6 +63,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "selfself_attention.cuh"
 
 namespace {
 
@@ -70,8 +72,6 @@ using namespace rs_ov;
 constexpr int NW = 7;    // warps (16-row query tiles) per block
 constexpr int HC = 64;   // output channels per pass of weights @ v
 constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use on Hopper
-
-enum Mode { VANILLA = 0, CLEARCLIP = 1, SCLIP = 2, SEGEARTH = 3, SFP = 4, EXPERIMENTAL = 5 };
 
 typedef __nv_bfloat16 bf16;
 
@@ -86,15 +86,10 @@ __host__ __device__ inline Shape make_shape(int L, int hd) {
   return Shape{L, hd, LP, HP, HP + 8};
 }
 
-__host__ __device__ inline int n_operands(int mode) { return mode == CLEARCLIP ? 2 : 3; }
-
 // Bytes of the staged operands: (n - 1) L rows, then v's LP.
 __host__ __device__ inline size_t operand_bytes(int mode, const Shape& sh) {
   return ((size_t)(n_operands(mode) - 1) * sh.L + sh.LP) * sh.ld * sizeof(bf16);
 }
-
-// Floats of a warp's slice of the staged sim rows (4 more for alignment).
-__host__ __device__ inline int sim_slice(int L) { return 16 * L + 4; }
 
 // s[n] += A[r0 .. r0+15] . Bk[8n .. 8n+7] over the padded hd, for the
 // warp's nkt key tiles of 16 (n < 2 nkt <= N)
@@ -115,85 +110,6 @@ __device__ __forceinline__ void scores(float (&s)[N][4], const bf16* A, const bf
       }
     }
   }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&s)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-}
-
-// s = s * mul + S (S where sim, the warp's first sim row with rows of L, is
-// given; rows of them), keys past L -inf. Element e of tile n is the warp's
-// row g + 8 (e / 2), key 8 n + 2 tq + e % 2.
-template <int N>
-__device__ __forceinline__ void logits(float (&s)[N][4], float mul, const float* sim, float w,
-                                       int rows, int L, int g, int tq) {
-  if (sim != nullptr) {  // the staged rows have landed (stage_sim)
-    cp_async_wait<0>();
-    __syncwarp();
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e >> 1), key = 8 * n + 2 * tq + (e & 1);
-      float x = s[n][e] * mul;
-      if (sim != nullptr && row < rows && key < L) x += sim[row * L + key] * w;
-      s[n][e] = key < L ? x : -INFINITY;
-    }
-}
-
-// The n floats of the warp's sim rows (contiguous in device memory) into its
-// slice dst (16-byte aligned) by cp.async, shifted by src's misalignment so
-// that the copies are 16 bytes wide; returns where they start. logits waits.
-__device__ __forceinline__ const float* stage_sim(float* dst, const float* src, int n,
-                                                  int lane) {
-  const int k = (int)(reinterpret_cast<uintptr_t>(src) / 4 % 4);
-  float* d = dst + k;
-  const int head = min(n, (4 - k) % 4), end = head + (n - head) / 4 * 4;
-  for (int i = lane; i < head; i += 32) cp_async4(d + i, src + i, 4);
-  for (int i = head + 4 * lane; i < end; i += 128) cp_async16(d + i, src + i, 16);
-  for (int i = end + lane; i < n; i += 32) cp_async4(d + i, src + i, 4);
-  cp_async_commit();
-  return d;
-}
-
-// Each of the lane's two rows (e < 2: row g; e >= 2: row g + 8) softmaxed
-// in place over the quad's keys, times the reciprocal of the row's sum (one
-// division a row, not one a weight); -inf becomes 0.
-template <int N>
-__device__ __forceinline__ void softmax_rows(float (&s)[N][4]) {
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-  }
-  float l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = __expf(s[n][e] - m[e >> 1]);
-      s[n][e] = x;
-      l[e >> 1] += x;
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] = 1.f / (l[r] + __shfl_xor_sync(0xffffffffu, l[r], 2));
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] *= l[e >> 1];
 }
 
 // (x, y) as a bf16 pair hi and the pair of what hi leaves, lo

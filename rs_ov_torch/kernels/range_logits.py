@@ -4,19 +4,21 @@
 
 ``range_logits`` dispatches on the device: a CPU tensor takes the plain
 version (a loop of shifted multiply-adds), a CUDA tensor the hand-written
-kernel in ``rs_ov_torch/csrc/range_logits.cu``, which replaces the TPU kernel
-``range_logits_pallas`` (rs_ov/kernels/range_logits.py:64).
+kernel in ``rs_ov_torch/csrc/range_logits.cu`` (the window staged once for
+several tap rows by cp.async, d accumulators a thread), which replaces the
+TPU kernel ``range_logits_pallas`` (rs_ov/kernels/range_logits.py:64).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library
 
 __all__ = ["range_logits", "range_logits_plain"]
 
 KMAX = 32  # the kernel keeps a pixel's projection in registers
+DMAX = 25  # the largest diameter the kernel is instantiated for
 
 
 def range_logits_plain(padded: torch.Tensor, proj: torch.Tensor,
@@ -32,8 +34,12 @@ def range_logits_plain(padded: torch.Tensor, proj: torch.Tensor,
     return out
 
 
-def _range_logits_cuda(padded: torch.Tensor, proj: torch.Tensor,
-                       diameter: int) -> torch.Tensor:
+def _range_logits_operands(padded: torch.Tensor, proj: torch.Tensor,
+                           diameter: int) -> tuple[torch.Tensor, tuple]:
+    """The operands checked and the output allocated. Returns (out, args):
+    the library entry's arguments up to the stream."""
+    if proj.dim() != 4:
+        raise ValueError(f"range_logits: proj must be [B, K, H, W], got {tuple(proj.shape)}")
     b, k, h, w = proj.shape
     d = diameter
     for name, t in (("padded", padded), ("proj", proj)):
@@ -43,15 +49,17 @@ def _range_logits_cuda(padded: torch.Tensor, proj: torch.Tensor,
     if tuple(padded.shape) != (b, k, h + d - 1, w + d - 1):
         raise ValueError(f"range_logits: padded {tuple(padded.shape)} does not "
                          f"match proj {tuple(proj.shape)} at d={d}")
-    if not 1 <= k <= KMAX or d < 1:
-        raise ValueError(f"range_logits kernel takes 1 <= K <= {KMAX} and d >= 1, "
-                         f"got K={k}, d={d}")
+    if not 1 <= k <= KMAX or not 1 <= d <= DMAX:
+        raise ValueError(f"range_logits kernel takes 1 <= K <= {KMAX} and 1 <= d <= "
+                         f"{DMAX}, got K={k}, d={d}")
     out = torch.empty((b, d * d, h, w), dtype=torch.float32, device=proj.device)
-    lib = load_library()
-    with torch.cuda.device(proj.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(lib.rs_range_logits(padded.data_ptr(), proj.data_ptr(), out.data_ptr(),
-                                  b, k, h, w, d, stream), "rs_range_logits")
+    return out, (padded.data_ptr(), proj.data_ptr(), out.data_ptr(), b, k, h, w, d)
+
+
+def _range_logits_cuda(padded: torch.Tensor, proj: torch.Tensor,
+                       diameter: int) -> torch.Tensor:
+    out, args = _range_logits_operands(padded, proj, diameter)
+    check(launch(load_library().rs_range_logits, args, proj.device), "rs_range_logits")
     range_logits.launches += 1
     return out
 

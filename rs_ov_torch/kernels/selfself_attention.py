@@ -23,7 +23,9 @@ plain version, a CUDA tensor the hand-written kernel, which replaces the TPU
 kernel ``fused_selfself_attention`` (rs_ov/kernels/selfself_attention.py:78):
 bf16 in ``rs_ov_torch/csrc/selfself_attention_sm90.cu`` (the products on the
 tensor cores, the weights meeting v as a bf16 pair hi + lo), fp32 in
-``rs_ov_torch/csrc/selfself_attention.cu`` (the fp32 cores).
+``rs_ov_torch/csrc/selfself_attention_f32_sm90.cu`` (the same design on the
+TF32 tensor cores, each fp32 product taken as three TF32 products of the
+operands split into hi + lo).
 """
 
 from __future__ import annotations
@@ -36,21 +38,21 @@ __all__ = ["fused_selfself_attention", "fused_selfself_attention_plain", "SUPPOR
 
 SUPPORTED_MODES = ("vanilla", "ClearCLIP", "SCLIP", "SegEarth", "SFP", "Experimental")
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
-WARPS = 16         # warps per block of the fp32 kernel; its NWARPS
 LMAX = 288         # keys a row's scores hold in registers
 HDMAX = 128        # output channels
 
 
 def _smem_bytes(mode: str, l: int, hd: int, dtype: torch.dtype) -> int:
-    """A block's shared memory: the operands the mode needs, each row 16
-    bytes longer. bf16 pads hd to a multiple of 16 and the last operand, v,
-    to a multiple of 16 rows (the tensor cores' tiles); fp32 adds one fp32
-    weights row per warp."""
+    """The shared memory of a block's operands: those the mode needs, each
+    row 16 bytes longer, and the last one, v, padded to a multiple of 16 rows
+    (the tensor cores' query tiles). bf16 also pads hd to a multiple of 16.
+    The sim rows are staged where room is left, else read from device
+    memory."""
     n_ops = 2 if mode == "ClearCLIP" else 3
+    lp = -(-l // 16) * 16
     if dtype == torch.bfloat16:
-        lp, hp = -(-l // 16) * 16, -(-hd // 16) * 16
-        return ((n_ops - 1) * l + lp) * (hp + 8) * 2
-    return n_ops * l * (hd + 4) * 4 + WARPS * l * 4
+        return ((n_ops - 1) * l + lp) * (-(-hd // 16) * 16 + 8) * 2
+    return ((n_ops - 1) * l + lp) * (hd + 4) * 4
 
 
 def fused_selfself_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

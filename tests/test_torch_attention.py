@@ -205,6 +205,30 @@ def test_fused_bf16_kernel_takes_what_the_fp32_core_kernel_took():
     assert _smem_bytes("ClearCLIP", 288, 128, torch.bfloat16) <= SMEM_MAX
 
 
+def test_fused_f32_kernel_takes_what_the_fp32_core_kernel_took():
+    """Every (mode, L, hd) whose operands fitted the earlier fp32 kernel's
+    block (rows of hd + 4 floats and a weights row for each of its 16 warps)
+    fits the TF32 kernel's (v padded to 16 rows, the sim rows staged only
+    where room is left): it refuses nothing the earlier one took."""
+    from rs_ov_torch.kernels.selfself_attention import LMAX, SMEM_MAX, _smem_bytes
+
+    for mode in SUPPORTED_MODES:
+        n_ops = 2 if mode == "ClearCLIP" else 3
+        for l in range(1, LMAX + 1):
+            for hd in range(8, 129, 8):
+                if n_ops * l * (hd + 4) * 4 + 16 * l * 4 <= SMEM_MAX:
+                    assert _smem_bytes(mode, l, hd, torch.float32) <= SMEM_MAX, (mode, l, hd)
+
+
+def _f32_cases():
+    """(mode, L, hd) over L in {50, 197, 257, 288} and hd in {64, 80, 128}
+    wherever the fp32 kernel's block holds the mode's operands."""
+    from rs_ov_torch.kernels.selfself_attention import SMEM_MAX, _smem_bytes
+
+    return [(m, l, hd) for m in SUPPORTED_MODES for l in (50, 197, 257, 288)
+            for hd in (64, 80, 128) if _smem_bytes(m, l, hd, torch.float32) <= SMEM_MAX]
+
+
 # ---------------------------------------------------------------------------
 # K6 against its plain version (skipped without a card)
 # ---------------------------------------------------------------------------
@@ -251,3 +275,18 @@ def test_fused_bf16_kernel_at_the_wrappers_limits(cuda, mode, with_sim, l, hd):
     ref = fused_selfself_attention_plain(q, k, v, sim, mode=mode, sim_weight=0.8).float()
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
     assert rel <= 1e-2, (l, hd, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sim", [False, True], ids=["nosim", "sim"])
+@pytest.mark.parametrize("mode,l,hd", _f32_cases())
+def test_fused_f32_kernel_at_the_wrappers_limits(cuda, mode, l, hd, with_sim):
+    """The fp32 (3xTF32) kernel at ViT-B/32's L=50, ViT-B/16's 197, ViT-L/14's
+    257 and the limit 288, at hd 64, 80 (ViT-H/14) and 128, in every mode and
+    shape whose operands fit a block; within 1e-5 of max|ref|."""
+    q, k, v, sim = (torch.from_numpy(a).to(cuda) for a in _qkv(17, l=l, hd=hd))
+    sim = sim if with_sim else None
+    got = fused_selfself_attention(q, k, v, sim, mode=mode, sim_weight=0.8)
+    ref = fused_selfself_attention_plain(q, k, v, sim, mode=mode, sim_weight=0.8)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-5, (l, hd, rel)

@@ -161,6 +161,58 @@ def test_range_logits_kernel_matches_plain(cuda, d, h, w):
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [1, 7, 32])
+@pytest.mark.parametrize("d", [3, 7, 11, 17, 25])
+def test_range_logits_kernel_at_its_edges(cuda, d, k, b):
+    """Every diameter the JBU stages use and the limit 25, K below one
+    channel group of 8, between groups and at the limit 32, on 13 x 19
+    pixels (neither a multiple of the kernel's 2 x 32 tiles), B = 1 and 3;
+    within 1e-5 of max|ref|."""
+    rng = np.random.RandomState(6)
+    padded = _t(rng.randn(b, k, 13 + d - 1, 19 + d - 1)).to(cuda)
+    proj = _t(rng.randn(b, k, 13, 19)).to(cuda)
+    got = range_logits(padded, proj, d)
+    ref = range_logits_plain(padded, proj, d)
+    assert got.shape == (b, d * d, 13, 19)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+def _k1_operands(case):
+    """(padded, proj, d) of a case the K1 kernel does not take."""
+    t = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
+    return {
+        "K past 32": (t(1, 33, 10, 10), t(1, 33, 6, 6), 5),
+        "d past 25": (t(1, 4, 32, 32), t(1, 4, 6, 6), 27),
+        "d of 0": (t(1, 4, 5, 5), t(1, 4, 6, 6), 0),
+        "padded misshapen": (t(1, 4, 10, 11), t(1, 4, 6, 6), 5),
+        "proj not 4-d": (t(1, 4, 10, 10), t(4, 6, 6), 5),
+        "bf16 operand": (t(1, 4, 10, 10, dt=torch.bfloat16), t(1, 4, 6, 6), 5),
+        "non-contiguous": (t(1, 4, 10, 10), t(1, 6, 6, 4).permute(0, 3, 1, 2), 5),
+        "operands on two devices": (torch.empty(1, 4, 10, 10), t(1, 4, 6, 6), 5),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["K past 32", "d past 25", "d of 0", "padded misshapen",
+                                  "proj not 4-d", "bf16 operand", "non-contiguous",
+                                  "operands on two devices"])
+def test_range_logits_kernel_refuses_what_it_does_not_take(case, monkeypatch):
+    """K1's wrapper raises a ValueError before it loads the kernel library:
+    K past 32 (a pixel's projection is held in registers), d past 25 (the
+    largest diameter the kernel is instantiated for) or under 1, a padded
+    operand that does not match proj, an operand that is not contiguous fp32
+    on proj's device."""
+    from rs_ov_torch.kernels import range_logits as mod
+
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(mod, "load_library", no_library)
+    with pytest.raises(ValueError, match="range_logits"):
+        mod._range_logits_cuda(*_k1_operands(case))
+
+
 # (d, H, W, C, Q, seed): the earlier shapes, then the classify kernel's tile
 # edges: every d from 3 to its limit 17, H not a multiple of the block's 2
 # rows, W not a multiple of its 16 columns, C = 72 (not a multiple of 16) and

@@ -288,3 +288,31 @@ def test_build_without_nvcc_raises(monkeypatch):
             build.load_library()
     finally:
         build.load_library.cache_clear()
+
+
+def test_kernel_resources_reads_the_ptxas_report(tmp_path):
+    """rs_ov_torch.tools.kernel_resources names each kernel instantiation by
+    its template arguments and reads its registers and spills from the
+    build's -Xptxas -v log."""
+    from rs_ov_torch.tools.kernel_resources import _short, ptxas_report
+
+    k6 = ("_ZN63_GLOBAL__N__daf6626a_30_selfself_attention_f32_sm90_cu_a97098f029"
+          "selfself_attention_f32_kernelILi5ELi26EEvPKfS2_S2_S2_Pfiiiffi")
+    k1 = "_ZN48_GLOBAL__N__e04d9891_15_range_logits_cu_2590296019range_logits_kernelILi11EEvPKfS2_Pfiii"
+    assert _short(k6) == "selfself_attention_f32_kernel<5, 26>"
+    assert _short(k1) == "range_logits_kernel<11>"
+    assert _short("_ZN12_GLOBAL__N_119jbu_classify_kernelILb1EEEvNS_4ArgsE") == \
+        "jbu_classify_kernel<1>"
+    log = tmp_path / "lib.so.x.cu.log"
+    log.write_text(
+        f"ptxas info    : Compiling entry function '{k6}' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size\n"
+        f"ptxas info    : Compiling entry function '{k1}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers\n")
+    assert ptxas_report(str(log)) == {
+        "selfself_attention_f32_kernel<5, 26>": {"registers": 255, "spill_stores": 4,
+                                                 "spill_loads": 12},
+        "range_logits_kernel<11>": {"registers": 64, "spill_stores": 0, "spill_loads": 0}}

@@ -19,12 +19,14 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 with zero padding in place of reflection, and for K3 also
                 with its fixup bias left out and with the normalised vector
                 unrounded, each of which must exceed the bound; the bare
-                library call of K1, K2, K3 and K6 beside the wrapper's; the
+                library call of K1, K2, K3, K5a, K5b and K6 beside the
+                wrapper's; the
                 median times (CUDA events, in turns),
                 the bound from the shapes and, for K6's vanilla and ClearCLIP
                 modes, the time of one scaled_dot_product_attention call.
                 K5a and K5b are also held against the split pair they replace
-                (K1 + reflect pads + K2 / K3) on the card, and timed beside it.
+                (K1 + reflect pads + K2 / K3) on the card, with the count of
+                outputs that differ from it, and timed in turns with it.
                 K4e and K4f (both operands rounded to bf16) at d=11 on 28^2
                 and 56^2 and d=7 on 224^2 (K4f: two column chunks), with fp32,
                 bf16 and bf16-input/fp32-tap operands, also beside K4b's
@@ -467,13 +469,12 @@ def _fused_range_kernels(rng, dev, tail):
     """K5a at K2's shapes (d=11 28^2, d=7 28^2 and 112^2) and K5b at K3's
     (d=11 56^2, d=7 224^2), B=2, C=512, K=32, G=3, Q=8, within K2's and K3's
     bounds of their plain versions, beside two faults (the last tap dropped;
-    zero padding in place of reflection); then against the split pair each
-    replaces (K1 + reflect pads + K2 / K3) on the card, within the same
-    bound, with the pair's time beside the kernel's."""
-    from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue_fused,
-                                                  jbu_epilogue_fused_classify,
-                                                  jbu_epilogue_fused_classify_plain,
-                                                  jbu_epilogue_fused_plain)
+    zero padding in place of reflection), with the bare library call timed
+    beside the wrapper; then against the split pair each replaces (K1 +
+    reflect pads + K2 / K3) on the card, within the same bound, with the
+    count of outputs that differ from it at all and the pair's time and the
+    kernel's taken in turns."""
+    from rs_ov_torch.kernels import jbu_epilogue as mod
 
     rows = {}
     for key, tol, name, tpu_line, shapes, extra in (
@@ -486,11 +487,13 @@ def _fused_range_kernels(rng, dev, tail):
             a = _fused_inputs(rng, hw, dev, d)
             t = {} if extra is None else extra
             if extra is None:
-                kernel = lambda: jbu_epilogue_fused(**a, diameter=d)  # noqa: E731
-                plain = lambda: jbu_epilogue_fused_plain(**a, diameter=d)  # noqa: E731
+                kernel = lambda: mod.jbu_epilogue_fused(**a, diameter=d)  # noqa: E731
+                plain = lambda: mod.jbu_epilogue_fused_plain(**a, diameter=d)  # noqa: E731
+                operands, entry = mod._fused_operands, "rs_jbu_epilogue_fused"
             else:
-                kernel = lambda: jbu_epilogue_fused_classify(**a, **t, diameter=d)  # noqa: E731
-                plain = lambda: jbu_epilogue_fused_classify_plain(**a, **t, diameter=d)  # noqa: E731
+                kernel = lambda: mod.jbu_epilogue_fused_classify(**a, **t, diameter=d)  # noqa: E731
+                plain = lambda: mod.jbu_epilogue_fused_classify_plain(**a, **t, diameter=d)  # noqa: E731
+                operands, entry = mod._fused_classify_operands, "rs_jbu_epilogue_fused_classify"
 
             def dropped():
                 with _epilogue_conv_without_last_tap():
@@ -500,20 +503,26 @@ def _fused_range_kernels(rng, dev, tail):
                 with _zero_padding():
                     return plain()
 
+            label = f"{key} d={d} H=W={hw}"
             c = _check(f"{key} {name} d={d} H=W={hw}", tol, kernel, plain, dropped,
                        _epilogue_bound(hw, hw, extra is not None, d, fused=True),
                        faults=[("zero padding", zero_padded)])
+            _out, args, _keep = operands(**a, **t, diameter=d)  # _out outlives the calls
+            _bare_beside_wrapper(label, c, entry, args, kernel)
             split = lambda: _split_stage(a, d, extra)  # noqa: E731
             got, ref = kernel().float(), split().float()
             c["split_rel"] = (got - ref).abs().max().item() / ref.abs().max().item()
-            c["split_ms"] = _median_ms(split)
-            print(f"[kernels] {key} d={d} H=W={hw} against the split pair K1 + pads + "
+            c["split_ndiff"] = int((got != ref).sum())
+            c["split_ms"], c["split_kernel_ms"] = _timed_pair(split, kernel)
+            print(f"[kernels] {label} against the split pair K1 + pads + "
                   f"{'K3' if extra is not None else 'K2'}: max|d|/max|ref|={c['split_rel']:.3e} "
-                  f"(tol {tol}); split pair {c['split_ms']:.4f} ms, kernel {c['ms']:.4f} ms")
+                  f"(tol {tol}), {c['split_ndiff']} of {ref.numel()} outputs differ; in turns: "
+                  f"split pair {c['split_ms']:.4f} ms, kernel {c['split_kernel_ms']:.4f} ms "
+                  f"on {CARD['smi']}")
             assert c["split_rel"] <= tol, f"{key} disagrees with the split pair"
             checks.append((f"B={B} d={d} C={C} K={K} G={G}"
                            + (f" Q={Q}" if extra is not None else "") + f" H=W={hw}", c))
-        rows[name] = _row(name, "rs_ov_torch/csrc/jbu_epilogue.cu", tpu_line, checks)
+        rows[name] = _row(name, "rs_ov_torch/csrc/jbu_classify_sm90.cu", tpu_line, checks)
     return rows
 
 

@@ -1,8 +1,11 @@
-// The JBU stage epilogue (K2) and the last stage's epilogue with the
-// classify tail (K3), on Hopper's tensor cores (sm_90a).
+// The JBU stage epilogue (K2), the last stage's epilogue with the classify
+// tail (K3), and both as a whole fused-range stage (K5a, K5b), on Hopper's
+// tensor cores (sm_90a).
 //
 // Replaces the TPU kernels rs_ov/kernels/jbu_epilogue.py:jbu_epilogue_pallas
-// (nhwc=True; K2) and :jbu_epilogue_classify_pallas (K3). Per output pixel:
+// (nhwc=True; K2), :jbu_epilogue_classify_pallas (K3),
+// :jbu_epilogue_fused_pallas (K5a) and :jbu_epilogue_fused_classify_pallas
+// (K5b). Per output pixel:
 //
 //   comb  = softmax_t(logits * temp) * spatial;  comb /= max(sum_t comb, 1e-7)
 //   fix   = W1 gelu(W0 [bf16(comb), guid] + b0) + b1            (fp32)
@@ -11,6 +14,17 @@
 //   K2: out = bf16(y)
 //   K3: yb = bf16(y); res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb)
 //       rb = bf16(res * rsqrt(max(|res|^2, 1e-24)));  logits[q] = rb . bf16(Q[q])
+//
+// K5a / K5b are K2 / K3 for a whole stage: from the UNpadded source [B, H, W,
+// C] and the range projection proj [B, H, W, K] fp32 they compute the logits
+// themselves (phase 0 below),
+//   logits[t] = sum_k proj[h, w, k] * proj[h+u-r, w+v-r, k]      (r = d / 2)
+// and read the source at h+u-r, w+v-r, both at reflected indices (i < 0 ->
+// -i, i >= n -> 2n-2-i, which needs r <= n-1): the split route's range-logits
+// kernel K1, its logits' round trip through device memory and both reflect
+// pads disappear. Their guidance arrives channel-first, [B, G, H, W]. Every
+// other phase is K2's / K3's, the same device functions on the same blocks,
+// so that K5a / K5b equal K1 + pads + K2 / K3 bit for bit.
 //
 // The operands of the three products (the adaptive conv, the C x C fixup
 // product and the cosine) are bf16, and a product of two bf16 values is exact
@@ -29,15 +43,30 @@
 // mma.sync's rate), the fp32 range MLP's 0.37 G (~6 us), and ~12 MB of bytes
 // (~4 us). K2 at 28^2 reads the padded source (3.0 MB) and the logits (0.8
 // MB) and writes 1.6 MB (1.6 us), for 0.19 G conv and 0.09 G MLP operations;
-// at d=7, 112^2 (jbu_stack) 59 MB of bytes (18 us). The first versions on the
-// fp32 cores were latency-bound instead: 16 pixels per block, K3's blocks
-// each re-reading the whole 512 KB fixup weight through L2.
+// at d=7, 112^2 (jbu_stack) 59 MB of bytes (18 us). K5 reads the unpadded
+// source and the projection (0.2 MB at 28^2, K = 32) in place of the padded
+// source and the logits, for 2*121*32 = 7.7 k more fp32 operations a pixel.
+// The first versions on the fp32 cores were latency-bound instead: 16 pixels
+// per block, K3's and K5b's blocks each re-reading the whole 512 KB fixup
+// weight through L2.
 //
-// Design: K2 and K3 alike, one block of 256 threads (8 warps) per (b, R = 2
-// output rows x 16 columns) over all of C, M = 32 pixels; two blocks per SM
-// at d <= 11 and C = 512 (113 KB of shared memory each). R = 2 beat R = 1 and
-// R = 4 for K3 on the H100, and beat R = 1 and splitting the channels across
-// blocks for K2 at 28^2 and 112^2 (PERF.md).
+// Design: K2, K3, K5a and K5b alike, one block of 256 threads (8 warps) per
+// (b, R = 2 output rows x 16 columns) over all of C, M = 32 pixels; two
+// blocks per SM at d <= 11 and C = 512 (113 KB of shared memory each). R = 2
+// beat R = 1 and R = 4 for K3 on the H100, and beat R = 1 and splitting the
+// channels across blocks for K2 at 28^2 and 112^2 (PERF.md).
+//   range logits (K5a, K5b; phase 0): the block's projection window, rows
+//     h0-r .. h0+R-1+r by columns w0-r .. w0+15+r at reflected indices (zeros
+//     past the reach of the image's pixels), is staged by cp.async KCH = 32
+//     channels at a time as [R+d-1][16+d-1][ks] fp32, one pixel's channels
+//     contiguous (16-byte copies where K % 4 == 0, else 4-byte ones; ks / 4
+//     odd, so 16-byte reads of 8 neighbouring window pixels hit distinct
+//     banks); one thread per (pixel, tap) then sums its K products in channel
+//     order with one fma each from 0, as K1 does, across the chunks, into the
+//     comb' scratch [M][d*d] that the tap softmax reads. The window (45 KB at
+//     d = 11, K = 32; 83 KB at d = 17) lies past those logits in the work
+//     region, which the conv's ring and the tail take over afterwards, so the
+//     block's shared memory does not grow.
 //   comb': one warp per pixel for the tap softmax and normalisation; the two
 //     fixup 1x1 convs as register-tiled products (4 pixels x 4 outputs per
 //     thread) over weight chunks of KC input rows staged in shared memory;
@@ -46,7 +75,8 @@
 //     and tap row u, A is the band [16 px][32 x] bf16 with A[p][x] =
 //     comb'[p][u d + x - p] for 0 <= x - p < d (16 + d - 1 <= 32 for
 //     d <= 17), built in registers from comb'; B is the padded source row
-//     h0 + j + u, columns w0 .. w0+31, by a chunk of CCH channels, staged by
+//     h0 + j + u, columns w0 .. w0+31, by a chunk of CCH channels (K5: the
+//     unpadded source's reflected row and columns), staged by
 //     cp.async in a ring of two rows: each of the R + d - 1 source rows is
 //     loaded once per chunk and feeds every output row j it reaches. Each
 //     warp owns CCH/8 channels for all R rows; the fp32 sums are rounded to
@@ -69,6 +99,8 @@
 // zero-filled in the staged operands; pixels past W or H are computed on
 // zeros and never stored. C must be even; a multiple of 8 (with 16-byte
 // aligned operands) takes 16-byte copies, any other even C 4-byte copies.
+// d <= 17 (odd for K5), Q <= 128, any K >= 1, the TPU kernels' limits but
+// K's; a block whose shared memory does not fit is refused (see launch).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,15 +125,16 @@ constexpr int KB = 64;    // reduction depth of a tail stage
 constexpr int KBS = KB + 8;  // row stride of a tail stage (bf16): conflict-free ldmatrix
 constexpr int MAXD = 17;       // the largest diameter (16 + d - 1 <= 32 columns)
 constexpr int QCAP = 512;      // rounding repairs a block queues (past it: all are redone)
+constexpr int KCH = 32;        // projection channels of a staged window chunk (K5)
 constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use on Hopper
 constexpr uint32_t NEAR = 128;  // fp32 ulps from a bf16 rounding midpoint that count as near
 
 typedef __nv_bfloat16 bf16;
 
 struct Args {
-  const bf16* inp;      // [B, H+d-1, W+d-1, C]
-  const float* logits;  // [B, H, W, d*d]
-  const bf16* guid;     // [B, H, W, G]
+  const bf16* inp;      // [B, H+d-1, W+d-1, C]; K5: [B, H, W, C]
+  const float* logits;  // [B, H, W, d*d]; K5: none
+  const bf16* guid;     // [B, H, W, G]; K5: [B, G, H, W]
   const float* spatial; // [d*d]
   const float* temp;    // [1]
   const void* w0;       // [cmid, d*d+G]   (w0, b0, w1, b1 and K3's fb: all fp32 or all bf16)
@@ -111,9 +144,12 @@ struct Args {
   const bf16* fw;       // [C, C] (out, in) (K3)
   const void* fb;       // [C] (K3)
   const void* qf;       // [Q, C], fp32 or bf16 (K3)
-  void* out;            // K2: [B, H, W, C] bf16; K3: [B, H, W, Q] fp32
+  void* out;            // K2, K5a: [B, H, W, C] bf16; K3, K5b: [B, H, W, Q] fp32
   int H, W, C, G, cmid, d, Q;
   int wbf16, qbf16;     // the weights' and the queries' dtype: 1 for bf16
+  const float* proj;    // K5: [B, H, W, K]
+  int K;                // K5: projection channels (0 for K2, K3)
+  int pvec;             // K5: 1 where proj takes 16-byte copies
 };
 
 // channels of a conv chunk: each warp's CCH/8 of them for all R rows
@@ -122,19 +158,25 @@ constexpr int CCH = 512;
 __host__ __device__ inline size_t up128(size_t x) { return (x + 127) & ~(size_t)127; }
 __host__ __device__ inline size_t maxz(size_t a, size_t b) { return a > b ? a : b; }
 
+// fp32 stride of one window pixel for a chunk of kc channels: a multiple of
+// 4 (16-byte copies) with an odd count of 16-byte units (conflict-free reads)
+__host__ __device__ inline int win_stride(int kc) { return 4 * (((kc + 3) / 4) | 1); }
+
 // Byte offsets of a block's shared memory. y and comb' live throughout; the
-// work region holds in turn the comb' scratch, the conv's ring, and (K3) res
-// with the tail stages.
+// work region holds in turn (K5) the logits with the projection window past
+// them, the comb' scratch (which starts with those logits), the conv's ring,
+// and (K3, K5b) res with the tail stages. K = 0 for K2 and K3.
 struct Layout {
   int M, Cp, ldy, nin, ldw;
   size_t y, cb, queue, work;  // regions
   size_t comb, xT, midT, w;  // in work: comb' scratch
+  size_t win;                // in work: K5's projection window, past the logits
   size_t ring;               // in work: the conv's two staged source rows
   size_t res, bst;           // in work: the tail
   size_t bytes;
 };
 
-__host__ __device__ inline Layout make_layout(int d, int G, int cmid, int C) {
+__host__ __device__ inline Layout make_layout(int d, int G, int cmid, int C, int K) {
   Layout L;
   const int dd = d * d;
   L.M = COLS * ROWS;
@@ -154,6 +196,10 @@ __host__ __device__ inline Layout make_layout(int d, int G, int cmid, int C) {
   L.midT = p;  p += up128((size_t)cmid * L.M * 4);
   L.w = p;     p += up128((size_t)KC * L.ldw * 4);
   size_t work = p;
+  L.win = L.xT;
+  if (K > 0)
+    work = maxz(work, L.win + up128((size_t)(ROWS + d - 1) * (COLS + d - 1) *
+                                    win_stride(K < KCH ? K : KCH) * 4));
   L.ring = 0;
   work = maxz(work, 2 * up128((size_t)32 * (CCH + 8) * 2));
   p = 0;
@@ -256,8 +302,66 @@ __device__ void mlp_layer(const void* wg, int wbf16, int nout, int nin, int ldw,
   }
 }
 
-// comb' of the block's M pixels into s_cb [M][d*d] bf16.
+// i reflected into 0 .. n-1 (i < 0 -> -i, i >= n -> 2n-2-i), for -n < i < 2n-1
+__device__ __forceinline__ int reflect(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
+
+// K5's phase 0: the raw range logits of the block's M pixels into the comb'
+// scratch [M][d*d] fp32, logits[m][u d + v] = sum_k proj[h, w, k] *
+// proj[h+u-r, w+v-r, k], each summed over k in order with one fma a
+// channel from 0, as K1 sums it. The projection window (see the header) is
+// staged KCH channels at a time; each thread takes (pixel, tap) pairs.
 template <int R>
+__device__ void range_phase(const Args& a, const Layout& L, int b, int h0, int w0,
+                            unsigned char* work) {
+  constexpr int M = COLS * R;
+  const int d = a.d, r = d / 2, dd = d * d, nx = COLS + d - 1, ny = R + d - 1;
+  float* s_lg = reinterpret_cast<float*>(work + L.comb);
+  float* s_win = reinterpret_cast<float*>(work + L.win);
+  const int vec = a.pvec ? 4 : 1;
+  for (int k0 = 0; k0 < a.K; k0 += KCH) {
+    const int kc = min(KCH, a.K - k0), ks = win_stride(kc), per = kc / vec;
+    for (int i = threadIdx.x; i < ny * nx * per; i += NT) {
+      const int pos = i / per, k = i % per * vec, hs = h0 - r + pos / nx, ws = w0 - r + pos % nx;
+      const bool ok = hs < a.H + r && ws < a.W + r;  // within reach of a pixel of the image
+      const float* src =
+          ok ? a.proj + (((size_t)b * a.H + reflect(hs, a.H)) * a.W + reflect(ws, a.W)) * a.K +
+                   k0 + k
+             : a.proj;
+      if (a.pvec)
+        cp_async16(s_win + pos * ks + k, src, ok ? 16 : 0);
+      else
+        cp_async4(s_win + pos * ks + k, src, ok ? 4 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * dd; i += NT) {
+      const int m = i / dd, t = i % dd, j = m / COLS, p = m % COLS;
+      const float* c = s_win + ((j + r) * nx + p + r) * ks;
+      const float* n = s_win + ((j + t / d) * nx + p + t % d) * ks;
+      float acc = k0 ? s_lg[i] : 0.f;
+      int k = 0;
+      for (; k + 4 <= kc; k += 4) {
+        const float4 cv = *reinterpret_cast<const float4*>(c + k);
+        const float4 nv = *reinterpret_cast<const float4*>(n + k);
+        acc = fmaf(nv.x, cv.x, acc);
+        acc = fmaf(nv.y, cv.y, acc);
+        acc = fmaf(nv.z, cv.z, acc);
+        acc = fmaf(nv.w, cv.w, acc);
+      }
+      for (; k < kc; ++k) acc = fmaf(n[k], c[k], acc);
+      s_lg[i] = acc;
+    }
+    __syncthreads();  // the window is restaged, or comb_phase reuses its memory
+  }
+}
+
+// comb' of the block's M pixels into s_cb [M][d*d] bf16. K5 (kFused) finds
+// its logits in the comb' scratch (range_phase) and its guidance
+// channel-first.
+template <int R, bool kFused>
 __device__ void comb_phase(const Args& a, const Layout& L, int b, int h0, int w0,
                            unsigned char* work, bf16* s_cb) {
   constexpr int M = COLS * R;
@@ -277,7 +381,7 @@ __device__ void comb_phase(const Args& a, const Layout& L, int b, int h0, int w0
       for (int i = lane; i < nin; i += 32) s_xT[i * M + m] = 0.f;
       continue;
     }
-    const float* lg = a.logits + (((size_t)b * a.H + h) * a.W + w) * dd;
+    const float* lg = kFused ? c : a.logits + (((size_t)b * a.H + h) * a.W + w) * dd;
     float mx = -INFINITY;
     for (int t = lane; t < dd; t += 32) {
       const float s = lg[t] * temp;
@@ -305,8 +409,9 @@ __device__ void comb_phase(const Args& a, const Layout& L, int b, int h0, int w0
       s_xT[t * M + m] = bf16_round(v);  // comb -> guidance dtype for the fixup input
     }
     for (int i = lane; i < a.G; i += 32)
-      s_xT[(dd + i) * M + m] =
-          __bfloat162float(a.guid[(((size_t)b * a.H + h) * a.W + w) * a.G + i]);
+      s_xT[(dd + i) * M + m] = __bfloat162float(
+          a.guid[kFused ? (((size_t)b * a.G + i) * a.H + h) * a.W + w
+                        : (((size_t)b * a.H + h) * a.W + w) * a.G + i]);
   }
 
   // fixup conv 1 + exact GELU, then conv 2, the residual and the cast
@@ -340,9 +445,20 @@ __device__ __forceinline__ void band_fragment(uint32_t (&af)[4], const unsigned 
   af[3] = tap_pair(p8, x - g, d);
 }
 
+// Channel 0 of the padded source at (b, hs, ws), hs < H+d-1, ws < W+d-1;
+// K5 (kFused) reads the unpadded source at the reflected (hs - r, ws - r).
+template <bool kFused>
+__device__ __forceinline__ const bf16* src_at(const Args& a, int b, int hs, int ws) {
+  if (kFused) {
+    const int r = a.d / 2;
+    return a.inp + (((size_t)b * a.H + reflect(hs - r, a.H)) * a.W + reflect(ws - r, a.W)) * a.C;
+  }
+  return a.inp + (((size_t)b * (a.H + a.d - 1) + hs) * (a.W + a.d - 1) + ws) * a.C;
+}
+
 // Source row hs of the padded source, columns w0 .. w0+31, channels c0 ..
 // c0+cw-1, into dst [32][ldr] (zeros past the source's edges and C).
-template <bool kVec16>
+template <bool kVec16, bool kFused>
 __device__ __forceinline__ void stage_row(bf16* dst, const Args& a, int b, int hs, int w0,
                                           int c0, int cw, int ldr) {
   const int Hp = a.H + a.d - 1, Wp = a.W + a.d - 1;
@@ -350,7 +466,7 @@ __device__ __forceinline__ void stage_row(bf16* dst, const Args& a, int b, int h
   for (int i = threadIdx.x; i < 32 * per; i += NT) {
     const int x = i / per, c = (i % per) * vec;
     const bool ok = hs < Hp && w0 + x < Wp && c0 + c < a.C;
-    const bf16* src = ok ? a.inp + (((size_t)b * Hp + hs) * Wp + w0 + x) * a.C + c0 + c : a.inp;
+    const bf16* src = ok ? src_at<kFused>(a, b, hs, w0 + x) + c0 + c : a.inp;
     if (kVec16)
       cp_async16(dst + x * ldr + c, src, ok ? 16 : 0);
     else
@@ -360,19 +476,20 @@ __device__ __forceinline__ void stage_row(bf16* dst, const Args& a, int b, int h
 
 // y[c] of output pixel (h, w) summed in tap order, one rounding per tap, as
 // the plain version sums it; taps: the pixel's comb'.
+template <bool kFused>
 __device__ float conv_seq(const Args& a, const unsigned short* taps, int b, int h, int w,
                           int c) {
-  const int d = a.d, Hp = a.H + d - 1, Wp = a.W + d - 1;
-  const bf16* src = a.inp + (((size_t)b * Hp + h) * Wp + w) * a.C + c;
-  const size_t ldr = (size_t)Wp * a.C;
+  const int d = a.d;
   float x[MAXD], nx[MAXD];  // a tap row's source values, and the next row's in flight
 #pragma unroll
-  for (int v = 0; v < MAXD; ++v) x[v] = v < d ? __bfloat162float(src[(size_t)v * a.C]) : 0.f;
+  for (int v = 0; v < MAXD; ++v)
+    x[v] = v < d ? __bfloat162float(src_at<kFused>(a, b, h, w + v)[c]) : 0.f;
   float s = 0.f;
   for (int u = 0; u < d; ++u) {
-    const bf16* next = src + (size_t)(u + 1 < d ? u + 1 : u) * ldr;
+    const int un = u + 1 < d ? u + 1 : u;
 #pragma unroll
-    for (int v = 0; v < MAXD; ++v) nx[v] = v < d ? __bfloat162float(next[(size_t)v * a.C]) : 0.f;
+    for (int v = 0; v < MAXD; ++v)
+      nx[v] = v < d ? __bfloat162float(src_at<kFused>(a, b, h + un, w + v)[c]) : 0.f;
 #pragma unroll
     for (int v = 0; v < MAXD; ++v)
       if (v < d)
@@ -387,7 +504,7 @@ __device__ float conv_seq(const Args& a, const unsigned short* taps, int b, int 
 // C zero), as banded products on mma.sync. A sum that lands near a bf16
 // rounding midpoint is taken again in tap order (queued in q, repaired after
 // the loop), so that y rounds as the plain version's sum does.
-template <int R, bool kVec16>
+template <int R, bool kVec16, bool kFused>
 __device__ void conv_phase(const Args& a, const Layout& L, int b, int h0, int w0,
                            const bf16* s_cb, bf16* s_y, unsigned char* work, int* q) {
   constexpr int NTW = CCH / 64, LDR = CCH + 8;
@@ -397,14 +514,14 @@ __device__ void conv_phase(const Args& a, const Layout& L, int b, int h0, int w0
   const unsigned short* cb = reinterpret_cast<const unsigned short*>(s_cb);
   bf16* ring = reinterpret_cast<bf16*>(work + L.ring);
   float acc[R][NTW][4];
-  stage_row<kVec16>(ring, a, b, h0, w0, 0, min(CCH, L.Cp), LDR);
+  stage_row<kVec16, kFused>(ring, a, b, h0, w0, 0, min(CCH, L.Cp), LDR);
   cp_async_commit();
   for (int s = 0; s < steps; ++s) {
     const int r = s % nrow, c0 = s / nrow * CCH, cw = min(CCH, L.Cp - c0);
     if (s + 1 < steps) {
       const int cn = (s + 1) / nrow * CCH;
-      stage_row<kVec16>(ring + ((s + 1) & 1) * 32 * LDR, a, b, h0 + (s + 1) % nrow, w0, cn,
-                        min(CCH, L.Cp - cn), LDR);
+      stage_row<kVec16, kFused>(ring + ((s + 1) & 1) * 32 * LDR, a, b, h0 + (s + 1) % nrow, w0,
+                                cn, min(CCH, L.Cp - cn), LDR);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -474,7 +591,7 @@ __device__ void conv_phase(const Args& a, const Layout& L, int b, int h0, int w0
     const int m = all ? i / a.C : q[1 + i] >> 16, c = all ? i % a.C : q[1 + i] & 0xffff;
     if (h0 + m / COLS < a.H && w0 + m % COLS < a.W)
       s_y[m * L.ldy + c] = __float2bfloat16_rn(
-          conv_seq(a, cb + m * dd, b, h0 + m / COLS, w0 + m % COLS, c));
+          conv_seq<kFused>(a, cb + m * dd, b, h0 + m / COLS, w0 + m % COLS, c));
   }
   __syncthreads();
   if (threadIdx.x == 0) q[0] = 0;  // the next pushes follow a barrier
@@ -605,11 +722,12 @@ __device__ float dot_seq(const bf16* y, const bf16* w, int C) {
   return s;
 }
 
-template <bool kVec16>
+// K3, or K5b with kFused.
+template <bool kVec16, bool kFused>
 __global__ void __launch_bounds__(NT, 2) jbu_classify_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = ROWS, M = COLS * R;
-  const Layout L = make_layout(a.d, a.G, a.cmid, a.C);
+  const Layout L = make_layout(a.d, a.G, a.cmid, a.C, a.K);
   bf16* s_y = reinterpret_cast<bf16*>(smem + L.y);
   bf16* s_cb = reinterpret_cast<bf16*>(smem + L.cb);
   int* q = reinterpret_cast<int*>(smem + L.queue);
@@ -619,8 +737,9 @@ __global__ void __launch_bounds__(NT, 2) jbu_classify_kernel(Args a) {
   if (threadIdx.x == 0) q[0] = 0;  // comb_phase's barriers order it before the pushes
   const int g = lane / 4, tq = lane % 4;
 
-  comb_phase<R>(a, L, b, h0, w0, work, s_cb);
-  conv_phase<R, kVec16>(a, L, b, h0, w0, s_cb, s_y, work, q);
+  if (kFused) range_phase<R>(a, L, b, h0, w0, work);
+  comb_phase<R, kFused>(a, L, b, h0, w0, work, s_cb);
+  conv_phase<R, kVec16, kFused>(a, L, b, h0, w0, s_cb, s_y, work, q);
 
   // fixup product and residual: res = bf16(bf16((yb Wf^T + bf) * 0.1) + yb).
   // t = (yb Wf^T + bf) * 0.1 near a bf16 rounding midpoint is taken again
@@ -710,20 +829,22 @@ __global__ void __launch_bounds__(NT, 2) jbu_classify_kernel(Args a) {
   });
 }
 
-// K2: the epilogue alone; y (repaired) written out as bf16 [B, H, W, C].
-template <bool kVec16>
+// K2, or K5a with kFused: the epilogue alone; y (repaired) written out as
+// bf16 [B, H, W, C].
+template <bool kVec16, bool kFused>
 __global__ void __launch_bounds__(NT, 2) jbu_epilogue_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = ROWS, M = COLS * R;
-  const Layout L = make_layout(a.d, a.G, a.cmid, a.C);
+  const Layout L = make_layout(a.d, a.G, a.cmid, a.C, a.K);
   bf16* s_y = reinterpret_cast<bf16*>(smem + L.y);
   bf16* s_cb = reinterpret_cast<bf16*>(smem + L.cb);
   int* q = reinterpret_cast<int*>(smem + L.queue);
   const int b = blockIdx.z, h0 = blockIdx.y * R, w0 = blockIdx.x * COLS;
   if (threadIdx.x == 0) q[0] = 0;  // comb_phase's barriers order it before the pushes
 
-  comb_phase<R>(a, L, b, h0, w0, smem + L.work, s_cb);
-  conv_phase<R, kVec16>(a, L, b, h0, w0, s_cb, s_y, smem + L.work, q);
+  if (kFused) range_phase<R>(a, L, b, h0, w0, smem + L.work);
+  comb_phase<R, kFused>(a, L, b, h0, w0, smem + L.work, s_cb);
+  conv_phase<R, kVec16, kFused>(a, L, b, h0, w0, s_cb, s_y, smem + L.work, q);
 
   // conv_phase ends on a barrier
   const int V = kVec16 ? 8 : 2, per = a.C / V;
@@ -741,11 +862,12 @@ __global__ void __launch_bounds__(NT, 2) jbu_epilogue_kernel(Args a) {
 }
 
 // A block whose shared memory does not fit (with the MLP d*d wide: C past 1408
-// at d <= 11, past 896 at d = 17) is refused with cudaErrorInvalidValue; K2
-// and K3 share the layout, so they take the same shapes.
+// at d <= 11, past 896 at d = 17) is refused with cudaErrorInvalidValue; K2,
+// K3, K5a and K5b share the layout (K5's window fits inside it at K >= 1 up
+// to d = 17), so they take the same shapes.
 template <typename Kernel>
 int launch(Kernel kernel, const Args& a, int B, cudaStream_t stream) {
-  const Layout L = make_layout(a.d, a.G, a.cmid, a.C);
+  const Layout L = make_layout(a.d, a.G, a.cmid, a.C, a.K);
   if (L.bytes > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)L.bytes))
@@ -756,6 +878,31 @@ int launch(Kernel kernel, const Args& a, int B, cudaStream_t stream) {
 }
 
 bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
+// What K5 takes beside K2's and K3's limits: an odd d, r = d / 2 <= H - 1
+// and W - 1 (the reflection's reach), K >= 1.
+bool fused_ok(int H, int W, int d, int K) {
+  return d % 2 == 1 && d / 2 <= (H < W ? H : W) - 1 && K >= 1;
+}
+
+// K3 and K5b: the queries' and the operands' alignment picks the copies.
+template <bool kFused>
+int launch_classify(const Args& a, int B, cudaStream_t stream) {
+  if (!aligned(a.qf, a.qbf16 ? 4 : 8)) return (int)cudaErrorMisalignedAddress;
+  if (a.C % 8 == 0 && aligned(a.inp, 16) && aligned(a.fw, 16) && (!a.qbf16 || aligned(a.qf, 16)))
+    return launch(jbu_classify_kernel<true, kFused>, a, B, stream);
+  if (!aligned(a.inp, 4) || !aligned(a.fw, 4)) return (int)cudaErrorMisalignedAddress;
+  return launch(jbu_classify_kernel<false, kFused>, a, B, stream);
+}
+
+// K2 and K5a.
+template <bool kFused>
+int launch_epilogue(const Args& a, int B, cudaStream_t stream) {
+  if (a.C % 8 == 0 && aligned(a.inp, 16) && aligned(a.out, 16))
+    return launch(jbu_epilogue_kernel<true, kFused>, a, B, stream);
+  if (!aligned(a.inp, 4) || !aligned(a.out, 4)) return (int)cudaErrorMisalignedAddress;
+  return launch(jbu_epilogue_kernel<false, kFused>, a, B, stream);
+}
 
 }  // namespace
 
@@ -774,11 +921,7 @@ extern "C" int rs_jbu_epilogue_classify(const void* inp, const float* logits,
   Args a{static_cast<const bf16*>(inp), logits, static_cast<const bf16*>(guid), spatial,
          temp, w0, b0, w1, b1, static_cast<const bf16*>(fw), fb, qf, out,
          H, W, C, G, cmid, d, Q, wbf16, qbf16};
-  if (!aligned(qf, qbf16 ? 4 : 8)) return (int)cudaErrorMisalignedAddress;
-  if (C % 8 == 0 && aligned(inp, 16) && aligned(fw, 16) && (!qbf16 || aligned(qf, 16)))
-    return launch(jbu_classify_kernel<true>, a, B, stream);
-  if (!aligned(inp, 4) || !aligned(fw, 4)) return (int)cudaErrorMisalignedAddress;
-  return launch(jbu_classify_kernel<false>, a, B, stream);
+  return launch_classify<false>(a, B, stream);
 }
 
 // K2: w0, b0, w1 and b1 are fp32 (wbf16 = 0) or bf16 (1); out [B, H, W, C]
@@ -792,8 +935,45 @@ extern "C" int rs_jbu_epilogue(const void* inp, const float* logits, const void*
   Args a{static_cast<const bf16*>(inp), logits, static_cast<const bf16*>(guid), spatial,
          temp, w0, b0, w1, b1, nullptr, nullptr, nullptr, out,
          H, W, C, G, cmid, d, 0, wbf16, 0};
-  if (C % 8 == 0 && aligned(inp, 16) && aligned(out, 16))
-    return launch(jbu_epilogue_kernel<true>, a, B, stream);
-  if (!aligned(inp, 4) || !aligned(out, 4)) return (int)cudaErrorMisalignedAddress;
-  return launch(jbu_epilogue_kernel<false>, a, B, stream);
+  return launch_epilogue<false>(a, B, stream);
+}
+
+// K5a: inp [B, H, W, C] bf16 unpadded, proj [B, H, W, K] fp32, guid [B, G, H,
+// W] bf16; w0, b0, w1 and b1 fp32 (wbf16 = 0) or bf16 (1); out [B, H, W, C]
+// bf16.
+extern "C" int rs_jbu_epilogue_fused(const void* inp, const float* proj, const void* guid,
+                                     const float* spatial, const float* temp, const void* w0,
+                                     const void* b0, const void* w1, const void* b1, void* out,
+                                     int B, int H, int W, int C, int G, int cmid, int d, int K,
+                                     int wbf16, cudaStream_t stream) {
+  if (C % 2 || d < 1 || d > MAXD || !fused_ok(H, W, d, K)) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const bf16*>(inp), nullptr, static_cast<const bf16*>(guid), spatial,
+         temp, w0, b0, w1, b1, nullptr, nullptr, nullptr, out,
+         H, W, C, G, cmid, d, 0, wbf16, 0, proj, K, K % 4 == 0 && aligned(proj, 16)};
+  return launch_epilogue<true>(a, B, stream);
+}
+
+// K5b: K5a's operands, then fw, fb and qf as K3 takes them; out [B, H, W, Q]
+// fp32.
+extern "C" int rs_jbu_epilogue_fused_classify(const void* inp, const float* proj,
+                                              const void* guid, const float* spatial,
+                                              const float* temp, const void* w0,
+                                              const void* b0, const void* w1,
+                                              const void* b1, const void* fw,
+                                              const void* fb, const void* qf, void* out,
+                                              int B, int H, int W, int C, int G, int cmid,
+                                              int d, int K, int Q, int wbf16, int qbf16,
+                                              cudaStream_t stream) {
+  if (C % 2 || Q < 1 || Q > NB || d < 1 || d > MAXD || !fused_ok(H, W, d, K))
+    return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const bf16*>(inp), nullptr, static_cast<const bf16*>(guid), spatial,
+         temp, w0, b0, w1, b1, static_cast<const bf16*>(fw), fb, qf, out,
+         H, W, C, G, cmid, d, Q, wbf16, qbf16, proj, K, K % 4 == 0 && aligned(proj, 16)};
+  return launch_classify<true>(a, B, stream);
+}
+
+// Bytes of shared memory a block of these kernels takes (K = 0 for K2 and
+// K3), for the wrappers' mirror of the layout to be checked against.
+extern "C" int rs_jbu_block_smem(int d, int G, int cmid, int C, int K) {
+  return (int)make_layout(d, G, cmid, C, K).bytes;
 }

@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: pointers, ints, floats, stream; every entry point returns cudaError_t
+# C signatures: pointers, ints, floats, stream; every entry point returns
+# cudaError_t, but rs_jbu_block_smem a block's bytes of shared memory
 _SIGNATURES = {
     "rs_range_logits": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -45,10 +46,11 @@ _SIGNATURES = {
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue_fused_classify": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_jbu_block_smem": [_I, _I, _I, _I, _I],
     "rs_adaptive_conv_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_planes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

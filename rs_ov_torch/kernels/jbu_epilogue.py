@@ -26,15 +26,16 @@ channel-first, ``guid_cf [B, G, H, W]``.
 
 Each dispatches on the device: a CPU tensor takes the plain version, a CUDA
 tensor the hand-written kernel, which replaces a TPU kernel:
-``jbu_epilogue_pallas(nhwc=True)`` (rs_ov/kernels/jbu_epilogue.py:212) and
-``jbu_epilogue_classify_pallas`` (:333) in
-``rs_ov_torch/csrc/jbu_classify_sm90.cu`` (the adaptive conv, and K3's
-fixup and cosine products, on the tensor cores; d <= 17 and K3's Q <= 128,
-the TPU kernels' limits), ``jbu_epilogue_fused_pallas`` (:640) and
-``jbu_epilogue_fused_classify_pallas`` (:675) in
-``rs_ov_torch/csrc/jbu_epilogue.cu``. The kernels take bf16 features and
-guidance; fp32 runs take the channel-first route (plain epilogue +
-adaptive-conv kernel K4b), as in the JAX package.
+``jbu_epilogue_pallas(nhwc=True)`` (rs_ov/kernels/jbu_epilogue.py:212),
+``jbu_epilogue_classify_pallas`` (:333), ``jbu_epilogue_fused_pallas``
+(:640) and ``jbu_epilogue_fused_classify_pallas`` (:675), all four in
+``rs_ov_torch/csrc/jbu_classify_sm90.cu`` on one block design (the adaptive
+conv, and the classify tail's fixup and cosine products, on the tensor
+cores; the fused stages compute their range logits in the block first).
+They take d <= 17 (odd for the fused stages), an even C and Q <= 128, the
+TPU kernels' limits, and bf16 features and guidance; fp32 runs take the
+channel-first route (plain epilogue + adaptive-conv kernel K4b), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -50,10 +51,13 @@ __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
            "jbu_epilogue_fused_classify", "jbu_epilogue_fused_plain",
            "jbu_epilogue_fused_classify_plain"]
 
-PIX = 16  # output pixels per block of the fused-range kernels K5a/K5b
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
-MAX_D = 17  # the largest diameter K2 and K3 take
-CLASSIFY_MAX_Q = 128  # the most queries K3 takes
+MAX_D = 17  # the largest diameter K2, K3, K5a and K5b take
+CLASSIFY_MAX_Q = 128  # the most queries K3 and K5b take
+# the blocks of csrc/jbu_classify_sm90.cu, for _block_smem_bytes: rows and
+# columns of output pixels, fixup-MLP weight rows and conv channels a stage,
+# a tail stage's columns and row stride, the repair queue, window channels
+_ROWS, _COLS, _KC, _CCH, _NB, _KBS, _QCAP, _KCH = 2, 16, 32, 512, 128, 72, 512, 32
 
 
 def _comb_fixed(logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, dtype):
@@ -196,32 +200,6 @@ def _on(t: torch.Tensor, device: torch.device, name: str) -> torch.Tensor:
     return t
 
 
-def _f32(t: torch.Tensor, shape: tuple, device: torch.device) -> torch.Tensor:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"jbu_epilogue: weight of shape {tuple(t.shape)}, want {shape}")
-    return _on(t, device, f"weight {shape}").float().contiguous()
-
-
-def _fixup_weights(w0, b0, w1, b1, dd, g, device):
-    cmid = w0.shape[0]
-    return cmid, (_f32(w0, (cmid, dd + g), device), _f32(b0, (cmid,), device),
-                  _f32(w1, (dd, cmid), device), _f32(b1, (dd,), device))
-
-
-def _tail_operands(fixup_w, fixup_b, query_features, c, device):
-    """The fused classify tail's operands as its kernel reads them."""
-    q = query_features.shape[0]
-    if tuple(fixup_w.shape) != (c, c) or tuple(query_features.shape) != (q, c):
-        raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
-                         f"queries {tuple(query_features.shape)} do not match C={c}")
-    # the kernel reads the fixup conv transposed ([C_in, C_out]) so that
-    # threads over output channels load consecutive addresses
-    fwt = _on(fixup_w, device, "fixup_w").to(torch.bfloat16).t().contiguous()
-    fb = _f32(fixup_b, (c,), device)
-    qf = _on(query_features, device, "query_features").to(torch.bfloat16).contiguous()
-    return fwt, fb, qf
-
-
 def _epilogue_limits(who: str, c: int, d: int) -> None:
     """What K2 and K3 take: an even channel count and d <= 17 (the TPU
     kernels' limit: the band of 16 + d - 1 columns fits 32)."""
@@ -277,12 +255,27 @@ def _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
     return out
 
 
+def _classify_weights(who, mlp, fixup_w, fixup_b, query_features, c, g, d, dev):
+    """K3's and K5b's weights as they read them: (ws, wbf16, fw, qf), ws the
+    range MLP's four tensors and the fixup bias in one dtype (``_mlp_weights``),
+    fw the fixup conv in bf16 as it is held, [C_out, C_in] (mma's B operand
+    in .col form), qf the queries in fp32 or bf16."""
+    q, cmid = query_features.shape[0], mlp[0].shape[0]
+    if fixup_w.shape != (c, c) or query_features.shape != (q, c):
+        raise ValueError(f"{who}: fixup_w {tuple(fixup_w.shape)} / queries "
+                         f"{tuple(query_features.shape)} do not match C={c}")
+    ws, wbf16 = _mlp_weights(who, (*mlp, fixup_b),
+                             ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,), (c,)), dev)
+    qf = _on(query_features, dev, "query_features")
+    qf = _as(qf, qf.dtype if qf.dtype in (torch.float32, torch.bfloat16) else torch.float32)
+    return ws, wbf16, _as(_on(fixup_w, dev, "fixup_w"), torch.bfloat16), qf
+
+
 def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                        fixup_w, fixup_b, query_features, diameter):
     """K3's operands checked and its output allocated; returns (out, args,
-    keep) as ``_epilogue_operands``. The queries are read in fp32 or bf16 and
-    the fixup conv as it is held, [C_out, C_in] (mma's B operand in .col
-    form)."""
+    keep) as ``_epilogue_operands``, the weights as ``_classify_weights``
+    gives them."""
     q, d = query_features.shape[0], diameter
     _epilogue_limits("jbu_epilogue_classify", inp.shape[-1], d)
     if not 1 <= q <= CLASSIFY_MAX_Q:
@@ -290,14 +283,8 @@ def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                          f"queries, got {q}")
     b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, d)
     g, cmid, dev = guid_t.shape[-1], w0.shape[0], inp.device
-    if fixup_w.shape != (c, c) or query_features.shape != (q, c):
-        raise ValueError(f"jbu_epilogue_classify: fixup_w {tuple(fixup_w.shape)} / "
-                         f"queries {tuple(query_features.shape)} do not match C={c}")
-    ws, wbf16 = _mlp_weights("jbu_epilogue_classify", (w0, b0, w1, b1, fixup_b),
-                             ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,), (c,)), dev)
-    qf = _on(query_features, dev, "query_features")
-    qf = _as(qf, qf.dtype if qf.dtype in (torch.float32, torch.bfloat16) else torch.float32)
-    fw = _as(_on(fixup_w, dev, "fixup_w"), torch.bfloat16)
+    ws, wbf16, fw, qf = _classify_weights("jbu_epilogue_classify", (w0, b0, w1, b1), fixup_w,
+                                          fixup_b, query_features, c, g, d, dev)
     out = torch.empty((b, h, w, q), dtype=torch.float32, device=dev)
     args = (inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
             pos_temp.data_ptr(), *(t.data_ptr() for t in ws[:4]), fw.data_ptr(),
@@ -317,20 +304,33 @@ def _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0
     return out
 
 
-def _fused_smem_bytes(d: int, g: int, cmid: int, k: int, c: int, classify: bool) -> int:
-    """Shared memory of a fused block (rs_jbu_epilogue_fused*): comb' [PIX][d*d]
-    beside the larger of the epilogue's scratch (with the classify tail's)
-    and the projection window [d][PIX+d-1][K | 1] fp32 that phase 0 stages
-    and phase 1 no longer needs."""
-    dd = d * d
-    epi = PIX * (2 * dd + g + cmid) + (PIX + PIX * c if classify else 0)
-    return 4 * max(epi, PIX * dd + d * (PIX + d - 1) * (k | 1))
+def _block_smem_bytes(d: int, g: int, cmid: int, c: int, k: int = 0) -> int:
+    """Shared memory of a block of K2 / K3 (k = 0) or K5a / K5b (k the
+    projection's channels): the mirror of ``make_layout`` in
+    ``csrc/jbu_classify_sm90.cu`` (``rs_jbu_block_smem`` returns the
+    library's own count)."""
+    up = lambda x: (x + 127) // 128 * 128  # noqa: E731
+    dd, m = d * d, _COLS * _ROWS
+    ldy, nin = (c + 127) // 128 * 128 + 8, dd + g
+    ldw = (max(cmid, dd) + 3) // 4 * 4 + 1
+    fixed = up(m * ldy * 2) + up(m * dd * 2) + up(4 * (1 + _QCAP))
+    comb = up(m * dd * 4)
+    work = [comb + up(nin * m * 4) + up(cmid * m * 4) + up(_KC * ldw * 4),
+            2 * up(32 * (_CCH + 8) * 2), up(m * ldy * 2) + 2 * up(_NB * _KBS * 2)]
+    if k > 0:
+        kc = min(k, _KCH)
+        stride = 4 * (((kc + 3) // 4) | 1)
+        work.append(comb + up((_ROWS + d - 1) * (_COLS + d - 1) * stride * 4))
+    return fixed + max(work)
 
 
-def _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, diameter,
-                          classify=False):
+def _check_fused_operands(who, inp, proj, guid_cf, spatial, pos_temp, w0, diameter):
+    """What K5a and K5b take, checked before the library is loaded: bf16
+    features and guidance, K2's limits (even C, d <= 17, odd here, the
+    reflection's r <= min(H, W) - 1), K >= 1 and a block that fits in
+    shared memory."""
     if inp.dim() != 4 or proj.dim() != 4 or guid_cf.dim() != 4:
-        raise ValueError(f"jbu_epilogue_fused: inp, proj and guid_cf must be 4-D, got "
+        raise ValueError(f"{who}: inp, proj and guid_cf must be 4-D, got "
                          f"{tuple(inp.shape)}, {tuple(proj.shape)}, {tuple(guid_cf.shape)}")
     b, h, w, c = inp.shape
     k, g, d = proj.shape[-1], guid_cf.shape[1], diameter
@@ -339,58 +339,77 @@ def _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, diameter,
             "the CUDA fused JBU stage takes bf16 features and guidance; fp32 takes "
             "the channel-first route (plain epilogue + adaptive conv K4b), as "
             "rs_ov/upsample/jbu.py does")
-    _require("jbu_epilogue_fused", inp.device, {
+    _require(who, inp.device, {
         "inp": (inp, (b, h, w, c), torch.bfloat16),
         "proj": (proj, (b, h, w, k), torch.float32),
         "guid_cf": (guid_cf, (b, g, h, w), torch.bfloat16),
         "spatial": (spatial, (d * d,), torch.float32),
         "pos_temp": (pos_temp, (), torch.float32)})
-    if c % 2 or k < 1:
-        raise ValueError(f"jbu_epilogue_fused kernel takes an even channel count and "
-                         f"K >= 1, got C={c}, K={k}")
+    _epilogue_limits(who, c, d)
+    if k < 1:
+        raise ValueError(f"{who} kernel takes K >= 1 projection channels, got K={k}")
     if d % 2 == 0 or d // 2 > min(h, w) - 1:
-        raise ValueError(f"jbu_epilogue_fused: reflect padding by r = d // 2 needs an "
-                         f"odd d and r <= min(H, W) - 1, got d={d} on {h}x{w}")
-    smem = _fused_smem_bytes(d, g, w0.shape[0], k, c, classify)
+        raise ValueError(f"{who}: reflect padding by r = d // 2 needs an odd d and "
+                         f"r <= min(H, W) - 1, got d={d} on {h}x{w}")
+    smem = _block_smem_bytes(d, g, w0.shape[0], c, k)
     if smem > SMEM_MAX:
-        raise ValueError(f"jbu_epilogue_fused: a block needs {smem} bytes of shared "
-                         f"memory at d={d}, K={k}, C={c}; the card gives {SMEM_MAX}")
+        raise ValueError(f"{who}: a block needs {smem} bytes of shared memory at d={d}, "
+                         f"C={c}, K={k}; the card gives {SMEM_MAX}")
     return b, h, w, c, k, g
+
+
+def _fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1, diameter):
+    """K5a's operands checked and its output allocated; returns (out, args,
+    keep) as ``_epilogue_operands``."""
+    d = diameter
+    b, h, w, c, k, g = _check_fused_operands("jbu_epilogue_fused", inp, proj, guid_cf,
+                                             spatial, pos_temp, w0, d)
+    cmid = w0.shape[0]
+    ws, wbf16 = _mlp_weights("jbu_epilogue_fused", (w0, b0, w1, b1),
+                             ((cmid, d * d + g), (cmid,), (d * d, cmid), (d * d,)), inp.device)
+    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=inp.device)
+    args = (inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
+            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
+            b, h, w, c, g, cmid, d, k, wbf16)
+    return out, args, ws
 
 
 def _jbu_epilogue_fused_cuda(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
                              diameter):
-    b, h, w, c, k, g = _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0,
-                                             diameter)
-    cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
-    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=inp.device)
-    lib = load_library()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(lib.rs_jbu_epilogue_fused(
-            inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
-            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
-            b, h, w, c, g, cmid, diameter, k, stream), "rs_jbu_epilogue_fused")
+    out, args, _keep = _fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                                       diameter)
+    check(launch(load_library().rs_jbu_epilogue_fused, args, inp.device),
+          "rs_jbu_epilogue_fused")
     jbu_epilogue_fused.launches += 1
     return out
 
 
+def _fused_classify_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                             fixup_w, fixup_b, query_features, diameter):
+    """K5b's operands checked and its output allocated; returns (out, args,
+    keep) as ``_classify_operands``."""
+    who, q, d = "jbu_epilogue_fused_classify", query_features.shape[0], diameter
+    if not 1 <= q <= CLASSIFY_MAX_Q:
+        raise ValueError(f"{who} kernel takes 1 to {CLASSIFY_MAX_Q} queries, got {q}")
+    b, h, w, c, k, g = _check_fused_operands(who, inp, proj, guid_cf, spatial, pos_temp, w0, d)
+    cmid, dev = w0.shape[0], inp.device
+    ws, wbf16, fw, qf = _classify_weights(who, (w0, b0, w1, b1), fixup_w, fixup_b,
+                                          query_features, c, g, d, dev)
+    out = torch.empty((b, h, w, q), dtype=torch.float32, device=dev)
+    args = (inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
+            pos_temp.data_ptr(), *(t.data_ptr() for t in ws[:4]), fw.data_ptr(),
+            ws[4].data_ptr(), qf.data_ptr(), out.data_ptr(), b, h, w, c, g, cmid, d, k, q,
+            wbf16, int(qf.dtype == torch.bfloat16))
+    return out, args, (ws, fw, qf)
+
+
 def _jbu_epilogue_fused_classify_cuda(inp, proj, guid_cf, spatial, pos_temp, w0, b0,
                                       w1, b1, fixup_w, fixup_b, query_features, diameter):
-    q = query_features.shape[0]
-    b, h, w, c, k, g = _check_fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0,
-                                             diameter, classify=True)
-    cmid, ws = _fixup_weights(w0, b0, w1, b1, diameter * diameter, g, inp.device)
-    fwt, fb, qf = _tail_operands(fixup_w, fixup_b, query_features, c, inp.device)
-    out = torch.empty((b, h, w, q), dtype=torch.float32, device=inp.device)
-    lib = load_library()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(lib.rs_jbu_epilogue_fused_classify(
-            inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
-            pos_temp.data_ptr(), *(t.data_ptr() for t in ws), fwt.data_ptr(),
-            fb.data_ptr(), qf.data_ptr(), out.data_ptr(),
-            b, h, w, c, g, cmid, diameter, k, q, stream), "rs_jbu_epilogue_fused_classify")
+    out, args, _keep = _fused_classify_operands(inp, proj, guid_cf, spatial, pos_temp, w0,
+                                                b0, w1, b1, fixup_w, fixup_b, query_features,
+                                                diameter)
+    check(launch(load_library().rs_jbu_epilogue_fused_classify, args, inp.device),
+          "rs_jbu_epilogue_fused_classify")
     jbu_epilogue_fused_classify.launches += 1
     return out
 
@@ -429,7 +448,8 @@ def jbu_epilogue_classify(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, 
 def jbu_epilogue_fused(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
                        diameter: int) -> torch.Tensor:
     """See jbu_epilogue_fused_plain. CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    tensors the kernel (odd d <= 17, even C, any K; K2's blocks, so C past
+    1408, or past 896 at d = 17, is refused as for K2)."""
     if _route(inp) == "cpu":
         return jbu_epilogue_fused_plain(inp, proj, guid_cf, spatial, pos_temp,
                                         w0, b0, w1, b1, diameter)
@@ -441,7 +461,7 @@ def jbu_epilogue_fused_classify(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w
                                 fixup_w, fixup_b, query_features,
                                 diameter: int) -> torch.Tensor:
     """See jbu_epilogue_fused_classify_plain. CPU tensors take the plain
-    version, CUDA tensors the kernel (any number of queries)."""
+    version, CUDA tensors the kernel (Q <= 128 queries, odd d <= 17)."""
     if _route(inp) == "cpu":
         return jbu_epilogue_fused_classify_plain(inp, proj, guid_cf, spatial, pos_temp,
                                                  w0, b0, w1, b1, fixup_w, fixup_b,

@@ -11,7 +11,9 @@ more, and prints the device time per request split by kernel group (the
 port's kernels by name, GEMMs, elementwise casts and copies, softmax and
 reductions, the rest), the device's busy share of the profiled wall time,
 the peak device memory and the card's name and power limit. With
-``--fused-attn`` the last block's attention takes K6 (``RS_OV_FUSED_ATTN=1``).
+``--fused-attn`` the last block's attention takes K6 (``RS_OV_FUSED_ATTN=1``);
+with ``RS_OV_JBU_FUSED_RANGE=1`` in the environment the JBU stages take the
+fused-range kernels K5a and K5b.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ import torch
 
 # kernel-name substrings of each group, first match wins
 GROUPS = (
+    ("K5b jbu_epilogue_fused_classify", ("jbu_classify_kernel<true, true>",
+                                         "jbu_classify_kernel<false, true>")),
+    ("K5a jbu_epilogue_fused", ("jbu_epilogue_kernel<true, true>",
+                                "jbu_epilogue_kernel<false, true>")),
     ("K3 jbu_epilogue_classify", ("jbu_classify_kernel",)),
     ("K2 jbu_epilogue", ("jbu_epilogue_kernel",)),
     ("K1 range_logits", ("range_logits",)),
@@ -91,7 +97,9 @@ def main(argv=None) -> dict:
         g = _group(evt.key)
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
+    fused_range = os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
     result = {"card": card, "requests": n, "fused_attn": opts.fused_attn,
+              "fused_range": fused_range,
               "wall_ms_per_request": wall * 1e3 / n, "device_ms_per_request": device_ms,
               "busy_share": device_ms / (wall * 1e3 / n),
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -100,7 +108,8 @@ def main(argv=None) -> dict:
                                      key=lambda kv: -kv[1]["ms_per_request"])[:40])}
     print(card)
     print(f"[profile] {n} requests of one 512x512 image (16 crops of 224²), "
-          f"{'K6 on' if opts.fused_attn else 'default route'}: wall "
+          f"{'K6 on' if opts.fused_attn else 'default route'}"
+          f"{', RS_OV_JBU_FUSED_RANGE=1' if fused_range else ''}: wall "
           f"{result['wall_ms_per_request']:.3f} ms, device {device_ms:.3f} ms per request "
           f"(busy {100 * result['busy_share']:.1f}%), peak {result['peak_memory_gib']:.3f} GiB")
     for g, ms in result["groups_ms_per_request"].items():

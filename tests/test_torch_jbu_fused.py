@@ -9,7 +9,8 @@ interpret mode (each called once: interpret mode is slow), against the
 port's own split route (K1's plain version + reflect pads + K2's / K3's) on
 grids where every pixel reads a reflected edge, and, through the modules,
 against the JAX channel-first modules in fp32. The CUDA kernels are held
-against the plain versions on a card only. Inputs come from numpy with a
+against the plain versions and, bit for bit, against the split pair's
+kernels on a card only. Inputs come from numpy with a
 seed. jax is imported inside the tests that need it, so that on a card the
 CUDA tests run with
 
@@ -286,10 +287,17 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         fused(*args[:5], torch.randn(25, 27), *args[6:], 5)
     with pytest.raises(ValueError, match="fixup_w"):
         fused_cls(*args, torch.randn(4, 5), torch.randn(4), torch.randn(3, 4), 5)
-    # a window over the 227 KB a block may use is refused with its size
-    wide = dict(_stage_case(1, 4, 30, 30, 25, 3, 64, seed=4))
-    with pytest.raises(ValueError, match=r"\d+ bytes of shared memory"):
-        fused(*_torch_stage(wide, 25, torch.bfloat16), 25)
+    for q in (0, 129):  # K3's query limit
+        with pytest.raises(ValueError, match=f"1 to 128 queries, got {q}"):
+            fused_cls(*args, torch.randn(4, 4), torch.randn(4), torch.randn(q, 4), 5)
+    # d past 17: the band of 16 + d - 1 columns no longer fits 32 (K2's limit)
+    with pytest.raises(ValueError, match="d <= 17, got 19"):
+        fused(*_torch_stage(_stage_case(1, 4, 30, 30, 19, 3, 4, seed=4), 19, torch.bfloat16), 19)
+    # a block over the 227 KB it may use is refused with its size: C = 2048
+    # takes 303872 bytes at d = 5 (y and the tail's res, 4 KB a pixel)
+    wide = _stage_case(1, 2048, 6, 7, 5, 3, 4, seed=4)
+    with pytest.raises(ValueError, match=r"303872 bytes of shared memory at d=5, C=2048"):
+        fused(*_torch_stage(wide, 5, torch.bfloat16), 5)
 
 
 # ---------------------------------------------------------------------------
@@ -321,3 +329,115 @@ def test_fused_kernels_match_plain(cuda, d, h, w, k):
     got = epi.jbu_epilogue_fused_classify(*args, *tail, d)
     ref = epi.jbu_epilogue_fused_classify_plain(*args, *tail, d)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-3
+
+
+def _split_pair_cuda(args, d, tail=None):
+    """The split route's kernels on the fused operands, on the card: K1 on
+    the reflect-padded channel-first projection (past K1's 32 channels, the
+    plain fused logits, summed in K1's order), the reflect-padded source,
+    then K2 or K3."""
+    from rs_ov_torch.kernels.range_logits import KMAX, range_logits
+
+    inp, proj, guid, *rest = args
+    r = d // 2
+    if proj.shape[-1] <= KMAX:
+        pcf = proj.permute(0, 3, 1, 2).contiguous()
+        logits = range_logits(reflect_pad_2d(pcf, r).contiguous(), pcf, d).permute(0, 2, 3, 1)
+    else:
+        logits = epi._fused_logits(proj, d)
+    split = (reflect_pad_nhwc(inp, r).contiguous(), logits.contiguous(),
+             guid.permute(0, 2, 3, 1).contiguous(), *rest)
+    if tail is None:
+        return epi.jbu_epilogue(*split, d)
+    return epi.jbu_epilogue_classify(*split, *tail, d)
+
+
+# (d, H, W, K, C, Q): d in {3, 11, 17} by C in {64, 512, 514} (514: even,
+# not a multiple of 8, so 4-byte copies), K in {4, 32, 100} (100: four
+# window chunks, the last of 4 channels), Q in {8, 128}; odd H, W not a
+# multiple of 16, and r = H - 1 (the reflection's limit) in the second case
+# of each d
+SPLIT_CASES = [(3, 13, 19, 4, 64, 8), (3, 2, 40, 100, 512, 128), (3, 13, 19, 32, 514, 8),
+               (11, 13, 19, 32, 64, 128), (11, 6, 9, 32, 512, 8), (11, 13, 35, 100, 514, 8),
+               (17, 17, 19, 32, 512, 128), (17, 9, 20, 4, 64, 8), (17, 13, 21, 100, 514, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w,k,c,q", SPLIT_CASES)
+def test_fused_kernels_equal_the_split_pair(cuda, d, h, w, k, c, q):
+    """K5a and K5b equal the split pair they replace (K1 + reflect pads + K2
+    / K3, all on the card) bit for bit: phase 0 sums the logits as K1 does,
+    and every later phase is K2's / K3's on the same blocks and the same
+    staged values."""
+    case = _stage_case(2, c, h, w, d, 3, k, seed=d + k + c)
+    case["proj"] /= np.sqrt(k)  # the tap softmax spreads over the window
+    args = [a.to(cuda) for a in _torch_stage(case, d, torch.bfloat16)]
+    rng = np.random.RandomState(q)
+    tail = (_t(case["fw"], torch.bfloat16).to(cuda), _t(case["fb"], torch.bfloat16).to(cuda),
+            torch.nn.functional.normalize(_t(rng.randn(q, c)), dim=-1).to(cuda))
+    n = (epi.jbu_epilogue_fused.launches, epi.jbu_epilogue_fused_classify.launches)
+    got_a = epi.jbu_epilogue_fused(*args, d)
+    got_b = epi.jbu_epilogue_fused_classify(*args, *tail, d)
+    assert (epi.jbu_epilogue_fused.launches,
+            epi.jbu_epilogue_fused_classify.launches) == (n[0] + 1, n[1] + 1)
+    ref_a, ref_b = _split_pair_cuda(args, d), _split_pair_cuda(args, d, tail)
+    assert got_b.shape == (2, h, w, q)
+    print(f"K5 d={d} {h}x{w} K={k} C={c} Q={q}: {int((got_a != ref_a).sum())} of "
+          f"{ref_a.numel()} K5a and {int((got_b != ref_b).sum())} of {ref_b.numel()} K5b "
+          f"outputs differ from the split pair")
+    assert torch.equal(got_a, ref_a) and torch.equal(got_b, ref_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [72, 512])
+def test_fused_kernels_repair_every_sum_past_their_queue(cuda, c):
+    """A constant projection makes every logit equal, so with the spatial
+    kernel 1 at taps (0, 0) and (0, 2) and 0 elsewhere and the range MLP's
+    weights 0, comb' is exactly 0.5 at those two taps; the source alternates
+    between two neighbouring bf16 values every two columns, so y is their
+    midpoint at every pixel whose two taps do not reflect onto one column,
+    and a tiny fixup weight with a bias put (y Wf^T + bf) * 0.1 within a few
+    ulps of a midpoint. Each block then queues more repairs than it holds,
+    in the conv and in K5b's fixup product, and takes every sum again in
+    order: K5a equals its plain version, and both kernels the split pair,
+    bit for bit."""
+    d, h, w, k, q = 3, 5, 20, 4, 5
+    rng = np.random.RandomState(23)
+    lo = torch.from_numpy(rng.uniform(0.5, 1.0, c).astype(np.float32)).to(torch.bfloat16)
+    hi = (lo.view(torch.int16) + 1).view(torch.bfloat16)
+    inp = torch.where((torch.arange(w) // 2 % 2 == 1)[:, None], hi, lo).expand(1, h, w, c)
+    spatial = torch.zeros(d * d)
+    spatial[[0, 2]] = 1.0
+    zeros = [torch.zeros(s) for s in ((9, 12), (9,), (9, 9), (9,))]
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], c).astype(np.float32))
+    mid = sign * (1 + (2 * torch.from_numpy(rng.randint(0, 64, c)).float() + 1) / 256)
+    args = [a.to(cuda) for a in (
+        inp.contiguous(), torch.ones(1, h, w, k),
+        torch.from_numpy(rng.randn(1, 3, h, w)).to(torch.bfloat16), spatial,
+        torch.tensor(1.3), *zeros)]
+    tail = [a.to(cuda) for a in (
+        torch.from_numpy(rng.randn(c, c) * 1e-7).to(torch.bfloat16), mid / 0.1,
+        torch.nn.functional.normalize(torch.from_numpy(rng.randn(q, c)).float(), dim=-1))]
+    comb = epi._comb_fixed(epi._fused_logits(args[1], d), args[2].permute(0, 2, 3, 1),
+                           *args[3:], torch.bfloat16)
+    y = epi._adaptive_conv_nhwc(reflect_pad_nhwc(args[0], 1), comb, d)
+    near = (y.view(torch.int32) & 0xffff) == 0x8000
+    assert int(near[0, :2, :16].sum()) > 512  # the first block's queue (QCAP) overflows
+    got = epi.jbu_epilogue_fused(*args, d)
+    assert torch.equal(got, epi.jbu_epilogue_fused_plain(*args, d))
+    assert torch.equal(got, _split_pair_cuda(args, d))
+    assert torch.equal(epi.jbu_epilogue_fused_classify(*args, *tail, d),
+                       _split_pair_cuda(args, d, tail))
+
+
+@pytest.mark.cuda
+def test_block_smem_mirror_matches_the_library(cuda):
+    """The wrappers' shared-memory count (the refusal before the library is
+    loaded) equals the kernels' own layout, K2/K3 (K = 0) and K5."""
+    from rs_ov_torch.kernels.build import load_library
+
+    lib = load_library()
+    for d, g, cmid, c, k in [(3, 3, 9, 64, 4), (11, 3, 121, 512, 32), (17, 3, 289, 514, 100),
+                             (11, 3, 121, 1408, 0), (5, 3, 1, 2048, 33), (17, 3, 1, 64, 32),
+                             (7, 3, 49, 896, 5)]:
+        assert epi._block_smem_bytes(d, g, cmid, c, k) == lib.rs_jbu_block_smem(d, g, cmid, c, k)

@@ -316,3 +316,21 @@ def test_kernel_resources_reads_the_ptxas_report(tmp_path):
         "selfself_attention_f32_kernel<5, 26>": {"registers": 255, "spill_stores": 4,
                                                  "spill_loads": 12},
         "range_logits_kernel<11>": {"registers": 64, "spill_stores": 0, "spill_loads": 0}}
+
+
+def test_profile_request_groups_the_kernels_by_name():
+    """rs_ov_torch.tools.profile_request books each JBU kernel instantiation
+    under its own name, the fused-range ones (template argument kFused)
+    apart from K2 and K3, whose block they share."""
+    from rs_ov_torch.tools.profile_request import _group
+
+    ns = "void (anonymous namespace)::"
+    args = "((anonymous namespace)::Args)"
+    for kernel, group in [("jbu_classify_kernel<true, true>", "K5b jbu_epilogue_fused_classify"),
+                          ("jbu_classify_kernel<false, true>", "K5b jbu_epilogue_fused_classify"),
+                          ("jbu_epilogue_kernel<true, true>", "K5a jbu_epilogue_fused"),
+                          ("jbu_epilogue_kernel<false, true>", "K5a jbu_epilogue_fused"),
+                          ("jbu_classify_kernel<true, false>", "K3 jbu_epilogue_classify"),
+                          ("jbu_epilogue_kernel<false, false>", "K2 jbu_epilogue"),
+                          ("range_logits_kernel<11>", "K1 range_logits")]:
+        assert _group(ns + kernel + args) == group, kernel

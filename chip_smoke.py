@@ -19,8 +19,8 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 with zero padding in place of reflection, and for K3 also
                 with its fixup bias left out and with the normalised vector
                 unrounded, each of which must exceed the bound; the bare
-                library call of K1, K2, K3, K5a, K5b and K6 beside the
-                wrapper's; the
+                library call of K1, K2, K3, K4a, K4b, K5a, K5b and K6 beside
+                the wrapper's; the
                 median times (CUDA events, in turns),
                 the bound from the shapes and, for K6's vanilla and ClearCLIP
                 modes, the time of one scaled_dot_product_attention call.
@@ -616,9 +616,11 @@ def _bf16_conv_kernels(rng, dev):
 def _adaptive_conv_kernels(rng, dev):
     """K4b (fp32) and K4a (bf16) against the plain loop, on normal-distributed
     taps, at the channel-first route's shapes: jbu_one's two stages (d=11 at
-    56^2 and 28^2) and jbu_stack's d=7 at 56^2. The rows lead with d=11, 56^2."""
-    from rs_ov_torch.kernels.adaptive_conv import (adaptive_conv_tapmajor,
-                                                   adaptive_conv_tapmajor_plain)
+    56^2 and 28^2) and jbu_stack's d=7 at 56^2, the bare library call timed
+    beside the wrapper's. The rows lead with d=11, 56^2. K4b's bound counts
+    every product as 3 TF32 products (3xTF32 on the tensor cores), with the
+    fp32 cores' reckoning beside it."""
+    from rs_ov_torch.kernels import adaptive_conv as ac
 
     rows = {}
     for dtype, key, tol, name, tpu_line in (
@@ -634,14 +636,26 @@ def _adaptive_conv_kernels(rng, dev):
             inp, filt = inp.to(dev, dtype), filt.to(dev, dtype)
             ops = 2 * B * C * hw * hw * d * d
             nbytes = esz * (inp.numel() + filt.numel() + B * C * hw * hw)
-            bound = (_bound(nbytes, fp32_ops=ops) if dtype == torch.float32
+            bound = (_bound(nbytes, tf32_ops=3 * ops) if dtype == torch.float32
                      else _bound(nbytes, bf16_ops=ops))
-            checks.append((f"B={B} C={C} d={d} H=W={hw}", _check(
-                f"{key} {name} d={d} H=W={hw}", tol,
-                lambda: adaptive_conv_tapmajor(inp, filt, d),
-                lambda: adaptive_conv_tapmajor_plain(inp, filt, d),
-                lambda: adaptive_conv_tapmajor_plain(inp, _last_tap_dropped(filt), d),
-                bound)))
+            wrapper = lambda: ac.adaptive_conv_tapmajor(inp, filt, d)  # noqa: E731
+            label = f"{key} {name} d={d} H=W={hw}"
+            c = _check(label, tol, wrapper,
+                       lambda: ac.adaptive_conv_tapmajor_plain(inp, filt, d),
+                       lambda: ac.adaptive_conv_tapmajor_plain(inp, _last_tap_dropped(filt), d),
+                       bound)
+            _out, entry, args = ac._adaptive_conv_operands(inp, filt, d)  # _out outlives them
+            _bare_beside_wrapper(label, c, entry, args, wrapper)
+            c["tiling"] = list(args[-2:])
+            if dtype == torch.float32:
+                c["bound_ms_fp32_cores"] = _bound(nbytes, fp32_ops=ops)[0]
+                print(f"[kernels] {label}: bound {bound[0]:.4f} ms by {bound[1]} (3xTF32 on the "
+                      f"tensor cores); {c['bound_ms_fp32_cores']:.4f} ms reckoned with every "
+                      f"product once at the fp32 cores' rate; tiling R x channels/warp "
+                      f"{args[-2]} x {args[-1]}")
+            else:
+                print(f"[kernels] {label}: tiling R x channels/warp {args[-2]} x {args[-1]}")
+            checks.append((f"B={B} C={C} d={d} H=W={hw}", c))
         rows[name] = _row(name, "rs_ov_torch/csrc/adaptive_conv.cu", tpu_line, checks)
     return rows
 

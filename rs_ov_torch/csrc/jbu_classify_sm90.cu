@@ -425,26 +425,6 @@ __device__ void comb_phase(const Args& a, const Layout& L, int b, int h0, int w0
   __syncthreads();
 }
 
-// Taps v and v+1 of one pixel's tap row as a bf16 pair (zero outside 0..d-1)
-__device__ __forceinline__ uint32_t tap_pair(const unsigned short* row, int v, int d) {
-  const uint32_t lo = (v >= 0 && v < d) ? row[v] : 0u;
-  const uint32_t hi = (v + 1 >= 0 && v + 1 < d) ? row[v + 1] : 0u;
-  return lo | (hi << 16);
-}
-
-// mma's A fragment of the band A[p][x] = comb'[p][u d + x - p], columns
-// x0 .. x0+15 (x0 = 0 or 16): rows g and g+8, columns x and x+8, x = x0 +
-// 2 (lane % 4). taps points at comb' of the row's pixel 0, tap row u.
-__device__ __forceinline__ void band_fragment(uint32_t (&af)[4], const unsigned short* taps,
-                                              int dd, int d, int x, int g) {
-  const unsigned short* p0 = taps + g * dd;
-  const unsigned short* p8 = p0 + 8 * dd;
-  af[0] = tap_pair(p0, x - g, d);
-  af[1] = tap_pair(p8, x - g - 8, d);
-  af[2] = tap_pair(p0, x + 8 - g, d);
-  af[3] = tap_pair(p8, x - g, d);
-}
-
 // Channel 0 of the padded source at (b, hs, ws), hs < H+d-1, ws < W+d-1;
 // K5 (kFused) reads the unpadded source at the reflected (hs - r, ws - r).
 template <bool kFused>

@@ -1,9 +1,10 @@
 // The PTX building blocks shared by the hand-written kernels (K2/K3 in
 // jbu_classify_sm90.cu, K6 in selfself_attention_sm90.cu and
-// selfself_attention_f32_sm90.cu, K1 in range_logits.cu): cp.async copies
-// into shared memory, ldmatrix loads of mma fragments, mma.sync m16n8k16
-// with bf16 operands and m16n8k8 with TF32 operands, both with fp32 sums,
-// and the split of an fp32 value into two TF32 parts.
+// selfself_attention_f32_sm90.cu, K1 in range_logits.cu, K4a/K4b in
+// adaptive_conv.cu): cp.async copies into shared memory, ldmatrix loads of
+// mma fragments, mma.sync m16n8k16 with bf16 operands and m16n8k8 with TF32
+// operands, both with fp32 sums, the split of an fp32 value into two TF32
+// parts, and the A fragments of the adaptive conv's band (K2's and K4's).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +24,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 
@@ -75,6 +81,49 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// The adaptive conv as banded products (K2, K3, K5 and K4a/K4b): for 16
+// neighbouring output pixels p of one row and one tap row u, the band
+// A[p][x] = tap(p, u d + x - p) for 0 <= x - p < d (else 0), over the
+// window's columns x, times the source row's window [x][channel]. Tap v of
+// pixel p (of tap row u) lies at taps[p ps + v ts]: K2 keeps a pixel's taps
+// together (ps = d*d, ts = 1), K4 each tap's pixels (ps = 1).
+
+// Taps v and v+1 of one pixel's tap row as a bf16 pair (zero outside 0..d-1)
+__device__ __forceinline__ uint32_t tap_pair(const unsigned short* row, int v, int d,
+                                             int ts = 1) {
+  const uint32_t lo = (v >= 0 && v < d) ? row[v * ts] : 0u;
+  const uint32_t hi = (v + 1 >= 0 && v + 1 < d) ? row[(v + 1) * ts] : 0u;
+  return lo | (hi << 16);
+}
+
+// mma m16n8k16's A fragment of the band from bf16 taps, columns x0 ..
+// x0+15 (x0 a multiple of 16): rows g and g+8, columns x and x+8, x = x0 +
+// 2 (lane % 4). taps points at tap 0 of the row's pixel 0, tap row u.
+__device__ __forceinline__ void band_fragment(uint32_t (&af)[4], const unsigned short* taps,
+                                              int ps, int d, int x, int g, int ts = 1) {
+  const unsigned short* p0 = taps + g * ps;
+  const unsigned short* p8 = p0 + 8 * ps;
+  af[0] = tap_pair(p0, x - g, d, ts);
+  af[1] = tap_pair(p8, x - g - 8, d, ts);
+  af[2] = tap_pair(p0, x + 8 - g, d, ts);
+  af[3] = tap_pair(p8, x - g, d, ts);
+}
+
+// mma m16n8k8 (TF32)'s A fragment of the band from fp32 taps, columns x0 ..
+// x0+7: rows g and g+8, columns x and x+4, x = x0 + lane % 4; each entry
+// split into its hi and lo TF32 parts (3xTF32).
+__device__ __forceinline__ void band_fragment_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                   const float* taps, int ps, int d, int x,
+                                                   int g, int ts = 1) {
+  const float* p0 = taps + g * ps;
+  const float* p8 = p0 + 8 * ps;
+  const int v[4] = {x - g, x - g - 8, x + 4 - g, x - 4 - g};
+  const float* row[4] = {p0, p8, p0, p8};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32((v[i] >= 0 && v[i] < d) ? row[i][v[i] * ts] : 0.f, hi[i], lo[i]);
 }
 
 }  // namespace rs_ov

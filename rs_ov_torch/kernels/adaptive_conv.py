@@ -5,11 +5,13 @@
 ``adaptive_conv_tapmajor`` dispatches on the device: a CPU tensor takes the
 plain version (a loop of shifted multiply-adds in fp32, cast once, as
 rs_ov/upsample/jbu.py:87-98), a CUDA tensor the hand-written kernel in
-``rs_ov_torch/csrc/adaptive_conv.cu``. bf16 operands launch K4a, which
-replaces ``adaptive_conv_pallas_v5`` (rs_ov/kernels/adaptive_conv_v5.py:68);
-fp32 operands launch K4b, which replaces ``adaptive_conv_pallas_v2``
-(rs_ov/kernels/adaptive_conv_v2.py:99). Both kernels take the input and the
-taps in one dtype: bf16 taps come rounded by the caller, never here.
+``rs_ov_torch/csrc/adaptive_conv.cu``, banded products on the tensor cores.
+bf16 operands launch K4a, which replaces ``adaptive_conv_pallas_v5``
+(rs_ov/kernels/adaptive_conv_v5.py:68); fp32 operands launch K4b (3xTF32),
+which replaces ``adaptive_conv_pallas_v2`` (rs_ov/kernels/adaptive_conv_v2.py:99).
+Both kernels take the input and the taps in one dtype: bf16 taps come
+rounded by the caller, never here. A block takes R output rows x 16 columns
+x a slice of channels; ``_tiling`` picks R and each warp's channels.
 
 ``adaptive_conv_planes`` and ``adaptive_conv_cl`` are the kernels' own entry
 points of the JAX package, ``adaptive_conv_pallas_planes``
@@ -34,9 +36,11 @@ takes d <= 17, as the JAX kernel does. Their CUDA kernels are in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from rs_ov_torch.kernels.build import check, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library
 
 __all__ = ["adaptive_conv_tapmajor", "adaptive_conv_tapmajor_plain", "adaptive_conv_planes",
            "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4",
@@ -44,13 +48,59 @@ __all__ = ["adaptive_conv_tapmajor", "adaptive_conv_tapmajor_plain", "adaptive_c
 
 _ENTRY = {torch.bfloat16: "rs_adaptive_conv_bf16", torch.float32: "rs_adaptive_conv_f32"}
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
+MAX_D = 25
+# the kernel's block: 8 warps, 16 output columns; staged source rows in
+# flight: 4 bf16 rows, or 3 fp32 rows and 4 of their TF32 parts
+_WARPS, _COLS, _RING = 8, 16, {torch.bfloat16: 4, torch.float32: 3 + 4}
+ROWS, WARP_CHANNELS = (1, 2, 4, 8), (16, 32, 64, 128)
+# (R, channels per warp) by dtype, in order of preference: the first whose
+# grid gives every SM a block, else the last. The fastest at the main path's
+# shapes (B=2, C=512; d=11 at 56^2 and 28^2, d=7 at 56^2) in the sweep of
+# rs_ov_torch/tools/adaptive_conv_tiling.py on the H100 (PERF.md): bf16
+# 8 x 128 at 56^2 (224 blocks), 2 x 32 at 28^2; fp32 4 x 32 at both.
+TILINGS = {torch.bfloat16: ((8, 128), (2, 32)), torch.float32: ((4, 32),)}
 
 
-def _smem_bytes(d: int) -> int:
-    """The kernel's shared memory: all taps of 64 pixels (taps padded to a
-    multiple of 4) and two input rows of 64 channels, in fp32."""
-    dv = -(-d // 4) * 4
-    return 4 * (d * dv * 64 + 2 * 64 * (64 + dv))
+def _smem_bytes(d: int, rows: int, cw: int, dtype: torch.dtype) -> int:
+    """Shared memory of a block at (d, R, channels per warp): the taps of its
+    R x 16 pixels ([d*d][R*16 + 8]) and the larger of the staged source rows
+    ([channels][32 or 64 columns + 16 bytes] each) and the output stage. The
+    mirror of ``make_layout`` in ``csrc/adaptive_conv.cu``
+    (``rs_adaptive_conv_smem`` returns the library's own count)."""
+    sz = 2 if dtype == torch.bfloat16 else 4
+    xw = 32 if d <= 17 else 64
+    taps = -(-d * d * (rows * _COLS + 8) * sz // 128) * 128
+    work = _RING[dtype] * cw * (_WARPS // rows) * (xw + 16 // sz) * sz
+    ostage = _WARPS * cw * (_COLS + 16 // sz) * sz
+    return taps + max(work, ostage)
+
+
+def _blocks(b: int, c: int, h: int, w: int, rows: int, cw: int) -> int:
+    """The kernel's grid size at a tiling."""
+    return b * -(-h // rows) * -(-w // _COLS) * -(-c // (cw * (_WARPS // rows)))
+
+
+def _tiling(b: int, c: int, h: int, w: int, d: int, dtype: torch.dtype,
+            sms: int) -> tuple[int, int]:
+    """(R, channels per warp) for a call on a card of ``sms`` SMs: the first
+    of ``TILINGS`` whose grid fills the SMs (else the last), each warp's
+    channels cut to what C needs; where that block does not fit in shared
+    memory (large d), the first that does with R and the channels no
+    larger."""
+    options = TILINGS[dtype]
+    rows, cw = next((t for t in options if _blocks(b, c, h, w, *t) >= sms), options[-1])
+    while cw > 16 and cw * (_WARPS // rows) >= 2 * c:
+        cw //= 2
+    for r in (x for x in ROWS[::-1] if x <= rows):
+        for k in (x for x in WARP_CHANNELS[::-1] if x <= cw):
+            if _smem_bytes(d, r, k, dtype) <= SMEM_MAX:
+                return r, k
+    raise ValueError(f"adaptive_conv kernel: no block fits in shared memory at d={d}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def adaptive_conv_tapmajor_plain(inp: torch.Tensor, filt_t: torch.Tensor,
@@ -88,22 +138,30 @@ def _check(inp: torch.Tensor, filt_t: torch.Tensor, d: int) -> None:
     if inp.dtype not in _ENTRY or filt_t.dtype != inp.dtype:
         raise ValueError(f"adaptive_conv kernel takes bf16 or fp32 operands of one dtype, "
                          f"got inp {inp.dtype} and filt_t {filt_t.dtype}")
-    if _smem_bytes(d) > SMEM_MAX:
-        raise ValueError(f"adaptive_conv kernel takes d <= 25 (shared memory), got d={d}")
+    if d > MAX_D:
+        raise ValueError(f"adaptive_conv kernel takes d <= {MAX_D} (its widest band), "
+                         f"got d={d}")
+
+
+def _adaptive_conv_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
+                            tiling: tuple[int, int] | None = None):
+    """K4a's / K4b's operands checked and the output allocated. Returns (out,
+    entry, args): ``load_library().<entry>(*args, stream)`` is the bare
+    library call, at ``tiling`` (R, channels per warp) or ``_tiling``'s."""
+    _check(inp, filt_t, diameter)
+    b, c, _, _ = inp.shape
+    _, _, h, w = filt_t.shape
+    index = inp.device.index if inp.device.index is not None else torch.cuda.current_device()
+    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sm_count(index))
+    out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
+    return out, _ENTRY[inp.dtype], (inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(), b, c,
+                                    h, w, diameter, rows, cw)
 
 
 def _adaptive_conv_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
                         diameter: int) -> torch.Tensor:
-    _check(inp, filt_t, diameter)
-    b, c, _, _ = inp.shape
-    _, _, h, w = filt_t.shape
-    out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
-    lib = load_library()
-    name = _ENTRY[inp.dtype]
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(getattr(lib, name)(inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(),
-                                 b, c, h, w, diameter, stream), name)
+    out, entry, args = _adaptive_conv_operands(inp, filt_t, diameter)
+    check(launch(getattr(load_library(), entry), args, inp.device), entry)
     adaptive_conv_tapmajor.launches[inp.dtype] += 1
     return out
 

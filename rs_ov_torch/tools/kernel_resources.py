@@ -24,10 +24,17 @@ __all__ = ["ptxas_report", "hmma_counts"]
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 
 
+_BUILTIN = {"f": "float", "d": "double", "i": "int", "b": "bool"}
+# one template argument: a literal (Li64E, Lb1E), a named type (13__nv_bfloat16)
+# or a builtin type (f)
+_TARG = re.compile(r"L[a-z](\d+)E|(\d+)|([fdib])")
+
+
 def _short(mangled: str) -> str:
     """The kernel's name with its template arguments, from an Itanium-mangled
     name (``_ZN<n><namespace><n>name_kernelILi5ELi26EEv...`` ->
-    ``name_kernel<5, 26>``); other names as they are."""
+    ``name_kernel<5, 26>``, ``...kernelI13__nv_bfloat16Li64EEEv...`` ->
+    ``kernel<__nv_bfloat16, 64>``); other names as they are."""
     if not mangled.startswith("_ZN"):
         return mangled
     i, name = 3, mangled
@@ -37,10 +44,21 @@ def _short(mangled: str) -> str:
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
-    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
-    if args:
-        name += "<" + ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
-    return name
+    if not mangled.startswith("I", i):
+        return name
+    i, args = i + 1, []
+    while i < len(mangled) and mangled[i] != "E":
+        m = _TARG.match(mangled, i)
+        if not m:
+            return name
+        if m.group(2):  # a length-prefixed type name
+            end = m.end() + int(m.group(2))
+            args.append(mangled[m.end():end])
+            i = end
+        else:
+            args.append(m.group(1) or _BUILTIN[m.group(3)])
+            i = m.end()
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(log_path: str) -> dict[str, dict[str, int]]:

@@ -1,19 +1,23 @@
 """Where a request's device time goes, from one ``torch.profiler`` pass.
 
     python3 -m rs_ov_torch.tools.profile_request [--requests 3] [--fused-attn]
+        [--route default|fp32-channel-first|bf16-channel-first]
         [--out work_dirs/profile_request.json]
 
 Builds ``SegmentorEx`` from ``configs/base_config.py`` (CLIP ViT-B/16 at full
-width, random weights from its seed, the Potsdam vocabulary) on the card in
-its default precision (bf16, the channel-last JBU route: K1, K2, K3), runs
-two warm-up requests of one 512x512 image, then profiles ``--requests``
+width, random weights from its seed, the Potsdam vocabulary) on the card,
+runs two warm-up requests of one 512x512 image, then profiles ``--requests``
 more, and prints the device time per request split by kernel group (the
 port's kernels by name, GEMMs, elementwise casts and copies, softmax and
 reductions, the rest), the device's busy share of the profiled wall time,
-the peak device memory and the card's name and power limit. With
-``--fused-attn`` the last block's attention takes K6 (``RS_OV_FUSED_ATTN=1``);
-with ``RS_OV_JBU_FUSED_RANGE=1`` in the environment the JBU stages take the
-fused-range kernels K5a and K5b.
+the peak device memory and the card's name and power limit. ``--route``:
+``default`` is the card's default precision (bf16, the channel-last JBU
+route: K1, K2, K3), ``fp32-channel-first`` the weights in fp32
+(``param_dtype=torch.float32``: K1, K4b), ``bf16-channel-first`` bf16 with
+``RS_OV_JBU_FUSED=0`` (K1, K4a). With ``--fused-attn`` the last block's
+attention takes K6 (``RS_OV_FUSED_ATTN=1``); with ``RS_OV_JBU_FUSED_RANGE=1``
+in the environment the bf16 channel-last stages take the fused-range
+kernels K5a and K5b.
 """
 
 from __future__ import annotations
@@ -37,12 +41,17 @@ GROUPS = (
     ("K2 jbu_epilogue", ("jbu_epilogue_kernel",)),
     ("K1 range_logits", ("range_logits",)),
     ("K6 fused_selfself_attention", ("selfself_attention",)),
-    ("GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "cublas", "sm90_", "sm80_")),
-    ("softmax", ("softmax", "Softmax")),
+    ("K4a adaptive_conv (bf16)", ("adaptive_conv_kernel<__nv_bfloat16",)),
+    ("K4b adaptive_conv (fp32)", ("adaptive_conv_kernel<float",)),
+    ("GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_", "sm80_")),
+    ("softmax", ("softmax", "Softmax", "SoftMax")),
     ("reductions", ("reduce", "Reduce")),
     ("casts and copies", ("copy", "Copy", "cast", "Cast", "convert")),
     ("other elementwise", ("elementwise", "Elementwise")),
 )
+
+
+ROUTES = ("default", "fp32-channel-first", "bf16-channel-first")
 
 
 def _group(name: str) -> str:
@@ -56,6 +65,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--fused-attn", action="store_true")
+    ap.add_argument("--route", choices=ROUTES, default="default")
     ap.add_argument("--out", default=os.path.join("work_dirs", "profile_request.json"))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -69,9 +79,13 @@ def main(argv=None) -> dict:
                           capture_output=True, text=True, check=True).stdout.strip()
     if opts.fused_attn:
         os.environ["RS_OV_FUSED_ATTN"] = "1"
+    if opts.route == "bf16-channel-first":
+        os.environ["RS_OV_JBU_FUSED"] = "0"
     cfg = dict(load_config("configs/base_config.py")["model"])
     cfg.pop("type")
     cfg["name_path"] = "configs/cls_potsdam.txt"
+    if opts.route == "fp32-channel-first":
+        cfg["param_dtype"] = torch.float32
     seg = SegmentorEx(**cfg, device=torch.device("cuda"))
     image = np.random.RandomState(1).randint(0, 256, (1, 512, 512, 3), np.uint8)
     for _ in range(2):
@@ -98,7 +112,7 @@ def main(argv=None) -> dict:
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
     fused_range = os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
-    result = {"card": card, "requests": n, "fused_attn": opts.fused_attn,
+    result = {"card": card, "requests": n, "route": opts.route, "fused_attn": opts.fused_attn,
               "fused_range": fused_range,
               "wall_ms_per_request": wall * 1e3 / n, "device_ms_per_request": device_ms,
               "busy_share": device_ms / (wall * 1e3 / n),
@@ -108,7 +122,7 @@ def main(argv=None) -> dict:
                                      key=lambda kv: -kv[1]["ms_per_request"])[:40])}
     print(card)
     print(f"[profile] {n} requests of one 512x512 image (16 crops of 224²), "
-          f"{'K6 on' if opts.fused_attn else 'default route'}"
+          f"route {opts.route}{', K6 on' if opts.fused_attn else ''}"
           f"{', RS_OV_JBU_FUSED_RANGE=1' if fused_range else ''}: wall "
           f"{result['wall_ms_per_request']:.3f} ms, device {device_ms:.3f} ms per request "
           f"(busy {100 * result['busy_share']:.1f}%), peak {result['peak_memory_gib']:.3f} GiB")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from rs_ov_torch.kernels import adaptive_conv as ac
 from rs_ov_torch.kernels.adaptive_conv import (_adaptive_conv_cuda, adaptive_conv_tapmajor,
                                                adaptive_conv_tapmajor_plain)
 
@@ -118,6 +119,30 @@ def test_cuda_wrapper_refuses_windows_over_the_shared_memory():
                 _adaptive_conv_cuda(inp, filt, d)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_tiling_fits_every_shape_the_kernel_takes(dtype):
+    """Every d <= 25 and C gets a tiling the kernel has (R, channels per
+    warp) whose block fits in shared memory, with no warp's channels wholly
+    past C where a smaller tiling exists."""
+    for d in range(1, ac.MAX_D + 1):
+        for c in (1, 2, 64, 72, 512, 514):
+            rows, cw = ac._tiling(2, c, 13, 21, d, dtype, 132)
+            assert rows in ac.ROWS and cw in ac.WARP_CHANNELS
+            assert ac._smem_bytes(d, rows, cw, dtype) <= ac.SMEM_MAX
+            assert cw == 16 or cw * (8 // rows) < 2 * c
+
+
+@pytest.mark.parametrize("dtype,hw,want", [
+    (torch.bfloat16, 56, (8, 128)), (torch.bfloat16, 28, (2, 32)),
+    (torch.float32, 56, (4, 32)), (torch.float32, 28, (4, 32))])
+def test_tiling_at_the_main_paths_shapes(dtype, hw, want):
+    """The main path's stages (B=2, C=512, d=11) take the sweep's fastest
+    tilings (PERF.md) on a 132-SM card; bf16 at 28^2 leaves R=8's 64 blocks
+    for R=2's 224."""
+    assert ac._tiling(2, 512, hw, hw, 11, dtype, 132) == want
+    assert ac._blocks(2, 512, 28, 28, 8, 128) == 64 and ac._blocks(2, 512, 28, 28, 2, 32) == 224
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs the plain version (skipped without a card)
 # ---------------------------------------------------------------------------
@@ -155,3 +180,72 @@ def test_k4a_matches_plain(cuda, b, c, h, w, d):
     ref = adaptive_conv_tapmajor_plain(inp, filt, d).float()
     assert adaptive_conv_tapmajor.launches[torch.bfloat16] == n + 1
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+
+
+# d from 3 to 25 (past 17 the band is wider than 32 columns), channel counts that
+# are a multiple of 64, of neither 8 nor 64, and of 8 but not 64; odd H, W
+# not a multiple of 16: odd W gives bf16 rows and taps of odd width, which
+# take element-wise copies, W = 30 4-byte ones
+EDGE_SHAPES = [(b, c, h, w, d) for d in (3, 7, 11, 17, 25)
+               for b, c, h, w in ((1, 64, 13, 21), (2, 512, 9, 30), (1, 514, 11, 19),
+                                  (2, 72, 7, 45))]
+
+
+def _dropped_last_tap(filt):
+    filt = filt.clone()
+    filt[:, -1] = 0
+    return filt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k4a", "k4b"])
+@pytest.mark.parametrize("b,c,h,w,d", EDGE_SHAPES)
+def test_kernel_at_edge_shapes(cuda, dtype, b, c, h, w, d):
+    """K4a within 1e-2, K4b within 1e-5 of max|ref| against the plain
+    version; the plain version with its last tap dropped lands above the
+    bound on the same inputs."""
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    inp, filt = (torch.from_numpy(a).to(cuda, dtype) for a in _case(b, c, h, w, d, seed=d + c))
+    got = adaptive_conv_tapmajor(inp, filt, d).float()
+    ref = adaptive_conv_tapmajor_plain(inp, filt, d).float()
+    bad = adaptive_conv_tapmajor_plain(inp, _dropped_last_tap(filt), d).float()
+    scale = ref.abs().max().item()
+    assert ((got - ref).abs().max() / scale).item() <= tol
+    assert ((bad - ref).abs().max() / scale).item() > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k4a", "k4b"])
+def test_kernel_at_every_tiling(cuda, dtype):
+    """Every (R, channels per warp) the library takes, at an odd shape and at
+    d = 11 and 25, through the bare call."""
+    from rs_ov_torch.kernels.build import load_library
+
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for d in (11, 25):
+        inp, filt = (torch.from_numpy(a).to(cuda, dtype) for a in _case(2, 150, 11, 37, d))
+        ref = adaptive_conv_tapmajor_plain(inp, filt, d).float()
+        for rows in ac.ROWS:
+            for cw in ac.WARP_CHANNELS:
+                if ac._smem_bytes(d, rows, cw, dtype) > ac.SMEM_MAX:
+                    continue
+                out, entry, args = ac._adaptive_conv_operands(inp, filt, d, (rows, cw))
+                fn = getattr(load_library(), entry)
+                assert fn(*args, torch.cuda.current_stream().cuda_stream) == 0
+                rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+                assert rel <= tol, (d, rows, cw, rel)
+
+
+@pytest.mark.cuda
+def test_smem_mirror_matches_the_library(cuda):
+    """_smem_bytes, which the wrapper checks before the library loads,
+    equals the library's own count (rs_adaptive_conv_smem)."""
+    from rs_ov_torch.kernels.build import load_library
+
+    lib = load_library()
+    for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        for d in (1, 3, 7, 11, 17, 18, 25):
+            for rows in ac.ROWS:
+                for cw in ac.WARP_CHANNELS:
+                    assert ac._smem_bytes(d, rows, cw, dtype) == \
+                        lib.rs_adaptive_conv_smem(d, rows, cw, size), (dtype, d, rows, cw)

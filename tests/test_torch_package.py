@@ -303,6 +303,10 @@ def test_kernel_resources_reads_the_ptxas_report(tmp_path):
     assert _short(k1) == "range_logits_kernel<11>"
     assert _short("_ZN12_GLOBAL__N_119jbu_classify_kernelILb1EEEvNS_4ArgsE") == \
         "jbu_classify_kernel<1>"
+    assert _short("_ZN12_GLOBAL__N_120adaptive_conv_kernelI13__nv_bfloat16Li128EEEvPKT_") == \
+        "adaptive_conv_kernel<__nv_bfloat16, 128>"
+    assert _short("_ZN12_GLOBAL__N_120adaptive_conv_kernelIfLi32EEEvPKT_S3_PS1_") == \
+        "adaptive_conv_kernel<float, 32>"
     log = tmp_path / "lib.so.x.cu.log"
     log.write_text(
         f"ptxas info    : Compiling entry function '{k6}' for 'sm_90a'\n"

@@ -1,7 +1,7 @@
 // The PTX building blocks shared by the hand-written kernels (K2/K3 in
 // jbu_classify_sm90.cu, K6 in selfself_attention_sm90.cu and
-// selfself_attention_f32_sm90.cu, K1 in range_logits.cu, K4a/K4b in
-// adaptive_conv.cu): cp.async copies into shared memory, ldmatrix loads of
+// selfself_attention_f32_sm90.cu, K1 in range_logits.cu, K4a-K4d in
+// adaptive_conv.cuh): cp.async copies into shared memory, ldmatrix loads of
 // mma fragments, mma.sync m16n8k16 with bf16 operands and m16n8k8 with TF32
 // operands, both with fp32 sums, the split of an fp32 value into two TF32
 // parts, and the A fragments of the adaptive conv's band (K2's and K4's).
@@ -83,7 +83,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// The adaptive conv as banded products (K2, K3, K5 and K4a/K4b): for 16
+// The adaptive conv as banded products (K2, K3, K5 and K4a-K4d): for 16
 // neighbouring output pixels p of one row and one tap row u, the band
 // A[p][x] = tap(p, u d + x - p) for 0 <= x - p < d (else 0), over the
 // window's columns x, times the source row's window [x][channel]. Tap v of
@@ -124,6 +124,19 @@ __device__ __forceinline__ void band_fragment_tf32(uint32_t (&hi)[4], uint32_t (
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     split_tf32((v[i] >= 0 && v[i] < d) ? row[i][v[i] * ts] : 0.f, hi[i], lo[i]);
+}
+
+// The same fragment from bf16 taps: a bf16 value is exact in TF32 (its fp32
+// bits), so it needs no lo part.
+__device__ __forceinline__ void band_fragment_tf32(uint32_t (&a)[4], const unsigned short* taps,
+                                                   int ps, int d, int x, int g, int ts = 1) {
+  const unsigned short* p0 = taps + g * ps;
+  const unsigned short* p8 = p0 + 8 * ps;
+  const int v[4] = {x - g, x - g - 8, x + 4 - g, x - 4 - g};
+  const unsigned short* row[4] = {p0, p8, p0, p8};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (v[i] >= 0 && v[i] < d) ? (uint32_t)row[i][v[i] * ts] << 16 : 0u;
 }
 
 }  // namespace rs_ov

@@ -4,24 +4,25 @@
 
 ``adaptive_conv_tapmajor`` dispatches on the device: a CPU tensor takes the
 plain version (a loop of shifted multiply-adds in fp32, cast once, as
-rs_ov/upsample/jbu.py:87-98), a CUDA tensor the hand-written kernel in
-``rs_ov_torch/csrc/adaptive_conv.cu``, banded products on the tensor cores.
-bf16 operands launch K4a, which replaces ``adaptive_conv_pallas_v5``
+rs_ov/upsample/jbu.py:87-98), a CUDA tensor the hand-written banded kernel
+of ``rs_ov_torch/csrc/adaptive_conv.cuh``, on the tensor cores. bf16
+operands launch K4a, which replaces ``adaptive_conv_pallas_v5``
 (rs_ov/kernels/adaptive_conv_v5.py:68); fp32 operands launch K4b (3xTF32),
 which replaces ``adaptive_conv_pallas_v2`` (rs_ov/kernels/adaptive_conv_v2.py:99).
-Both kernels take the input and the taps in one dtype: bf16 taps come
-rounded by the caller, never here. A block takes R output rows x 16 columns
-x a slice of channels; ``_tiling`` picks R and each warp's channels.
+Both take the input and the taps in one dtype: bf16 taps come rounded by
+the caller, never here. A block takes R output rows x 16 columns x a slice
+of channels; ``_tiling`` picks R and each warp's channels.
 
 ``adaptive_conv_planes`` and ``adaptive_conv_cl`` are the kernels' own entry
 points of the JAX package, ``adaptive_conv_pallas_planes``
 (rs_ov/kernels/adaptive_conv.py:189, K4c) and ``adaptive_conv_pallas_cl``
 (:70, K4d): the same function with the same NCHW contract, where the input
 and the taps each keep their own dtype (bf16 or fp32; fp32 products, the
-output in the input's dtype). Their CUDA kernels are in
-``rs_ov_torch/csrc/adaptive_conv_layouts.cu``: K4c computes on the NCHW
-planes, K4d channels-last on a permuted copy. Their plain version is
-``adaptive_conv_tapmajor_plain``.
+output in the input's dtype). K4c is the same banded kernel on the NCHW
+input, K4d its channels-last form (``csrc/adaptive_conv_cl.cu``) on a
+channels-last copy of the input, writing the NCHW output itself. Both take
+the bf16 product where both operands are bf16, else the TF32 one, each fp32
+operand split in two. Their plain version is ``adaptive_conv_tapmajor_plain``.
 
 ``adaptive_conv_v3`` and ``adaptive_conv_v4`` are the entry points of
 ``adaptive_conv_pallas_v3`` (rs_ov/kernels/adaptive_conv_v3.py:96, K4e) and
@@ -49,29 +50,42 @@ __all__ = ["adaptive_conv_tapmajor", "adaptive_conv_tapmajor_plain", "adaptive_c
 _ENTRY = {torch.bfloat16: "rs_adaptive_conv_bf16", torch.float32: "rs_adaptive_conv_f32"}
 SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
 MAX_D = 25
-# the kernel's block: 8 warps, 16 output columns; staged source rows in
-# flight: 4 bf16 rows, or 3 fp32 rows and 4 of their TF32 parts
-_WARPS, _COLS, _RING = 8, 16, {torch.bfloat16: 4, torch.float32: 3 + 4}
+_WARPS, _COLS = 8, 16  # the kernel's block: 8 warps, 16 output columns
 ROWS, WARP_CHANNELS = (1, 2, 4, 8), (16, 32, 64, 128)
-# (R, channels per warp) by dtype, in order of preference: the first whose
+# (R, channels per warp) by product, in order of preference: the first whose
 # grid gives every SM a block, else the last. The fastest at the main path's
 # shapes (B=2, C=512; d=11 at 56^2 and 28^2, d=7 at 56^2) in the sweep of
 # rs_ov_torch/tools/adaptive_conv_tiling.py on the H100 (PERF.md): bf16
-# 8 x 128 at 56^2 (224 blocks), 2 x 32 at 28^2; fp32 4 x 32 at both.
-TILINGS = {torch.bfloat16: ((8, 128), (2, 32)), torch.float32: ((4, 32),)}
+# 8 x 128 at 56^2 (224 blocks), 2 x 32 at 28^2; fp32 (TF32) 4 x 32 at both.
+TILINGS = {"bf16": ((8, 128), (2, 32)), "tf32": ((4, 32),)}
 
 
-def _smem_bytes(d: int, rows: int, cw: int, dtype: torch.dtype) -> int:
-    """Shared memory of a block at (d, R, channels per warp): the taps of its
-    R x 16 pixels ([d*d][R*16 + 8]) and the larger of the staged source rows
-    ([channels][32 or 64 columns + 16 bytes] each) and the output stage. The
-    mirror of ``make_layout`` in ``csrc/adaptive_conv.cu``
-    (``rs_adaptive_conv_smem`` returns the library's own count)."""
-    sz = 2 if dtype == torch.bfloat16 else 4
-    xw = 32 if d <= 17 else 64
-    taps = -(-d * d * (rows * _COLS + 8) * sz // 128) * 128
-    work = _RING[dtype] * cw * (_WARPS // rows) * (xw + 16 // sz) * sz
-    ostage = _WARPS * cw * (_COLS + 16 // sz) * sz
+def _product(dtype: torch.dtype, filt_dtype: torch.dtype | None = None) -> str:
+    """The kernel's product for an operand pair: "bf16" where both are bf16,
+    else "tf32" (each fp32 operand split into two TF32 parts)."""
+    return "bf16" if dtype == (filt_dtype or dtype) == torch.bfloat16 else "tf32"
+
+
+def _smem_bytes(d: int, rows: int, cw: int, dtype: torch.dtype,
+                filt_dtype: torch.dtype | None = None, channels_last: bool = False) -> int:
+    """Shared memory of a block at (d, R, channels per warp) for an input of
+    ``dtype`` and taps of ``filt_dtype`` (default: the same): the taps of its
+    R x 16 pixels ([d*d][R*16 + 8]) and the larger of the output stage and
+    the staged source rows (4 rows on the bf16 product; on the TF32 one 3
+    rows and two steps of their TF32 parts, hi and, for an fp32 input, lo),
+    a row [channels][32 or 64 columns + 16 bytes] channel-first,
+    [32 or 64 columns][channels + 16 bytes] channels-last. The mirror of
+    ``make_layout`` in ``csrc/adaptive_conv.cuh`` (``rs_adaptive_conv_smem``
+    returns the library's own count)."""
+    si, sf = dtype.itemsize, (filt_dtype or dtype).itemsize
+    cb, xw = cw * (_WARPS // rows), 32 if d <= 17 else 64
+    lines = xw if channels_last else cb
+    ldx = (cb if channels_last else xw) + 16 // si
+    lds = cb + 8 if channels_last else xw + 4
+    ring, parts = (4, 0) if _product(dtype, filt_dtype) == "bf16" else (3, 2 if si == 4 else 1)
+    taps = -(-d * d * (rows * _COLS + 8) * sf // 128) * 128
+    work = ring * lines * ldx * si + 2 * parts * lines * lds * 4
+    ostage = _WARPS * cw * (_COLS + 16 // si) * si
     return taps + max(work, ostage)
 
 
@@ -80,20 +94,21 @@ def _blocks(b: int, c: int, h: int, w: int, rows: int, cw: int) -> int:
     return b * -(-h // rows) * -(-w // _COLS) * -(-c // (cw * (_WARPS // rows)))
 
 
-def _tiling(b: int, c: int, h: int, w: int, d: int, dtype: torch.dtype,
-            sms: int) -> tuple[int, int]:
+def _tiling(b: int, c: int, h: int, w: int, d: int, dtype: torch.dtype, sms: int,
+            filt_dtype: torch.dtype | None = None,
+            channels_last: bool = False) -> tuple[int, int]:
     """(R, channels per warp) for a call on a card of ``sms`` SMs: the first
-    of ``TILINGS`` whose grid fills the SMs (else the last), each warp's
-    channels cut to what C needs; where that block does not fit in shared
-    memory (large d), the first that does with R and the channels no
-    larger."""
-    options = TILINGS[dtype]
+    of the product's ``TILINGS`` whose grid fills the SMs (else the last),
+    each warp's channels cut to what C needs; where that block does not fit
+    in shared memory (large d), the first that does with R and the channels
+    no larger."""
+    options = TILINGS[_product(dtype, filt_dtype)]
     rows, cw = next((t for t in options if _blocks(b, c, h, w, *t) >= sms), options[-1])
     while cw > 16 and cw * (_WARPS // rows) >= 2 * c:
         cw //= 2
     for r in (x for x in ROWS[::-1] if x <= rows):
         for k in (x for x in WARP_CHANNELS[::-1] if x <= cw):
-            if _smem_bytes(d, r, k, dtype) <= SMEM_MAX:
+            if _smem_bytes(d, r, k, dtype, filt_dtype, channels_last) <= SMEM_MAX:
                 return r, k
     raise ValueError(f"adaptive_conv kernel: no block fits in shared memory at d={d}")
 
@@ -187,60 +202,56 @@ adaptive_conv_tapmajor.launches = {torch.bfloat16: 0, torch.float32: 0}
 # ---------------------------------------------------------------------------
 
 _TYPES = (torch.bfloat16, torch.float32)
-_SMEM = {  # bytes of shared memory a block of each kernel takes at diameter d
-    # K4c: 32 channels x (8+d-1) rows x (32+d-1) columns of the input, fp32
-    "rs_adaptive_conv_planes": lambda d: 4 * 32 * (8 + d - 1) * (32 + d - 1),
-    # K4d: the d*d taps of 16 pixels, fp32
-    "rs_adaptive_conv_cl": lambda d: 4 * 16 * d * d,
-}
+_LAYOUT_ENTRY = {False: "rs_adaptive_conv_planes", True: "rs_adaptive_conv_cl"}
 
 
-def _check_layout(inp: torch.Tensor, filt_t: torch.Tensor, d: int, entry: str) -> None:
-    _check_shapes(inp, filt_t, d)
+def _layout_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
+                     channels_last: bool, tiling: tuple[int, int] | None = None):
+    """K4c's (``channels_last`` False) or K4d's operands checked, K4d's input
+    copied channels-last ([B, H+d-1, W+d-1, C]) and the NCHW output
+    allocated. Returns (out, entry, args, src): ``load_library().<entry>(*args,
+    stream)`` is the bare library call, at ``tiling`` (R, channels per warp)
+    or ``_tiling``'s, on ``src``, which must outlive it."""
+    entry = _LAYOUT_ENTRY[channels_last]
+    _check_shapes(inp, filt_t, diameter)
     if inp.dtype not in _TYPES or filt_t.dtype not in _TYPES:
         raise ValueError(f"{entry} takes bf16 or fp32 for each operand, got inp "
                          f"{inp.dtype} and filt_t {filt_t.dtype}")
-    smem = _SMEM[entry](d)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{entry}: a block needs {smem} bytes of shared memory at d={d}; "
-                         f"the card gives {SMEM_MAX}")
+    b, c, _, _ = inp.shape
+    if channels_last and c % 2:
+        raise ValueError(f"{entry} takes an even channel count, got C={c}")
+    if diameter > MAX_D:
+        raise ValueError(f"{entry} takes d <= {MAX_D} (its widest band), got d={diameter}")
+    _, _, h, w = filt_t.shape
+    index = inp.device.index if inp.device.index is not None else torch.cuda.current_device()
+    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sm_count(index),
+                                 filt_t.dtype, channels_last)
+    src = inp.permute(0, 2, 3, 1).contiguous() if channels_last else inp
+    out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
+    return out, entry, (src.data_ptr(), filt_t.data_ptr(), out.data_ptr(), b, c, h, w,
+                        diameter, int(inp.dtype == torch.bfloat16),
+                        int(filt_t.dtype == torch.bfloat16), rows, cw), src
 
 
-def _launch_layout(entry: str, inp: torch.Tensor, filt_t: torch.Tensor, out: torch.Tensor,
-                   c: int, d: int) -> None:
-    b, _, h, w = filt_t.shape
-    lib = load_library()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(getattr(lib, entry)(inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(),
-                                  b, c, h, w, d, int(inp.dtype == torch.bfloat16),
-                                  int(filt_t.dtype == torch.bfloat16), stream), entry)
+def _layout_cuda(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
+                 channels_last: bool) -> torch.Tensor:
+    out, entry, args, _src = _layout_operands(inp, filt_t, diameter, channels_last)
+    check(launch(getattr(load_library(), entry), args, inp.device), entry)
+    return out
 
 
 def _adaptive_conv_planes_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
                                diameter: int) -> torch.Tensor:
-    _check_layout(inp, filt_t, diameter, "rs_adaptive_conv_planes")
-    b, c, _, _ = inp.shape
-    _, _, h, w = filt_t.shape
-    out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
-    _launch_layout("rs_adaptive_conv_planes", inp, filt_t, out, c, diameter)
+    out = _layout_cuda(inp, filt_t, diameter, False)
     adaptive_conv_planes.launches += 1
     return out
 
 
 def _adaptive_conv_cl_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
                            diameter: int) -> torch.Tensor:
-    _check_layout(inp, filt_t, diameter, "rs_adaptive_conv_cl")
-    b, c, _, _ = inp.shape
-    _, _, h, w = filt_t.shape
-    if c % 2:
-        raise ValueError(f"rs_adaptive_conv_cl takes an even channel count, got C={c}")
-    # a fresh copy: channel pairs are read and written as 4- or 8-byte words
-    inp_cl = inp.permute(0, 2, 3, 1).clone(memory_format=torch.contiguous_format)
-    out = torch.empty((b, h, w, c), dtype=inp.dtype, device=inp.device)
-    _launch_layout("rs_adaptive_conv_cl", inp_cl, filt_t, out, c, diameter)
+    out = _layout_cuda(inp, filt_t, diameter, True)
     adaptive_conv_cl.launches += 1
-    return out.permute(0, 3, 1, 2).contiguous()
+    return out
 
 
 def _on_cpu(inp: torch.Tensor, name: str) -> bool:
@@ -252,8 +263,9 @@ def _on_cpu(inp: torch.Tensor, name: str) -> bool:
 def adaptive_conv_planes(inp: torch.Tensor, filt_t: torch.Tensor,
                          diameter: int) -> torch.Tensor:
     """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
-    or fp32 -> [B, C, H, W] in inp's dtype, fp32 products and sums in tap
-    order. CPU tensors take the plain version, CUDA tensors kernel K4c."""
+    or fp32 -> [B, C, H, W] in inp's dtype, fp32 products and sums (in tap
+    order on the CPU). CPU tensors take the plain version, CUDA tensors
+    kernel K4c (d <= 25, any C)."""
     if _on_cpu(inp, "adaptive_conv_planes"):
         return adaptive_conv_tapmajor_plain(inp, filt_t, diameter)
     return _adaptive_conv_planes_cuda(inp, filt_t, diameter)
@@ -261,10 +273,11 @@ def adaptive_conv_planes(inp: torch.Tensor, filt_t: torch.Tensor,
 
 def adaptive_conv_cl(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
     """adaptive_conv_planes's function and NCHW contract, computed
-    channels-last: CUDA tensors are permuted to [B, H+d-1, W+d-1, C], go
-    through kernel K4d and come back permuted, as the JAX wrapper does. K4d
-    takes any even C (the JAX kernel hands C % 128 != 0 to the planes kernel,
-    a TPU lane rule). CPU tensors take the plain version."""
+    channels-last: a CUDA input is copied to [B, H+d-1, W+d-1, C], as the
+    JAX wrapper transposes it, and kernel K4d writes the NCHW output itself.
+    K4d takes any even C (the JAX kernel hands C % 128 != 0 to the planes
+    kernel, a TPU lane rule) and d <= 25. CPU tensors take the plain
+    version."""
     if _on_cpu(inp, "adaptive_conv_cl"):
         return adaptive_conv_tapmajor_plain(inp, filt_t, diameter)
     return _adaptive_conv_cl_cuda(inp, filt_t, diameter)

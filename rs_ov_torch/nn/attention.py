@@ -3,8 +3,8 @@ head-averaged weights, and the self-self mode registry ``custom_attn``
 (rs_ov/nn/attention.py:147-237) with its ten modes.
 
 Layouts as in the JAX package: [B, L, D] in and out, heads [B, H, L, hd].
-Softmaxes run in fp32; batched products take the operands in their dtype,
-multiply in fp32 and keep the fp32 result.
+Softmaxes run in fp32; batched products take the operands in their dtype
+and keep an fp32 result with fp32 sums (``matmul32``).
 
 With ``RS_OV_FUSED_ATTN=1``, CUDA tensors and a mode the fused kernel
 supports, the context comes from K6 (``rs_ov_torch.kernels.selfself_attention``)
@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from rs_ov_torch.nn.layers import linear
+from rs_ov_torch.nn.layers import linear, matmul32
 
 __all__ = ["standard_attention", "custom_attn", "ATTENTION_MODES", "qkv_projection"]
 
@@ -48,8 +48,9 @@ def qkv_projection(p, x: torch.Tensor, heads: int):
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched product in fp32 from operands of any float dtype."""
-    return torch.matmul(a.float(), b.float())
+    """Batched product with fp32 sums and an fp32 result, from operands of
+    any float dtype (rs_ov/nn/attention.py:56-58)."""
+    return matmul32(a, b)
 
 
 def _softmax32(x: torch.Tensor) -> torch.Tensor:

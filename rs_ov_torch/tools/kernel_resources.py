@@ -25,25 +25,26 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 
 
 _BUILTIN = {"f": "float", "d": "double", "i": "int", "b": "bool"}
-# one template argument: a literal (Li64E, Lb1E), a named type (13__nv_bfloat16)
-# or a builtin type (f)
-_TARG = re.compile(r"L[a-z](\d+)E|(\d+)|([fdib])")
+# one template argument: a literal (Li64E, Lb1E), a named type (13__nv_bfloat16),
+# a builtin type (f) or a substitution of an earlier name (S_, S0_, S1_, ...)
+_TARG = re.compile(r"L[a-z](\d+)E|(\d+)|([fdib])|S([0-9A-Z]*)_")
 
 
 def _short(mangled: str) -> str:
     """The kernel's name with its template arguments, from an Itanium-mangled
     name (``_ZN<n><namespace><n>name_kernelILi5ELi26EEv...`` ->
-    ``name_kernel<5, 26>``, ``...kernelI13__nv_bfloat16Li64EEEv...`` ->
-    ``kernel<__nv_bfloat16, 64>``); other names as they are."""
+    ``name_kernel<5, 26>``, ``...kernelI13__nv_bfloat16S1_Li64EEEv...`` ->
+    ``kernel<__nv_bfloat16, __nv_bfloat16, 64>``); other names as they are."""
     if not mangled.startswith("_ZN"):
         return mangled
-    i, name = 3, mangled
+    i, name, subs = 3, mangled, []  # subs: the names a substitution may repeat, in order
     while i < len(mangled) and mangled[i].isdigit():
         j = i
         while mangled[j].isdigit():
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
+        subs.append(None)  # each enclosing prefix is a candidate, never a type argument
     if not mangled.startswith("I", i):
         return name
     i, args = i + 1, []
@@ -54,7 +55,14 @@ def _short(mangled: str) -> str:
         if m.group(2):  # a length-prefixed type name
             end = m.end() + int(m.group(2))
             args.append(mangled[m.end():end])
+            subs.append(args[-1])
             i = end
+        elif m.group(4) is not None:
+            k = int(m.group(4), 36) + 1 if m.group(4) else 0
+            if k >= len(subs) or subs[k] is None:
+                return name
+            args.append(subs[k])
+            i = m.end()
         else:
             args.append(m.group(1) or _BUILTIN[m.group(3)])
             i = m.end()

@@ -307,6 +307,10 @@ def test_kernel_resources_reads_the_ptxas_report(tmp_path):
         "adaptive_conv_kernel<__nv_bfloat16, 128>"
     assert _short("_ZN12_GLOBAL__N_120adaptive_conv_kernelIfLi32EEEvPKT_S3_PS1_") == \
         "adaptive_conv_kernel<float, 32>"
+    assert _short("_ZN12_GLOBAL__N_120adaptive_conv_kernelI13__nv_bfloat16S1_Li128ELb1EEEvPKT_"
+                  "PKT0_PS2_iiiiiiii") == "adaptive_conv_kernel<__nv_bfloat16, __nv_bfloat16, 128, 1>"
+    assert _short("_ZN12_GLOBAL__N_120adaptive_conv_kernelIf13__nv_bfloat16Li32ELb0EEEvPKT_") == \
+        "adaptive_conv_kernel<float, __nv_bfloat16, 32, 0>"
     log = tmp_path / "lib.so.x.cu.log"
     log.write_text(
         f"ptxas info    : Compiling entry function '{k6}' for 'sm_90a'\n"

@@ -19,18 +19,21 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 with zero padding in place of reflection, and for K3 also
                 with its fixup bias left out and with the normalised vector
                 unrounded, each of which must exceed the bound; the bare
-                library call of K1, K2, K3, K4a-K4d, K5a, K5b and K6 beside
-                the wrapper's; the
-                median times (CUDA events, in turns),
+                library call of K1, K2, K3, K4a-K4f, K5a, K5b and K6 beside
+                the wrapper's; the median times (CUDA events, in turns),
                 the bound from the shapes and, for K6's vanilla and ClearCLIP
                 modes, the time of one scaled_dot_product_attention call.
                 K5a and K5b are also held against the split pair they replace
                 (K1 + reflect pads + K2 / K3) on the card, with the count of
                 outputs that differ from it, and timed in turns with it.
                 K4e and K4f (both operands rounded to bf16) at d=11 on 28^2
-                and 56^2 and d=7 on 224^2 (K4f: two column chunks), with fp32,
-                bf16 and bf16-input/fp32-tap operands, also beside K4b's
-                unrounded function (fp32) and timed beside K4b/K4a and K4c.
+                and 56^2 and d=7 on 224^2, in all four operand pairs (bf16 or
+                fp32 each), also beside K4b's unrounded function (fp32
+                input) and timed beside K4b/K4a and K4c. K3 and K5b are held
+                against their plain version with every fp32 product summed
+                in order (the order in which K3 re-takes a sum near a bf16
+                midpoint; cuBLAS picks its own by size), the gap to the
+                plain version as cuBLAS sums it printed beside.
   4. slice    - SegmentorEx from configs/base_config.py (CLIP ViT-B/16,
                 random weights) on the Potsdam vocabulary: predict_raw on
                 three 512x512 images on each route: bf16 channel-last (K1,
@@ -115,8 +118,10 @@ CARD = {}
 # bound is one or two bf16 flips of an output (a step is 2^-8 of the value).
 # For every kernel and shape, the plain version without its last tap, on the
 # same inputs, is printed beside the bound, and must land above it.
-# K5a and K5b take K2's and K3's bounds, K4c and K4d K4b's in fp32 and K4a's
-# with a bf16 input.
+# K5a and K5b take K2's and K3's bounds, K4c-K4f K4b's with an fp32 input
+# and K4a's with a bf16 input. K3's and K5b's plain version sums its fp32
+# products in order there (_in_order), as K3 re-takes a sum near a bf16
+# midpoint; cuBLAS's own order could move it ~1.5e-3.
 K1_TOL, K2_TOL, K3_TOL, K4B_TOL, K4A_TOL = 1e-5, 1e-2, 1e-3, 1e-5, 1e-2
 B, D, K, C, G, Q = 2, 11, 32, 512, 3, 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -226,17 +231,27 @@ def _epilogue_inputs(rng, h, w, dev, d=D):
         b1=t(rng.randn(dd) * 0.1, bf))
 
 
-def _check(label, tol, kernel, plain, faulty, bound, dropped="tap", faults=()):
-    """kernel() against plain() as max|d|/max|ref|, beside faulty(): the plain
-    version with its last tap (or key) dropped, on the same inputs, and each
-    (name, fault) of ``faults``, all of which must land above the bound.
-    Returns the row's measured numbers."""
-    got, ref, bad = kernel().float(), plain().float(), faulty().float()
+def _check(label, tol, kernel, plain, faulty, bound, dropped="tap", faults=(), oracle=None):
+    """kernel() against oracle() (default: plain()) as max|d|/max|ref|,
+    beside faulty(): the plain version with its last tap (or key) dropped,
+    on the same inputs, and each (name, fault) of ``faults``, all of which
+    must land above the bound; where an oracle is given, the kernel's gap
+    to plain() is printed beside. plain() is what is timed. Returns the
+    row's measured numbers."""
+    got, ref, bad = kernel().float(), (oracle or plain)().float(), faulty().float()
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
     err = (got - ref).abs().max().item()
     rel, fault_rel = err / scale, (bad - ref).abs().max().item() / scale
     more = {name: (fn().float() - ref).abs().max().item() / scale for name, fn in faults}
+    gaps = {}
+    if oracle is not None:
+        ref_plain = plain().float()
+        gaps = {"rel_to_plain": (got - ref_plain).abs().max().item() / scale,
+                "oracle_to_plain": (ref - ref_plain).abs().max().item() / scale}
+        print(f"[kernels] {label}: {rel:.3e} of max|ref| from the plain version with its "
+              f"products summed in order, {gaps['rel_to_plain']:.3e} from it as cuBLAS sums "
+              f"them; the two plain versions {gaps['oracle_to_plain']:.3e} apart")
     ms, plain_ms = _timed_pair(kernel, plain)
     shown = "".join(f"; with {name} {v:.3e}" for name, v in more.items())
     print(f"[kernels] {label}: max|d|={err:.3e} max|d|/max|ref|={rel:.3e} (tol {tol}; "
@@ -248,7 +263,31 @@ def _check(label, tol, kernel, plain, faulty, bound, dropped="tap", faults=()):
         assert v > tol, f"{label}: the bound does not catch {name}: {v}"
     return dict(max_abs_err=err, fault_rel=fault_rel, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1],
-                **{f"fault_rel_{name.replace(' ', '_')}": v for name, v in more.items()})
+                **{f"fault_rel_{name.replace(' ', '_')}": v for name, v in more.items()},
+                **gaps)
+
+
+def _matmul_in_order(x, wt):
+    """x [..., K] @ wt [K, N] in fp32 with the sum over k taken in order, one
+    rounding per step (each fma held exactly in fp64): the order in which K3
+    re-takes a sum near a bf16 rounding midpoint; cuBLAS picks its order by
+    size, and its own bf16 rounding flips alone can reach K3's bound."""
+    x2 = x.reshape(-1, x.shape[-1])
+    acc = torch.zeros((x2.shape[0], wt.shape[1]), dtype=torch.float64, device=x.device)
+    for k in range(x2.shape[1]):
+        acc = (acc + x2[:, k:k + 1].double() * wt[k].double()).float().double()
+    return acc.float().reshape(*x.shape[:-1], wt.shape[1])
+
+
+def _in_order(plain):
+    """plain() with every torch.matmul of the plain epilogues summed in order."""
+    def run():
+        matmul, torch.matmul = torch.matmul, _matmul_in_order
+        try:
+            return plain()
+        finally:
+            torch.matmul = matmul
+    return run
 
 
 def _row(name, source, replaces, checks):
@@ -302,9 +341,10 @@ def _tail_without_rounding():
 
 
 def _classify_check(rng, dev, tail, d, hw):
-    """K3 at d, hw against its plain version, beside three faults of the plain
-    version (the last tap dropped, the fixup bias left out, the normalised
-    vector left unrounded), each of which must land above K3_TOL; then the
+    """K3 at d, hw against its plain version with every product summed in
+    order (_in_order), beside three faults of the plain version (the last
+    tap dropped, the fixup bias left out, the normalised vector left
+    unrounded), each of which must land above K3_TOL; then the
     bare library call (one launch on operands checked once) timed in turns
     with the wrapper's call, whose operand checks and allocation add host
     time to the events' window. The row's ``ms`` is the wrapper's, as in
@@ -327,7 +367,8 @@ def _classify_check(rng, dev, tail, d, hw):
                _epilogue_bound(hw, hw, True, d),
                faults=[("the fixup bias left out", lambda: mod.jbu_epilogue_classify_plain(
                    **{**a, "fixup_b": torch.zeros_like(a["fixup_b"])}, diameter=d)),
-                       ("the normalised vector unrounded", unrounded)])
+                       ("the normalised vector unrounded", unrounded)],
+               oracle=_in_order(plain))
     _out, args, _keep = mod._classify_operands(**a, diameter=d)  # _out outlives the calls
     _bare_beside_wrapper(f"K3 d={d} H=W={hw}", c, "rs_jbu_epilogue_classify", args, wrapper)
     return c
@@ -505,7 +546,8 @@ def _fused_range_kernels(rng, dev, tail):
             label = f"{key} d={d} H=W={hw}"
             c = _check(f"{key} {name} d={d} H=W={hw}", tol, kernel, plain, dropped,
                        _epilogue_bound(hw, hw, extra is not None, d, fused=True),
-                       faults=[("zero padding", zero_padded)])
+                       faults=[("zero padding", zero_padded)],
+                       oracle=None if extra is None else _in_order(plain))
             _out, args, _keep = operands(**a, **t, diameter=d)  # _out outlives the calls
             _bare_beside_wrapper(label, c, entry, args, kernel)
             split = lambda: _split_stage(a, d, extra)  # noqa: E731
@@ -583,15 +625,18 @@ def _adaptive_layout_kernels(rng, dev):
 def _bf16_conv_kernels(rng, dev):
     """K4e (adaptive_conv_v3) and K4f (adaptive_conv_v4), both operands
     rounded to bf16, against their plain version at B=2, C=512: d=11 on 56^2
-    and 28^2 (jbu_one's stages), d=7 on 224^2 (jbu_stack's last; K4f in two
-    column chunks of 112), each with fp32 operands, bf16 operands and a bf16
-    input with fp32 taps. fp32 output within 1e-5, bf16 within 1e-2 of
-    max|ref|, beside the last tap dropped and, for fp32, K4b's unrounded
-    function. The bound: each operand's bytes at its dtype, the output at
-    the input's, and 2*d^2*C*H*W*B operations on bf16 operands. K4c and,
-    where the two dtypes match, K4b / K4a are timed on the same operands,
-    in turns with the plain version as the kernels are."""
-    from rs_ov_torch.kernels.adaptive_conv import (adaptive_conv_bf16_plain,
+    and 28^2 (jbu_one's stages), d=7 on 224^2 (jbu_stack's last; two column
+    chunks of 112 in the JAX K4f), each with fp32 operands, bf16 operands, a
+    bf16 input with fp32 taps and an fp32 input with bf16 taps. fp32 output
+    within 1e-5, bf16 within 1e-2 of max|ref|, beside the last tap dropped
+    and, for an fp32 input, K4b's unrounded function; the bare library call
+    timed beside the wrapper. The bound: each operand's bytes at its dtype,
+    the output at the input's, and 2*d^2*C*H*W*B operations at the bf16
+    tensor-core rate (the kernel's product); beside it the fp32 cores'
+    reckoning, every product once. K4c and, where the two dtypes match, K4b
+    / K4a are timed on the same operands, in turns with the plain version as
+    the kernels are."""
+    from rs_ov_torch.kernels.adaptive_conv import (_rounded_operands, adaptive_conv_bf16_plain,
                                                    adaptive_conv_planes, adaptive_conv_tapmajor,
                                                    adaptive_conv_tapmajor_plain,
                                                    adaptive_conv_v3, adaptive_conv_v4)
@@ -599,13 +644,14 @@ def _bf16_conv_kernels(rng, dev):
     f32, bf = torch.float32, torch.bfloat16
     checks = {"K4e": [], "K4f": []}
     for d, hw in ((11, 56), (11, 28), (7, 224)):
-        for dt_in, dt_f in ((f32, f32), (bf, bf), (bf, f32)):
+        for dt_in, dt_f in ((f32, f32), (bf, bf), (bf, f32), (f32, bf)):
             inp = torch.from_numpy(rng.randn(B, C, hw + d - 1, hw + d - 1).astype(np.float32))
             filt = torch.from_numpy(rng.randn(B, d * d, hw, hw).astype(np.float32))
             inp, filt = inp.to(dev, dt_in), filt.to(dev, dt_f)
             nbytes = ((inp.numel() + B * C * hw * hw) * inp.element_size()
                       + filt.numel() * filt.element_size())
-            bound = _bound(nbytes, bf16_ops=2 * B * C * hw * hw * d * d)
+            ops = 2 * B * C * hw * hw * d * d
+            bound = _bound(nbytes, bf16_ops=ops)
             tag = f"inp {str(dt_in)[6:]} taps {str(dt_f)[6:]}"
             faults = ([("unrounded operands", lambda: adaptive_conv_tapmajor_plain(inp, filt, d))]
                       if dt_in == f32 else [])
@@ -618,13 +664,21 @@ def _bf16_conv_kernels(rng, dev):
             print(f"[kernels] d={d} H=W={hw} {tag}: on the same operands "
                   + ", ".join(f"{k[:-3]} {v:.4f} ms" for k, v in yard_ms.items()))
             for key, fn in (("K4e", adaptive_conv_v3), ("K4f", adaptive_conv_v4)):
-                c = _check(f"{key} {fn.__name__} d={d} H=W={hw} {tag}",
-                           K4B_TOL if dt_in == f32 else K4A_TOL,
-                           lambda: fn(inp, filt, d), plain,
+                label = f"{key} {fn.__name__} d={d} H=W={hw} {tag}"
+                wrapper = lambda: fn(inp, filt, d)  # noqa: E731
+                c = _check(label, K4B_TOL if dt_in == f32 else K4A_TOL, wrapper, plain,
                            lambda: adaptive_conv_bf16_plain(inp, _last_tap_dropped(filt), d),
                            bound, faults=faults)
+                _out, entry, args = _rounded_operands(inp, filt, d, key == "K4f")  # outlives them
+                _bare_beside_wrapper(label, c, entry, args, wrapper)
+                c["tiling"] = list(args[-2:])
+                c["bound_ms_fp32_cores"] = _bound(nbytes, fp32_ops=ops)[0]
+                print(f"[kernels] {label}: bound {bound[0]:.4f} ms by {bound[1]} (bf16 tensor "
+                      f"cores); {c['bound_ms_fp32_cores']:.4f} ms reckoned with every product "
+                      f"once at the fp32 cores' rate; tiling R x channels/warp {args[-2]} x "
+                      f"{args[-1]}")
                 checks[key].append((f"B={B} C={C} d={d} H=W={hw} {tag}", {**c, **yard_ms}))
-    src = "rs_ov_torch/csrc/adaptive_conv_bf16.cu"
+    src = "rs_ov_torch/csrc/adaptive_conv.cu"
     return {"adaptive_conv_v3": _row("adaptive_conv_v3", src,
                                      "rs_ov/kernels/adaptive_conv_v3.py:96", checks["K4e"]),
             "adaptive_conv_v4": _row("adaptive_conv_v4", src,

@@ -1,22 +1,26 @@
 // The banded adaptive convolution on Hopper's tensor cores (sm_90a), shared
-// by adaptive_conv.cu (channel-first input: K4a, K4b, K4c) and
-// adaptive_conv_cl.cu (channels-last input: K4d):
+// by adaptive_conv.cu (channel-first input: K4a, K4b, K4c, and with both
+// operands rounded to bf16 K4e, K4f) and adaptive_conv_cl.cu (channels-last
+// input: K4d):
 //
 //   out[b, c, h, w] = sum_{u,v} filt[b, u*d+v, h, w] * inp[b, c, h+u, w+v]
 //
 // inp [B, C, H+d-1, W+d-1] (kCL: [B, H+d-1, W+d-1, C]) of element type Ti,
 // filt [B, d*d, H, W] tap-major of element type Tf, out [B, C, H, W] of type
-// Ti; Ti and Tf each bf16 or fp32, neither rounded to the other. Products
-// and sums in fp32, one rounding to Ti at the end.
+// Ti; Ti and Tf each bf16 or fp32, neither rounded to the other, or with
+// kRound both rounded to bf16 (round to nearest even). Products and sums in
+// fp32, one rounding to Ti at the end.
 //
 // The product by operand types:
-//   bf16 x bf16: mma.sync m16n8k16 on bf16 operands; the products are exact
-//     in fp32.
-//   any fp32 operand: mma.sync m16n8k8 on TF32 operands, each fp32 operand
-//     split into hi + lo (split_tf32, mma_sm90.cuh; hi*b + lo*b is x*b within
-//     ~2^-21). bf16 values are exact in TF32, so a bf16 operand is not split:
-//     fp32 x fp32 takes three products (lo*hi + hi*lo + hi*hi, 3xTF32), a
-//     bf16 input with fp32 taps or an fp32 input with bf16 taps two.
+//   bf16 x bf16, and every pair with kRound: mma.sync m16n8k16 on bf16
+//     operands; the products are exact in fp32. kRound rounds fp32 taps as
+//     they are staged and an fp32 input row once after it lands.
+//   any fp32 operand without kRound: mma.sync m16n8k8 on TF32 operands, each
+//     fp32 operand split into hi + lo (split_tf32, mma_sm90.cuh; hi*b + lo*b
+//     is x*b within ~2^-21). bf16 values are exact in TF32, so a bf16
+//     operand is not split: fp32 x fp32 takes three products (lo*hi + hi*lo
+//     + hi*hi, 3xTF32), a bf16 input with fp32 taps or an fp32 input with
+//     bf16 taps two.
 //
 // Design: one block of 256 threads (8 warps) per (b, R output rows x 16
 // columns, CB channels); R (1, 2, 4 or 8) and CW, each warp's channels, are
@@ -29,7 +33,9 @@
 //     are fixed columns (channel-first) or channels (channels-last).
 //   taps: the d*d taps of the block's R x 16 pixels, staged once, tap-major
 //     as they lie in device memory ([tap][R*16 + 8]: a band fragment's
-//     loads hit distinct banks), in the first copy group.
+//     loads hit distinct banks), in the first copy group; fp32 taps that
+//     kRound rounds pass through registers instead, while the first rows'
+//     copies are in flight, and are staged as bf16.
 //   source rows: the R + d - 1 rows h0 .. h0+R+d-2 of the slice, columns w0
 //     .. w0+xw-1 (xw = 32 for d <= 17, else 64), pass through a ring of
 //     staged rows, three in flight. Each source row is read from L2 once per
@@ -40,7 +46,8 @@
 //     (16-byte copies where C is a multiple of 8 in bf16 or of 4 in fp32).
 //     On the TF32 product each staged row is split once into its TF32 parts
 //     (one step ahead, into a double buffer), so that the warps that read it
-//     load ready operands.
+//     load ready operands; kRound rounds a staged fp32 row the same way, once,
+//     into a bf16 row [channel][xw + 8] that ldmatrix reads as a bf16 input's.
 //   product: for row j and tap row u, A is the band [16 px][xw] with
 //     A[p][x] = tap(p, u d + x - p) for 0 <= x - p < d, built in registers
 //     from the staged taps (band_fragment, mma_sm90.cuh, K2's); B is the
@@ -75,17 +82,25 @@ constexpr int NWARP = NT / 32;
 constexpr int COLS = 16;           // output columns per block (the mma's m)
 constexpr int SMEM_MAX = 232448;   // bytes of shared memory a block may use on Hopper
 constexpr int MAX_D = 25;
+constexpr int MAX_D_ROUNDED = 49;  // kRound: the widest band, 16 + d - 1 <= 64 columns
 
-// The product of an operand pair. bf16 x bf16 reads row s while rows s+1 ..
-// s+3 are in flight (a ring of 4); the TF32 product splits row s+1 while
-// s+2, s+3 are in flight (3) and reads row s's parts: hi, and lo where the
-// input is fp32.
-template <typename Ti, typename Tf>
+// The product of an operand pair (kRound: both rounded to bf16 first). A
+// bf16 input row feeding the bf16 product is read as it landed: row s while
+// rows s+1 .. s+3 are in flight (a ring of 4). Any other row is made into
+// the product's operand one step ahead: row s+1 while s+2, s+3 are in
+// flight (3), and row s's is read; the TF32 product splits it into parts
+// hi, and lo where the input is fp32, kRound rounds an fp32 row into one
+// bf16 part.
+template <typename Ti, typename Tf, bool kRound>
 struct Product {
-  static constexpr bool kBF16 = std::is_same<Ti, bf16>::value && std::is_same<Tf, bf16>::value;
-  static constexpr bool kSplitB = std::is_same<Ti, float>::value;  // the input's lo part
-  static constexpr int RING = kBF16 ? 4 : 3, WAIT = kBF16 ? 2 : 1, KSTEP = kBF16 ? 16 : 8;
-  static constexpr int PARTS = kBF16 ? 0 : (kSplitB ? 2 : 1);
+  static constexpr bool kF32In = std::is_same<Ti, float>::value;
+  static constexpr bool kBF16 = kRound || (!kF32In && std::is_same<Tf, bf16>::value);
+  static constexpr bool kDirect = kBF16 && !kF32In;  // the mma reads the staged row itself
+  static constexpr bool kSplitB = !kBF16 && kF32In;  // the input's lo part
+  static constexpr int RING = kDirect ? 4 : 3, WAIT = kDirect ? 2 : 1, KSTEP = kBF16 ? 16 : 8;
+  static constexpr int PARTS = kDirect ? 0 : (kSplitB ? 2 : 1);
+  static constexpr int PART_SZ = kBF16 ? 2 : 4;  // bytes of a part's element
+  typedef typename std::conditional<kRound, bf16, Tf>::type Ts;  // the staged taps' type
 };
 
 __host__ __device__ inline int band_width(int d) { return d <= 17 ? 32 : 64; }
@@ -93,31 +108,34 @@ __host__ __device__ inline int band_width(int d) { return d <= 17 ? 32 : 64; }
 struct Layout {
   int CB, xw;      // channels, staged columns
   int lines;       // lines of a staged row: CB channel-first, xw channels-last
-  int ldx, lds;    // line strides of a staged row (elements) and of its TF32 parts (words)
+  int ldx, lds;    // line strides of a staged row and of its parts (elements of each)
   int ldt;         // the taps' row stride (elements)
-  size_t ring, split, total;  // byte offsets of the ring and of the parts, block bytes
+  size_t ring, split, part, total;  // byte offsets of the ring and of the parts, part bytes,
+                                    // block bytes
 };
 
-// The block's shared memory: [taps][ring][parts: 2 x (hi[, lo])], the output
-// stage over the ring and what follows it. Line strides: channel-first bf16
-// xw + 8 (ldmatrix rows 16 B apart, no conflicts), fp32 xw + 4, parts xw + 4
-// words (4 mod 32); channels-last CB + 8 bf16 (an odd count of 16 B for
+// The block's shared memory: [taps][ring][parts: 2 x (hi[, lo] or rounded)],
+// the output stage over the ring and what follows it. Line strides:
+// channel-first bf16 xw + 8 (ldmatrix rows 16 B apart, no conflicts), fp32
+// xw + 4, TF32 parts xw + 4 words (4 mod 32), rounded parts xw + 8 bf16 (a
+// bf16 input's); channels-last CB + 8 bf16 (an odd count of 16 B for
 // ldmatrix.trans), CB + 4 fp32, parts CB + 8 words (8 or 24 mod 32).
-template <typename Ti, typename Tf, bool kCL>
+template <typename Ti, typename Tf, bool kCL, bool kRound>
 __host__ __device__ inline Layout make_layout(int d, int R, int CW) {
-  typedef Product<Ti, Tf> P;
-  constexpr int szi = sizeof(Ti), szf = sizeof(Tf);
+  typedef Product<Ti, Tf, kRound> P;
+  static_assert(!(kCL && kRound), "the rounded product is channel-first only");
+  constexpr int szi = sizeof(Ti), szf = sizeof(typename P::Ts);
   Layout L;
   L.CB = CW * (NWARP / R);
   L.xw = band_width(d);
   L.lines = kCL ? L.xw : L.CB;
   L.ldx = (kCL ? L.CB : L.xw) + 16 / szi;
-  L.lds = kCL ? L.CB + 8 : L.xw + 4;
+  L.lds = P::kBF16 ? L.xw + 8 : (kCL ? L.CB + 8 : L.xw + 4);
   L.ldt = R * COLS + 8;
   const size_t taps = ((size_t)d * d * L.ldt * szf + 127) / 128 * 128;
   const size_t row = (size_t)L.lines * L.ldx * szi;
-  const size_t part = (size_t)L.lines * L.lds * 4;
-  const size_t work = P::RING * row + 2 * P::PARTS * part;
+  L.part = (size_t)L.lines * L.lds * P::PART_SZ;
+  const size_t work = P::RING * row + 2 * P::PARTS * L.part;
   const size_t ostage = (size_t)NWARP * CW * (COLS + 16 / szi) * szi;
   L.ring = taps;
   L.split = taps + P::RING * row;
@@ -203,11 +221,32 @@ __device__ __forceinline__ void stage_row(T* dst, const T* __restrict__ inp, con
 #undef RS_OV_STAGE
 }
 
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// EV fp32 values at from (zeros where !ok) rounded to bf16 into to
+template <int EV>
+__device__ __forceinline__ void round_piece(bf16* to, const float* __restrict__ from, bool ok) {
+  if (EV == 4) {
+    const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(from)) : make_float4(0, 0, 0, 0);
+    *reinterpret_cast<uint2*>(to) = make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+  } else if (EV == 2) {
+    const float2 v = ok ? __ldg(reinterpret_cast<const float2*>(from)) : make_float2(0, 0);
+    *reinterpret_cast<uint32_t*>(to) = bf16_pair(v.x, v.y);
+  } else {
+    *to = __float2bfloat16_rn(ok ? __ldg(from) : 0.f);
+  }
+}
+
 // The d*d taps of the block's R x 16 pixels into dst [tap][ldt] (pixel j*16
 // + p at column j*16 + p; zeros past H and W), in VEC-byte pieces: piece q
-// of row (tap t, row j) for each index i = (t R + j) ppr + q.
-template <typename T, int VEC>
-__device__ __forceinline__ void stage_taps_vec(T* dst, const T* __restrict__ filt,
+// of row (tap t, row j) for each index i = (t R + j) ppr + q. Taps staged in
+// their own type T come by cp.async; fp32 taps staged as bf16 (Ts) are read
+// through registers and rounded.
+template <typename Ts, typename T, int VEC>
+__device__ __forceinline__ void stage_taps_vec(Ts* dst, const T* __restrict__ filt,
                                                const Layout& L, int b, int H, int W, int d,
                                                int R, int h0, int w0) {
   constexpr int EV = VEC > (int)sizeof(T) ? VEC / (int)sizeof(T) : 1, PPR = COLS / EV;
@@ -216,24 +255,26 @@ __device__ __forceinline__ void stage_taps_vec(T* dst, const T* __restrict__ fil
   for (int i = threadIdx.x; i < n; i += NT) {
     const int q = i % PPR, r = i / PPR, j = r & (R - 1), t = r >> lr, x = q * EV;
     const bool ok = h0 + j < H && w0 + x < W;
-    T* to = dst + t * L.ldt + j * COLS + x;
+    Ts* to = dst + t * L.ldt + j * COLS + x;
     const T* from = fb + ((size_t)t * H + h0 + j) * W + w0 + x;
-    if (VEC == 2)
+    if constexpr (!std::is_same<Ts, T>::value)
+      round_piece<EV>(to, from, ok);
+    else if (VEC == 2)
       *to = ok ? *from : from_f32<T>(0.f);
     else
       copy_piece<VEC>(to, ok ? from : filt, ok);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void stage_taps(T* dst, const T* __restrict__ filt, const Layout& L,
+template <typename Ts, typename T>
+__device__ __forceinline__ void stage_taps(Ts* dst, const T* __restrict__ filt, const Layout& L,
                                            int b, int H, int W, int d, int R, int h0, int w0,
                                            int vec) {
   switch (vec) {
-    case 16: stage_taps_vec<T, 16>(dst, filt, L, b, H, W, d, R, h0, w0); break;
-    case 8: stage_taps_vec<T, 8>(dst, filt, L, b, H, W, d, R, h0, w0); break;
-    case 4: stage_taps_vec<T, 4>(dst, filt, L, b, H, W, d, R, h0, w0); break;
-    default: stage_taps_vec<T, 2>(dst, filt, L, b, H, W, d, R, h0, w0); break;
+    case 16: stage_taps_vec<Ts, T, 16>(dst, filt, L, b, H, W, d, R, h0, w0); break;
+    case 8: stage_taps_vec<Ts, T, 8>(dst, filt, L, b, H, W, d, R, h0, w0); break;
+    case 4: stage_taps_vec<Ts, T, 4>(dst, filt, L, b, H, W, d, R, h0, w0); break;
+    default: stage_taps_vec<Ts, T, 2>(dst, filt, L, b, H, W, d, R, h0, w0); break;
   }
 }
 
@@ -276,11 +317,26 @@ __device__ __forceinline__ void split_row(uint32_t* hi, uint32_t* lo, const Ti* 
   }
 }
 
-// acc[n-tile] += band(row j, tap row u) x staged row, over the warp's CW
-// channels starting at nb; bf16 operands on m16n8k16. taps: tap 0 of pixel 0
-// of row j, tap row u, in the tap-major stage.
+// The rounded product's operand B from an fp32 input: the staged row src
+// (lines of ldx elements) rounded to bf16 (round to nearest even) into dst
+// (lines of lds elements, the layout ldmatrix reads), the first ne elements
+// of nl lines, four at a time.
+__device__ __forceinline__ void round_row(bf16* dst, const float* src, const Layout& L, int nl,
+                                          int ne) {
+  const int per = ne / 4;
+  for (int i = threadIdx.x; i < nl * per; i += NT) {
+    const int l = i / per, e = (i % per) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(src + l * L.ldx + e);
+    *reinterpret_cast<uint2*>(dst + l * L.lds + e) =
+        make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+  }
+}
+
+// acc[n-tile] += band(row j, tap row u) x row (lines ld elements apart),
+// over the warp's CW channels starting at nb; bf16 operands on m16n8k16.
+// taps: tap 0 of pixel 0 of row j, tap row u, in the tap-major stage.
 template <int CW, bool kCL>
-__device__ __forceinline__ void row_product(float (&acc)[CW / 8][4], const bf16* row,
+__device__ __forceinline__ void row_product(float (&acc)[CW / 8][4], const bf16* row, int ld,
                                             const bf16* taps, const Layout& L, int d, int nks,
                                             int nb) {
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4, mi = lane >> 3;
@@ -290,8 +346,8 @@ __device__ __forceinline__ void row_product(float (&acc)[CW / 8][4], const bf16*
   // row l & 7 of matrix l >> 3: channel-first a row is a channel (plain
   // loads), channels-last a column x (transposed loads)
   const bf16* brow =
-      kCL ? row + ((lane & 7) + ((mi & 1) << 3)) * L.ldx + nb + ((mi >> 1) << 3)
-          : row + (nb + (lane & 7) + ((mi >> 1) << 3)) * L.ldx + ((mi & 1) << 3);
+      kCL ? row + ((lane & 7) + ((mi & 1) << 3)) * ld + nb + ((mi >> 1) << 3)
+          : row + (nb + (lane & 7) + ((mi >> 1) << 3)) * ld + ((mi & 1) << 3);
   for (int ks = 0; ks < nks; ++ks) {
     uint32_t af[4];
     band_fragment(af, tp, 1, d, ks * 16 + 2 * tq, g, L.ldt);
@@ -299,9 +355,9 @@ __device__ __forceinline__ void row_product(float (&acc)[CW / 8][4], const bf16*
     for (int pr = 0; pr < CW / 16; ++pr) {
       uint32_t bfr[4];
       if (kCL)
-        ldsm_x4_trans(bfr, brow + ks * 16 * L.ldx + pr * 16);
+        ldsm_x4_trans(bfr, brow + ks * 16 * ld + pr * 16);
       else
-        ldsm_x4(bfr, brow + pr * 16 * L.ldx + ks * 16);
+        ldsm_x4(bfr, brow + pr * 16 * ld + ks * 16);
       mma_bf16(acc[2 * pr], af, bfr[0], bfr[1]);
       mma_bf16(acc[2 * pr + 1], af, bfr[2], bfr[3]);
     }
@@ -340,17 +396,17 @@ __device__ __forceinline__ void row_product(float (&acc)[CW / 8][4], const uint3
   }
 }
 
-template <typename Ti, typename Tf, int CW, bool kCL>
+template <typename Ti, typename Tf, int CW, bool kCL, bool kRound>
 __global__ void __launch_bounds__(NT, 2)
 adaptive_conv_kernel(const Ti* __restrict__ inp, const Tf* __restrict__ filt,
                      Ti* __restrict__ out, int C, int H, int W, int d, int R, int vec,
                      int vec_taps) {
-  typedef Product<Ti, Tf> P;
+  typedef Product<Ti, Tf, kRound> P;
+  typedef typename P::Ts Ts;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout<Ti, Tf, kCL>(d, R, CW);
-  Tf* s_taps = reinterpret_cast<Tf*>(smem);
+  const Layout L = make_layout<Ti, Tf, kCL, kRound>(d, R, CW);
+  Ts* s_taps = reinterpret_cast<Ts*>(smem);
   Ti* ring = reinterpret_cast<Ti*>(smem + L.ring);
-  uint32_t* split = reinterpret_cast<uint32_t*>(smem + L.split);  // [2][hi, lo][lines][lds]
   const int Hp = H + d - 1, Wp = W + d - 1, nrow = R + d - 1;
   const int n_cb = (C + L.CB - 1) / L.CB;
   const int b = blockIdx.z / n_cb, c0 = (blockIdx.z % n_cb) * L.CB;
@@ -359,23 +415,38 @@ adaptive_conv_kernel(const Ti* __restrict__ inp, const Tf* __restrict__ filt,
   const int j = warp % R, nb = (warp / R) * CW;  // the warp's output row and first channel
   const bool busy = c0 + nb < C;                 // the warp has a channel to compute
   const int nks = (COLS + d - 1 + P::KSTEP - 1) / P::KSTEP;  // k steps that meet the band
-  const int rowsz = L.lines * L.ldx, partsz = L.lines * L.lds;
-  // the TF32 parts of row s: hi, and lo = hi + partsz; the split covers the
-  // columns the k steps reach
-  auto parts = [&](int s) { return split + (s % 2) * P::PARTS * partsz; };
-  const int nl = kCL ? nks * 8 : L.CB, ne = kCL ? L.CB : nks * 8;
+  const int rowsz = L.lines * L.ldx;
+  // the parts of row s ([2][hi, lo or rounded][lines][lds]) cover the columns
+  // the k steps reach
+  auto parts = [&](int s) { return smem + L.split + (s % 2) * P::PARTS * L.part; };
+  const int nl = kCL ? nks * P::KSTEP : L.CB, ne = kCL ? L.CB : nks * P::KSTEP;
+  // staged row s -> the product's operand: its TF32 parts, or rounded to bf16
+  auto prepare = [&](int s) {
+    const Ti* src = ring + (s % P::RING) * rowsz;
+    unsigned char* p = parts(s);
+    if constexpr (P::kDirect) {
+    } else if constexpr (P::kBF16) {
+      round_row(reinterpret_cast<bf16*>(p), src, L, nl, ne);
+    } else {
+      split_row(reinterpret_cast<uint32_t*>(p), reinterpret_cast<uint32_t*>(p + L.part), src,
+                L, nl, ne);
+    }
+  };
 
-  // copy groups: taps and row 0, then rows 1 and 2
-  stage_taps(s_taps, filt, L, b, H, W, d, R, h0, w0, vec_taps);
+  // copy groups: taps and row 0, then rows 1 and 2; taps rounded to bf16 on
+  // the way are read while the rows are in flight
+  constexpr bool kRoundTaps = !std::is_same<Ts, Tf>::value;
+  if constexpr (!kRoundTaps) stage_taps(s_taps, filt, L, b, H, W, d, R, h0, w0, vec_taps);
   for (int s = 0; s < 3; ++s) {
     if (s < nrow)
       stage_row<Ti, kCL>(ring + s * rowsz, inp, L, b, C, Hp, Wp, c0, h0 + s, w0, vec);
     cp_async_commit();
   }
-  if constexpr (!P::kBF16) {  // row 0's parts
+  if constexpr (kRoundTaps) stage_taps(s_taps, filt, L, b, H, W, d, R, h0, w0, vec_taps);
+  if constexpr (!P::kDirect) {  // row 0's operand
     cp_async_wait<2>();
     __syncthreads();
-    split_row(parts(0), parts(0) + partsz, ring, L, nl, ne);
+    prepare(0);
   }
 
   float acc[CW / 8][4];
@@ -385,26 +456,28 @@ adaptive_conv_kernel(const Ti* __restrict__ inp, const Tf* __restrict__ filt,
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
   for (int s = 0; s < nrow; ++s) {
-    // bf16 x bf16: row s has landed; TF32: row s + 1 has (two groups may be
-    // in flight)
+    // a row read as it landed (kDirect): row s has landed; else row s + 1
+    // has (two groups may be in flight)
     cp_async_wait<P::WAIT>();
     __syncthreads();  // ... for every thread; the slots read before are free again
     if (s + 3 < nrow)
       stage_row<Ti, kCL>(ring + ((s + 3) % P::RING) * rowsz, inp, L, b, C, Hp, Wp, c0,
                          h0 + s + 3, w0, vec);
     cp_async_commit();
-    if constexpr (!P::kBF16)
-      if (s + 1 < nrow)
-        split_row(parts(s + 1), parts(s + 1) + partsz, ring + ((s + 1) % P::RING) * rowsz, L,
-                  nl, ne);
+    if constexpr (!P::kDirect)
+      if (s + 1 < nrow) prepare(s + 1);
     const int u = s - j;  // the tap row through which source row s reaches row j
     if (busy && u >= 0 && u < d) {
-      const Tf* tp = s_taps + u * d * L.ldt + j * COLS;
-      if constexpr (P::kBF16)
-        row_product<CW, kCL>(acc, ring + (s % P::RING) * rowsz, tp, L, d, nks, nb);
+      const Ts* tp = s_taps + u * d * L.ldt + j * COLS;
+      if constexpr (P::kDirect)
+        row_product<CW, kCL>(acc, ring + (s % P::RING) * rowsz, L.ldx, tp, L, d, nks, nb);
+      else if constexpr (P::kBF16)
+        row_product<CW, kCL>(acc, reinterpret_cast<const bf16*>(parts(s)), L.lds, tp, L, d,
+                             nks, nb);
       else
-        row_product<CW, kCL, Tf, P::kSplitB>(acc, parts(s), parts(s) + partsz, tp, L, d, nks,
-                                             nb);
+        row_product<CW, kCL, Tf, P::kSplitB>(acc, reinterpret_cast<const uint32_t*>(parts(s)),
+                                             reinterpret_cast<const uint32_t*>(parts(s) + L.part),
+                                             tp, L, d, nks, nb);
     }
   }
 
@@ -451,35 +524,38 @@ inline int copy_width(const void* base, size_t row_bytes) {
   return 2;
 }
 
-template <typename Ti, typename Tf, bool kCL, int CW>
+template <typename Ti, typename Tf, bool kCL, bool kRound, int CW>
 int launch_cw(const void* inp, const void* filt, void* out, int B, int C, int H, int W, int d,
               int R, cudaStream_t stream) {
-  const Layout L = make_layout<Ti, Tf, kCL>(d, R, CW);
+  // bf16 x bf16 has nothing to round: kRound takes the unrounded instantiation
+  constexpr bool kR = kRound && !Product<Ti, Tf, false>::kBF16;
+  const auto kernel = adaptive_conv_kernel<Ti, Tf, CW, kCL, kR>;
+  const Layout L = make_layout<Ti, Tf, kCL, kR>(d, R, CW);
   if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(adaptive_conv_kernel<Ti, Tf, CW, kCL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return (int)err;
   // channel-first rows of W + d - 1 elements; channels-last pixels of C
   const int vec = copy_width(inp, (size_t)(kCL ? C : W + d - 1) * sizeof(Ti));
   const int vec_taps = copy_width(filt, (size_t)W * sizeof(Tf));
   dim3 grid((W + COLS - 1) / COLS, (H + R - 1) / R, B * ((C + L.CB - 1) / L.CB));
-  adaptive_conv_kernel<Ti, Tf, CW, kCL><<<grid, NT, L.total, stream>>>(
-      static_cast<const Ti*>(inp), static_cast<const Tf*>(filt), static_cast<Ti*>(out), C, H,
-      W, d, R, vec, vec_taps);
+  kernel<<<grid, NT, L.total, stream>>>(static_cast<const Ti*>(inp), static_cast<const Tf*>(filt),
+                                        static_cast<Ti*>(out), C, H, W, d, R, vec, vec_taps);
   return (int)cudaGetLastError();
 }
 
-template <typename Ti, typename Tf, bool kCL>
+template <typename Ti, typename Tf, bool kCL, bool kRound = false>
 int launch(const void* inp, const void* filt, void* out, int B, int C, int H, int W, int d,
            int R, int CW, cudaStream_t stream) {
-  if (d < 1 || d > MAX_D || (R != 1 && R != 2 && R != 4 && R != 8) || C < 1 || H < 1 || W < 1)
+  if (d < 1 || d > (kRound ? MAX_D_ROUNDED : MAX_D) || (R != 1 && R != 2 && R != 4 && R != 8) ||
+      C < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   switch (CW) {
-    case 16: return launch_cw<Ti, Tf, kCL, 16>(inp, filt, out, B, C, H, W, d, R, stream);
-    case 32: return launch_cw<Ti, Tf, kCL, 32>(inp, filt, out, B, C, H, W, d, R, stream);
-    case 64: return launch_cw<Ti, Tf, kCL, 64>(inp, filt, out, B, C, H, W, d, R, stream);
-    case 128: return launch_cw<Ti, Tf, kCL, 128>(inp, filt, out, B, C, H, W, d, R, stream);
+    case 16: return launch_cw<Ti, Tf, kCL, kRound, 16>(inp, filt, out, B, C, H, W, d, R, stream);
+    case 32: return launch_cw<Ti, Tf, kCL, kRound, 32>(inp, filt, out, B, C, H, W, d, R, stream);
+    case 64: return launch_cw<Ti, Tf, kCL, kRound, 64>(inp, filt, out, B, C, H, W, d, R, stream);
+    case 128:
+      return launch_cw<Ti, Tf, kCL, kRound, 128>(inp, filt, out, B, C, H, W, d, R, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -488,12 +564,12 @@ int launch(const void* inp, const void* filt, void* out, int B, int C, int H, in
 typedef int (*Launch)(const void*, const void*, void*, int, int, int, int, int, int, int,
                       cudaStream_t);
 
-template <bool kCL>
+template <bool kCL, bool kRound = false>
 int launch_pair(const void* inp, const void* filt, void* out, int B, int C, int H, int W,
                 int d, int inp_bf16, int filt_bf16, int R, int CW, cudaStream_t stream) {
   static const Launch table[2][2] = {
-      {launch<float, float, kCL>, launch<float, bf16, kCL>},
-      {launch<bf16, float, kCL>, launch<bf16, bf16, kCL>}};
+      {launch<float, float, kCL, kRound>, launch<float, bf16, kCL, kRound>},
+      {launch<bf16, float, kCL, kRound>, launch<bf16, bf16, kCL, kRound>}};
   return table[inp_bf16 != 0][filt_bf16 != 0](inp, filt, out, B, C, H, W, d, R, CW, stream);
 }
 

@@ -30,8 +30,10 @@ operand split in two. Their plain version is ``adaptive_conv_tapmajor_plain``.
 the same NCHW contract but another function: both operands are rounded to
 bf16 first, the bf16 x bf16 products summed in fp32, the output in the
 input's dtype. K4f computes it in column chunks of min(112, pad8(W)) and
-takes d <= 17, as the JAX kernel does. Their CUDA kernels are in
-``rs_ov_torch/csrc/adaptive_conv_bf16.cu``, their plain version is
+takes d <= 17, as the JAX kernel does. On the card both are the banded
+kernel with its rounded product (bf16 operands on m16n8k16, fp32 operands
+rounded as they are staged; entries in ``rs_ov_torch/csrc/adaptive_conv.cu``),
+where K4f's chunk is only a tiling; their plain version is
 ``adaptive_conv_bf16_plain``.
 """
 
@@ -56,35 +58,54 @@ ROWS, WARP_CHANNELS = (1, 2, 4, 8), (16, 32, 64, 128)
 # grid gives every SM a block, else the last. The fastest at the main path's
 # shapes (B=2, C=512; d=11 at 56^2 and 28^2, d=7 at 56^2) in the sweep of
 # rs_ov_torch/tools/adaptive_conv_tiling.py on the H100 (PERF.md): bf16
-# 8 x 128 at 56^2 (224 blocks), 2 x 32 at 28^2; fp32 (TF32) 4 x 32 at both.
-TILINGS = {"bf16": ((8, 128), (2, 32)), "tf32": ((4, 32),)}
+# 8 x 128 at 56^2 (224 blocks), 2 x 32 at 28^2; fp32 (TF32) 4 x 32 at both;
+# K4e/K4f with an fp32 input 8 x 128 at 56^2 and d=7 224^2, 4 x 64 at 28^2
+# (112 blocks; 2 x 32 is 5-11% slower there), with a bf16 input bf16's.
+TILINGS = {"bf16": ((8, 128), (2, 32)), "tf32": ((4, 32),), "rounded": ((8, 128), (4, 64))}
 
 
-def _product(dtype: torch.dtype, filt_dtype: torch.dtype | None = None) -> str:
-    """The kernel's product for an operand pair: "bf16" where both are bf16,
-    else "tf32" (each fp32 operand split into two TF32 parts)."""
-    return "bf16" if dtype == (filt_dtype or dtype) == torch.bfloat16 else "tf32"
+def _product(dtype: torch.dtype, filt_dtype: torch.dtype | None = None,
+             rounded: bool = False) -> str:
+    """The kernel's product and pipeline for an operand pair: "bf16" where a
+    bf16 input row feeds the bf16 product as it lands (both operands bf16,
+    or with ``rounded``, K4e/K4f, any bf16 input: fp32 taps are rounded as
+    they are staged); "rounded" where an fp32 input row is rounded to bf16
+    once it lands; else "tf32" (each fp32 operand split into two TF32
+    parts)."""
+    if dtype == torch.bfloat16 and (rounded or filt_dtype in (None, torch.bfloat16)):
+        return "bf16"
+    return "rounded" if rounded else "tf32"
 
 
 def _smem_bytes(d: int, rows: int, cw: int, dtype: torch.dtype,
-                filt_dtype: torch.dtype | None = None, channels_last: bool = False) -> int:
+                filt_dtype: torch.dtype | None = None, channels_last: bool = False,
+                rounded: bool = False) -> int:
     """Shared memory of a block at (d, R, channels per warp) for an input of
-    ``dtype`` and taps of ``filt_dtype`` (default: the same): the taps of its
-    R x 16 pixels ([d*d][R*16 + 8]) and the larger of the output stage and
-    the staged source rows (4 rows on the bf16 product; on the TF32 one 3
-    rows and two steps of their TF32 parts, hi and, for an fp32 input, lo),
-    a row [channels][32 or 64 columns + 16 bytes] channel-first,
-    [32 or 64 columns][channels + 16 bytes] channels-last. The mirror of
-    ``make_layout`` in ``csrc/adaptive_conv.cuh`` (``rs_adaptive_conv_smem``
-    returns the library's own count)."""
-    si, sf = dtype.itemsize, (filt_dtype or dtype).itemsize
+    ``dtype`` and taps of ``filt_dtype`` (default: the same), both rounded to
+    bf16 with ``rounded`` (channel-first only): the taps of its R x 16 pixels
+    ([d*d][R*16 + 8], in bf16 where rounded) and the larger of the output
+    stage and the staged source rows (4 rows where a bf16 input feeds the
+    bf16 product; else 3 rows and two steps of their parts: TF32 hi and, for
+    an fp32 input, lo, [lines][row + 4] words, or the rounded row [channels]
+    [32 or 64 columns + 8] bf16), a row [channels][32 or 64 columns + 16
+    bytes] channel-first, [32 or 64 columns][channels + 16 bytes]
+    channels-last. The mirror of ``make_layout`` in ``csrc/adaptive_conv.cuh``
+    (``rs_adaptive_conv_smem`` returns the library's own count)."""
+    if rounded and channels_last:
+        raise ValueError("the rounded product is channel-first only")
+    product = _product(dtype, filt_dtype, rounded)
+    si, sf = dtype.itemsize, 2 if rounded else (filt_dtype or dtype).itemsize
     cb, xw = cw * (_WARPS // rows), 32 if d <= 17 else 64
     lines = xw if channels_last else cb
     ldx = (cb if channels_last else xw) + 16 // si
-    lds = cb + 8 if channels_last else xw + 4
-    ring, parts = (4, 0) if _product(dtype, filt_dtype) == "bf16" else (3, 2 if si == 4 else 1)
+    if product == "tf32":  # 3 rows, parts hi[, lo] in words
+        ring, parts, lds, part_sz = 3, 2 if si == 4 else 1, cb + 8 if channels_last else xw + 4, 4
+    elif si == 4:  # an fp32 input: 3 rows, each rounded into one bf16 part
+        ring, parts, lds, part_sz = 3, 1, xw + 8, 2
+    else:  # a bf16 input feeding the bf16 product: 4 rows read as they land
+        ring, parts, lds, part_sz = 4, 0, 0, 0
     taps = -(-d * d * (rows * _COLS + 8) * sf // 128) * 128
-    work = ring * lines * ldx * si + 2 * parts * lines * lds * 4
+    work = ring * lines * ldx * si + 2 * parts * lines * lds * part_sz
     ostage = _WARPS * cw * (_COLS + 16 // si) * si
     return taps + max(work, ostage)
 
@@ -95,27 +116,35 @@ def _blocks(b: int, c: int, h: int, w: int, rows: int, cw: int) -> int:
 
 
 def _tiling(b: int, c: int, h: int, w: int, d: int, dtype: torch.dtype, sms: int,
-            filt_dtype: torch.dtype | None = None,
-            channels_last: bool = False) -> tuple[int, int]:
+            filt_dtype: torch.dtype | None = None, channels_last: bool = False,
+            rounded: bool = False) -> tuple[int, int]:
     """(R, channels per warp) for a call on a card of ``sms`` SMs: the first
     of the product's ``TILINGS`` whose grid fills the SMs (else the last),
     each warp's channels cut to what C needs; where that block does not fit
     in shared memory (large d), the first that does with R and the channels
     no larger."""
-    options = TILINGS[_product(dtype, filt_dtype)]
+    options = TILINGS[_product(dtype, filt_dtype, rounded)]
     rows, cw = next((t for t in options if _blocks(b, c, h, w, *t) >= sms), options[-1])
     while cw > 16 and cw * (_WARPS // rows) >= 2 * c:
         cw //= 2
+    needs = {}
     for r in (x for x in ROWS[::-1] if x <= rows):
         for k in (x for x in WARP_CHANNELS[::-1] if x <= cw):
-            if _smem_bytes(d, r, k, dtype, filt_dtype, channels_last) <= SMEM_MAX:
+            needs[r, k] = _smem_bytes(d, r, k, dtype, filt_dtype, channels_last, rounded)
+            if needs[r, k] <= SMEM_MAX:
                 return r, k
-    raise ValueError(f"adaptive_conv kernel: no block fits in shared memory at d={d}")
+    raise ValueError(f"adaptive_conv kernel: no block fits in shared memory at d={d}: the "
+                     f"smallest needs {min(needs.values())} bytes, a block may use {SMEM_MAX}")
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    """The SMs of a CUDA device (its index, or the current one)."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def adaptive_conv_tapmajor_plain(inp: torch.Tensor, filt_t: torch.Tensor,
@@ -166,8 +195,7 @@ def _adaptive_conv_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: i
     _check(inp, filt_t, diameter)
     b, c, _, _ = inp.shape
     _, _, h, w = filt_t.shape
-    index = inp.device.index if inp.device.index is not None else torch.cuda.current_device()
-    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sm_count(index))
+    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sms(inp.device))
     out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
     return out, _ENTRY[inp.dtype], (inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(), b, c,
                                     h, w, diameter, rows, cw)
@@ -223,8 +251,7 @@ def _layout_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
     if diameter > MAX_D:
         raise ValueError(f"{entry} takes d <= {MAX_D} (its widest band), got d={diameter}")
     _, _, h, w = filt_t.shape
-    index = inp.device.index if inp.device.index is not None else torch.cuda.current_device()
-    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sm_count(index),
+    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sms(inp.device),
                                  filt_t.dtype, channels_last)
     src = inp.permute(0, 2, 3, 1).contiguous() if channels_last else inp
     out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
@@ -292,6 +319,8 @@ adaptive_conv_cl.launches = 0      # (K4d)
 # ---------------------------------------------------------------------------
 
 V4_MAX_D = 17  # the JAX kernel's chunk + window must fit 128 lanes (WT + d - 1 <= 128)
+ROUNDED_MAX_D = 49  # the kernel's widest band: 16 + d - 1 <= 64 columns
+_ROUNDED_ENTRY = {False: "rs_adaptive_conv_v3", True: "rs_adaptive_conv_v4"}
 
 
 def adaptive_conv_bf16_plain(inp: torch.Tensor, filt_t: torch.Tensor,
@@ -306,37 +335,42 @@ def adaptive_conv_bf16_plain(inp: torch.Tensor, filt_t: torch.Tensor,
 
 
 def v4_chunk(w: int) -> int:
-    """K4f's output columns per block: min(112, W padded to a multiple of 8)
-    (rs_ov/kernels/adaptive_conv_v4.py:92)."""
+    """The JAX K4f's output columns per grid step: min(112, W padded to a
+    multiple of 8) (rs_ov/kernels/adaptive_conv_v4.py:92). On the card the
+    chunk is only a tiling of the kernel's 16-column blocks."""
     return min(112, -(-w // 8) * 8)
 
 
-def _bf16_smem(tw: int, d: int) -> int:
-    """Shared memory of a K4e/K4f block: 32 channels x (8+d-1) rows x
-    (tw+d-1) columns of the input, in bf16."""
-    return 2 * 32 * (8 + d - 1) * (tw + d - 1)
-
-
-def _adaptive_conv_bf16_cuda(entry: str, inp: torch.Tensor, filt_t: torch.Tensor,
-                             d: int, tw: int) -> torch.Tensor:
-    _check_shapes(inp, filt_t, d)
+def _rounded_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
+                      chunked: bool = False, tiling: tuple[int, int] | None = None):
+    """K4e's (``chunked`` False) or K4f's operands checked and the output
+    allocated. Returns (out, entry, args): ``load_library().<entry>(*args,
+    stream)`` is the bare library call, at ``tiling`` (R, channels per warp)
+    or ``_tiling``'s for the rounded product. K4f takes d <= 17; both take d
+    up to the widest band where a block fits in shared memory (every d <= 44
+    with an fp32 input, <= 49 with a bf16 one)."""
+    entry = _ROUNDED_ENTRY[chunked]
+    _check_shapes(inp, filt_t, diameter)
     if inp.dtype not in _TYPES or filt_t.dtype not in _TYPES:
         raise ValueError(f"{entry} takes bf16 or fp32 for each operand, got inp "
                          f"{inp.dtype} and filt_t {filt_t.dtype}")
-    smem = _bf16_smem(tw, d)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{entry}: a block needs {smem} bytes of shared memory at d={d}; "
-                         f"the card gives {SMEM_MAX}")
+    max_d = V4_MAX_D if chunked else ROUNDED_MAX_D
+    if diameter > max_d:
+        raise ValueError(f"{entry} takes d <= {max_d}, got d={diameter}")
     b, c, _, _ = inp.shape
     _, _, h, w = filt_t.shape
+    rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sms(inp.device),
+                                 filt_t.dtype, rounded=True)
     out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
-    lib = load_library()
-    flags = (int(inp.dtype == torch.bfloat16), int(filt_t.dtype == torch.bfloat16))
-    chunk = (tw,) if entry == "rs_adaptive_conv_v4" else ()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(getattr(lib, entry)(inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(),
-                                  b, c, h, w, d, *chunk, *flags, stream), entry)
+    return out, entry, (inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(), b, c, h, w, diameter,
+                        int(inp.dtype == torch.bfloat16), int(filt_t.dtype == torch.bfloat16),
+                        rows, cw)
+
+
+def _rounded_cuda(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
+                  chunked: bool) -> torch.Tensor:
+    out, entry, args = _rounded_operands(inp, filt_t, diameter, chunked)
+    check(launch(getattr(load_library(), entry), args, inp.device), entry)
     return out
 
 
@@ -347,7 +381,7 @@ def adaptive_conv_v3(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> 
     version, CUDA tensors kernel K4e."""
     if _on_cpu(inp, "adaptive_conv_v3"):
         return adaptive_conv_bf16_plain(inp, filt_t, diameter)
-    out = _adaptive_conv_bf16_cuda("rs_adaptive_conv_v3", inp, filt_t, diameter, 32)
+    out = _rounded_cuda(inp, filt_t, diameter, False)
     adaptive_conv_v3.launches += 1
     return out
 
@@ -361,8 +395,7 @@ def adaptive_conv_v4(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> 
         raise ValueError(f"adaptive_conv_v4 takes d <= {V4_MAX_D}, got d={diameter}")
     if _on_cpu(inp, "adaptive_conv_v4"):
         return adaptive_conv_bf16_plain(inp, filt_t, diameter)
-    out = _adaptive_conv_bf16_cuda("rs_adaptive_conv_v4", inp, filt_t, diameter,
-                                   v4_chunk(filt_t.shape[-1]))
+    out = _rounded_cuda(inp, filt_t, diameter, True)
     adaptive_conv_v4.launches += 1
     return out
 

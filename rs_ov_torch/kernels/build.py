@@ -54,11 +54,11 @@ _SIGNATURES = {
     "rs_jbu_block_smem": [_I, _I, _I, _I, _I],
     "rs_adaptive_conv_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rs_adaptive_conv_smem": [_I, _I, _I, _I, _I, _I],
+    "rs_adaptive_conv_smem": [_I, _I, _I, _I, _I, _I, _I],
     "rs_adaptive_conv_planes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_adaptive_conv_cl": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rs_adaptive_conv_v3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rs_adaptive_conv_v4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_v3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rs_adaptive_conv_v4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_selfself_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }

@@ -1,21 +1,24 @@
 """The tiling sweep of the banded adaptive conv kernel: K4a (bf16), K4b
-(fp32), K4c (planes) and K4d (channels-last) in each operand pair.
+(fp32), K4c (planes), K4d (channels-last), K4e and K4f (both operands
+rounded to bf16) in each operand pair.
 
     python3 -m rs_ov_torch.tools.adaptive_conv_tiling [--out work_dirs/adaptive_conv_tiling.json]
-        [--kernels K4a K4b K4c K4d]
+        [--kernels K4a K4b K4c K4d K4e K4f]
 
 For K4a and K4b at each of the channel-first route's shapes (B=2, C=512:
-d=11 at 56^2 and 28^2, d=7 at 56^2), and for K4c and K4d in each pair of
-input and tap dtypes (bf16 or fp32 each) at d=11, 56^2 and 28^2, times the
-bare library call at every tiling the kernel takes, R in (1, 2, 4, 8)
-output rows a block by 16, 32, 64 or 128 channels a warp (the blocks whose
-shared memory fits), as device time per launch (CUDA events around 20
-launches back to back, the median of 9 such runs, after 3 launches; K4d's
+d=11 at 56^2 and 28^2, d=7 at 56^2), for K4c and K4d in each pair of input
+and tap dtypes (bf16 or fp32 each) at d=11, 56^2 and 28^2, and for K4e and
+K4f in each pair at those and at jbu_stack's d=7, 224^2, times the bare
+library call at every tiling the kernel takes, R in (1, 2, 4, 8) output
+rows a block by 16, 32, 64 or 128 channels a warp (the blocks whose shared
+memory fits), as device time per launch (CUDA events around 20 launches
+back to back, the median of 9 such runs, after 3 launches; K4d's
 channels-last copy of the input made once, outside), checks each tiling's
 output against the plain version (max|d|/max|ref|: 1e-5 with an fp32
 input, 1e-2 with a bf16 one), and prints the times, the fastest tiling per
 shape and the wrapper's choice (``kernels.adaptive_conv._tiling``) beside
-the card's name and power limit.
+the card's name and power limit. Not in the default run: ``--kernels K4e
+K4f`` (no request calls them).
 """
 
 from __future__ import annotations
@@ -68,24 +71,31 @@ def main(argv=None) -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(k, (dt, dt), d, hw) for k, dt in (("K4a", bf), ("K4b", f32)) for d, hw in SHAPES]
     cases += [(k, pair, 11, hw) for k in ("K4c", "K4d") for pair in PAIRS for hw in (56, 28)]
+    cases += [(k, pair, d, hw) for k in ("K4e", "K4f") for pair in PAIRS
+              for d, hw in ((11, 56), (11, 28), (7, 224))]
     rng = np.random.RandomState(0)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     result = {"card": card, "runs": []}
     for key, (dt_in, dt_f), d, hw in (c for c in cases if c[0] in opts.kernels):
-        channels_last = key == "K4d"
+        channels_last, rounded = key == "K4d", key in ("K4e", "K4f")
+        plain = ac.adaptive_conv_bf16_plain if rounded else ac.adaptive_conv_tapmajor_plain
         inp = torch.from_numpy(rng.randn(B, C, hw + d - 1, hw + d - 1).astype(np.float32))
         filt = torch.from_numpy(rng.randn(B, d * d, hw, hw).astype(np.float32))
         inp, filt = inp.to(dev, dt_in), filt.to(dev, dt_f)
-        ref = ac.adaptive_conv_tapmajor_plain(inp, filt, d).float()
+        ref = plain(inp, filt, d).float()
         scale = ref.abs().max().item()
         times = {}
         for rows in ac.ROWS:
             for cw in ac.WARP_CHANNELS:
-                if ac._smem_bytes(d, rows, cw, dt_in, dt_f, channels_last) > ac.SMEM_MAX:
+                if ac._smem_bytes(d, rows, cw, dt_in, dt_f, channels_last,
+                                  rounded) > ac.SMEM_MAX:
                     continue
                 if key in ("K4a", "K4b"):
                     out, name, args = ac._adaptive_conv_operands(inp, filt, d, (rows, cw))
+                elif rounded:
+                    out, name, args = ac._rounded_operands(inp, filt, d, key == "K4f",
+                                                           (rows, cw))
                 else:
                     out, name, args, _src = ac._layout_operands(inp, filt, d, channels_last,
                                                                 (rows, cw))
@@ -100,7 +110,7 @@ def main(argv=None) -> dict:
                                            cb=cw * 8 // rows, ms=ms, rel_err=rel))
         best = min(times, key=times.get)
         chosen = "{}x{}".format(*ac._tiling(B, C, hw, hw, d, dt_in, ac._sm_count(0), dt_f,
-                                            channels_last))
+                                            channels_last, rounded))
         print(f"[tiling] {key} inp {str(dt_in)[6:]} taps {str(dt_f)[6:]} d={d} H=W={hw}: "
               f"fastest R x channels/warp {best} {times[best]:.4f} ms; the wrapper's {chosen} "
               f"{times[chosen]:.4f} ms; " + " ".join(f"{k} {v:.4f}" for k, v in times.items()))

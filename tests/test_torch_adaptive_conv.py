@@ -248,4 +248,5 @@ def test_smem_mirror_matches_the_library(cuda):
             for rows in ac.ROWS:
                 for cw in ac.WARP_CHANNELS:
                     assert ac._smem_bytes(d, rows, cw, dtype) == \
-                        lib.rs_adaptive_conv_smem(d, rows, cw, size, size, 0), (dtype, d, rows, cw)
+                        lib.rs_adaptive_conv_smem(d, rows, cw, size, size, 0, 0), \
+                        (dtype, d, rows, cw)

@@ -297,4 +297,4 @@ def test_smem_mirror_matches_the_library(cuda):
                     for cw in ac.WARP_CHANNELS:
                         assert ac._smem_bytes(d, rows, cw, dt_in, dt_f, channels_last) == \
                             lib.rs_adaptive_conv_smem(d, rows, cw, dt_in.itemsize,
-                                                      dt_f.itemsize, int(channels_last))
+                                                      dt_f.itemsize, int(channels_last), 0)

@@ -90,10 +90,12 @@ def test_cuda_sources_note_their_tpu_kernel_and_export_the_bound_signatures():
 
 
 def test_bf16_adaptive_conv_source_names_its_tpu_kernels():
-    """K4e/K4f's source names both JAX kernels it replaces, by file and
-    function."""
-    with open(os.path.join(REPO, "rs_ov_torch", "csrc", "adaptive_conv_bf16.cu")) as f:
-        head = f.read().split("#include")[0]
+    """The source of K4e/K4f's entries names both JAX kernels they replace,
+    by file and function."""
+    with open(os.path.join(REPO, "rs_ov_torch", "csrc", "adaptive_conv.cu")) as f:
+        text = f.read()
+    assert "rs_adaptive_conv_v3(" in text and "rs_adaptive_conv_v4(" in text
+    head = text.split("#include")[0]
     assert "rs_ov/kernels/adaptive_conv_v3.py" in head and "adaptive_conv_pallas_v3" in head
     assert "rs_ov/kernels/adaptive_conv_v4.py" in head and "adaptive_conv_pallas_v4" in head
 

@@ -33,7 +33,15 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 against their plain version with every fp32 product summed
                 in order (the order in which K3 re-takes a sum near a bf16
                 midpoint; cuBLAS picks its own by size), the gap to the
-                plain version as cuBLAS sums it printed beside.
+                plain version as cuBLAS sums it printed beside. Then each
+                at the other towers' shapes (TOWER_STAGES) beside the
+                dropped tap: K1 at d=11 on 14^2, 32^2 and 64^2; K2 and K5a
+                at C=512 14^2 (ViT-B/32), 768 and 1024 32^2 (ViT-L/14,
+                ViT-H/14), 256 28^2 (BLIP); K3 and K5b at their last
+                stages (28^2, 64^2, 64^2, 56^2); K4b and K4a at C=768 and
+                1024 on 32^2 and 64^2; K6 in bf16 and fp32, each mode with
+                the sim map, at L=50 hd=64 (12 heads), L=257 hd=64 and
+                L=257 hd=80 (16 heads).
   4. slice    - SegmentorEx from configs/base_config.py (CLIP ViT-B/16,
                 random weights) on the Potsdam vocabulary: predict_raw on
                 three 512x512 images on each route: bf16 channel-last (K1,
@@ -57,6 +65,15 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 K3 on one default request's last-stage operands: how many of
                 its rounded sums land near a bf16 midpoint (the kernel takes
                 those again in order) and its time on them.
+                Then the other towers at full width, random weights (a
+                warm-up and two timed requests each): one tower of each
+                arch the segmentor resolves (ViT-B-32, ViT-B-16,
+                ViT-B-16-quickgelu, ViT-L-14, ViT-L-14-quickgelu, ViT-H-14)
+                on the bf16 channel-last route, ViT-L-14 and ViT-H-14 also
+                with RS_OV_FUSED_ATTN=1 and in fp32 channel-first with and
+                without it; GEM on CLIP ViT-B/16 (gem_depth 7) in bf16
+                channel-last and fp32 channel-first; BLIP base in bf16
+                channel-last (the committed WordPiece vocabulary).
                 Checks outputs and that every launch counter moved by
                 exactly the expected amount; prints crops/s (224²) and 512²
                 tiles/s (crops/s / 16) per route over the requests after the
@@ -77,7 +94,11 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 TAUS) and, for path (b), the share of CTD's DBSCAN labels
                 that agree. A planted fault (one of the last block's 12
                 attention heads zeroed, bf16 default route) must fail the
-                decided-pixel gate against the fp32 CPU run.
+                decided-pixel gate against the fp32 CPU run. GEM, BLIP
+                base (on BLIP_CLASSES; on Potsdam's printed, not gated) and
+                ViT-L-14 in bf16 on the card against their fp32 CPU runs on
+                the decided pixels; one head of GEM's gem stream zeroed
+                must fail that gate.
   6. eval     - twelve 512x512 images with Potsdam labels written as PNG
                 under a temporary RS_OV_DATA_ROOT in configs/cfg_potsdam.py's
                 layout; the port's run_eval from cfg_potsdam (ViT-B/16 at full
@@ -128,6 +149,11 @@ B, D, K, C, G, Q = 2, 11, 32, 512, 3, 8
 HBM_BPS, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
 CHUNKS = 8  # 16 crops of a 512x512 image in chunks of 2
 DEV = torch.device("cuda")
+# The stages the other towers give the JBU kernels (jbu_one, d=11, two
+# stages): (C, the first stage's output grid, the last stage's); ViT-B/32
+# 512 channels on a 7^2 token grid, ViT-L/14 768 and ViT-H/14 1024 on 16^2,
+# BLIP 256 on 14^2.
+TOWER_STAGES = ((512, 14, 28), (768, 32, 64), (1024, 32, 64), (256, 28, 56))
 
 
 def phase_device():
@@ -191,7 +217,7 @@ def _bound(nbytes: float, fp32_ops: float = 0.0, bf16_ops: float = 0.0,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _epilogue_bound(h, w, with_classify, d=D, fused=False):
+def _epilogue_bound(h, w, with_classify, d=D, fused=False, C=C):
     """K2 / K3 (or K5a / K5b with ``fused``) at B, C, G, K (fixup MLP width
     d*d): bytes of every input read once and the output written once; the
     conv and the classify products have bf16 operands, the range logits, the
@@ -211,7 +237,7 @@ def _epilogue_bound(h, w, with_classify, d=D, fused=False):
     return _bound(nbytes, fp32_ops, bf16_ops)
 
 
-def _epilogue_inputs(rng, h, w, dev, d=D):
+def _epilogue_inputs(rng, h, w, dev, d=D, C=C):
     bf = torch.bfloat16
 
     def t(a, dt=torch.float32):
@@ -340,18 +366,18 @@ def _tail_without_rounding():
         mod._cls_tail = tail
 
 
-def _classify_check(rng, dev, tail, d, hw):
-    """K3 at d, hw against its plain version with every product summed in
-    order (_in_order), beside three faults of the plain version (the last
-    tap dropped, the fixup bias left out, the normalised vector left
-    unrounded), each of which must land above K3_TOL; then the
-    bare library call (one launch on operands checked once) timed in turns
-    with the wrapper's call, whose operand checks and allocation add host
-    time to the events' window. The row's ``ms`` is the wrapper's, as in
-    every row; ``kernel_ms`` the bare call's."""
+def _classify_check(rng, dev, tail, d, hw, c=C, more_faults=True):
+    """K3 at d, hw, c channels against its plain version with every product
+    summed in order (_in_order), beside the plain version with its last tap
+    dropped and, with ``more_faults``, two more faults of it (the fixup bias
+    left out, the normalised vector left unrounded), each of which must land
+    above K3_TOL; then the bare library call (one launch on operands checked
+    once) timed in turns with the wrapper's call, whose operand checks and
+    allocation add host time to the events' window. The row's ``ms`` is the
+    wrapper's, as in every row; ``kernel_ms`` the bare call's."""
     from rs_ov_torch.kernels import jbu_epilogue as mod
 
-    a = {**_epilogue_inputs(rng, hw, hw, dev, d), **tail}
+    a = {**_epilogue_inputs(rng, hw, hw, dev, d, c), **tail}
     plain = lambda: mod.jbu_epilogue_classify_plain(**a, diameter=d)  # noqa: E731
     wrapper = lambda: mod.jbu_epilogue_classify(**a, diameter=d)  # noqa: E731
 
@@ -363,15 +389,25 @@ def _classify_check(rng, dev, tail, d, hw):
         with _tail_without_rounding():
             return plain()
 
-    c = _check(f"K3 jbu_epilogue_classify d={d} H=W={hw}", K3_TOL, wrapper, plain, dropped,
-               _epilogue_bound(hw, hw, True, d),
-               faults=[("the fixup bias left out", lambda: mod.jbu_epilogue_classify_plain(
-                   **{**a, "fixup_b": torch.zeros_like(a["fixup_b"])}, diameter=d)),
-                       ("the normalised vector unrounded", unrounded)],
+    faults = [("the fixup bias left out", lambda: mod.jbu_epilogue_classify_plain(
+        **{**a, "fixup_b": torch.zeros_like(a["fixup_b"])}, diameter=d)),
+              ("the normalised vector unrounded", unrounded)]
+    tag = f"d={d} H=W={hw}" + ("" if c == C else f" C={c}")
+    r = _check(f"K3 jbu_epilogue_classify {tag}", K3_TOL, wrapper, plain, dropped,
+               _epilogue_bound(hw, hw, True, d, C=c), faults=faults if more_faults else (),
                oracle=_in_order(plain))
     _out, args, _keep = mod._classify_operands(**a, diameter=d)  # _out outlives the calls
-    _bare_beside_wrapper(f"K3 d={d} H=W={hw}", c, "rs_jbu_epilogue_classify", args, wrapper)
-    return c
+    _bare_beside_wrapper(f"K3 {tag}", r, "rs_jbu_epilogue_classify", args, wrapper)
+    return r
+
+
+def _tail(rng, dev, c=C):
+    """The classify tail at c channels: a bf16 fixup conv and bias, Q unit
+    query vectors."""
+    fw = torch.from_numpy((rng.randn(c, c) / np.sqrt(c)).astype(np.float32)).to(dev, torch.bfloat16)
+    fb = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)).to(dev, torch.bfloat16)
+    qf = torch.from_numpy(rng.randn(Q, c).astype(np.float32)).to(dev)
+    return dict(fixup_w=fw, fixup_b=fb, query_features=qf / qf.norm(dim=-1, keepdim=True))
 
 
 def _bare_beside_wrapper(label, c, entry, args, wrapper):
@@ -406,7 +442,7 @@ def phase_kernels():
     rng = np.random.RandomState(0)
 
     k1 = []
-    for d, hw in ((11, 56), (11, 28), (7, 28), (7, 224)):
+    for d, hw in ((11, 56), (11, 28), (7, 28), (7, 224), (11, 14), (11, 32), (11, 64)):
         proj = torch.from_numpy(rng.randn(B, K, hw, hw).astype(np.float32)).to(dev)
         padded = reflect_pad_2d(proj, d // 2).contiguous()
         bound = _bound(4 * B * K * ((hw + d - 1) ** 2 + hw * hw) + 4 * B * d * d * hw * hw,
@@ -420,28 +456,29 @@ def phase_kernels():
         k1.append((f"B={B} K={K} d={d} H=W={hw}", c))
 
     k2 = []
-    for d, hw in ((11, 28), (7, 28), (7, 112)):
-        a = _epilogue_inputs(rng, hw, hw, dev, d)
+    for d, hw, c in ((11, 28, C), (7, 28, C), (7, 112, C),
+                     *((11, first, c) for c, first, _ in TOWER_STAGES)):
+        a = _epilogue_inputs(rng, hw, hw, dev, d, c)
 
         def faulty():
             with _epilogue_conv_without_last_tap():
                 return jbu_epilogue_plain(**a, diameter=d)
 
+        tag = f"d={d} H=W={hw}" + ("" if c == C else f" C={c}")
         wrapper = lambda: jbu_epilogue(**a, diameter=d)  # noqa: E731
-        c = _check(f"K2 jbu_epilogue d={d} H=W={hw}", K2_TOL, wrapper,
+        r = _check(f"K2 jbu_epilogue {tag}", K2_TOL, wrapper,
                    lambda: jbu_epilogue_plain(**a, diameter=d), faulty,
-                   _epilogue_bound(hw, hw, False, d))
+                   _epilogue_bound(hw, hw, False, d, C=c))
         _out, args, _keep = _epilogue_operands(**a, diameter=d)  # _out outlives the calls
-        _bare_beside_wrapper(f"K2 d={d} H=W={hw}", c, "rs_jbu_epilogue", args, wrapper)
-        k2.append((f"B={B} d={d} C={C} G={G} H=W={hw}", c))
+        _bare_beside_wrapper(f"K2 {tag}", r, "rs_jbu_epilogue", args, wrapper)
+        k2.append((f"B={B} d={d} C={c} G={G} H=W={hw}", r))
 
-    fw = torch.from_numpy((rng.randn(C, C) / np.sqrt(C)).astype(np.float32)).to(dev, torch.bfloat16)
-    fb = torch.from_numpy((rng.randn(C) * 0.1).astype(np.float32)).to(dev, torch.bfloat16)
-    qf = torch.from_numpy(rng.randn(Q, C).astype(np.float32)).to(dev)
-    qf = qf / qf.norm(dim=-1, keepdim=True)
-    tail = dict(fixup_w=fw, fixup_b=fb, query_features=qf)
+    tail = _tail(rng, dev)
     k3 = [(f"B={B} d={d} C={C} G={G} Q={Q} H=W={hw}", _classify_check(rng, dev, tail, d, hw))
           for d, hw in ((11, 56), (7, 224))]
+    k3 += [(f"B={B} d=11 C={c} G={G} Q={Q} H=W={last}",
+            _classify_check(rng, dev, _tail(rng, dev, c), 11, last, c, more_faults=False))
+           for c, _, last in TOWER_STAGES]
 
     rows = {
         "range_logits": _row("range_logits", "rs_ov_torch/csrc/range_logits.cu",
@@ -452,7 +489,7 @@ def phase_kernels():
                                       "rs_ov_torch/csrc/jbu_classify_sm90.cu",
                                       "rs_ov/kernels/jbu_epilogue.py:333", k3)}
     rows.update(_adaptive_conv_kernels(rng, dev))
-    rows.update(_fused_range_kernels(rng, dev, tail))
+    rows.update(_fused_range_kernels(rng, dev))
     rows.update(_adaptive_layout_kernels(rng, dev))
     rows.update(_bf16_conv_kernels(rng, dev))
     rows["fused_selfself_attention"] = _selfself_attention_kernel(rng, dev)
@@ -472,13 +509,13 @@ def _zero_padding():
         mod._pad_nhwc = pad
 
 
-def _fused_inputs(rng, hw, dev, d):
+def _fused_inputs(rng, hw, dev, d, c=C):
     """One fused-range stage's operands: the unpadded bf16 source, the fp32
     projection [B, H, W, K] (scaled so that the tap softmax spreads over the
     window) and the channel-first bf16 guidance; the rest as K2's."""
-    a = _epilogue_inputs(rng, hw, hw, dev, d)
+    a = _epilogue_inputs(rng, hw, hw, dev, d, c)
     del a["logits_t"], a["guid_t"]
-    a["inp"] = torch.from_numpy(rng.randn(B, hw, hw, C).astype(np.float32)).to(dev, torch.bfloat16)
+    a["inp"] = torch.from_numpy(rng.randn(B, hw, hw, c).astype(np.float32)).to(dev, torch.bfloat16)
     a["proj"] = torch.from_numpy((rng.randn(B, hw, hw, K) * 0.3).astype(np.float32)).to(dev)
     a["guid_cf"] = torch.from_numpy(rng.randn(B, G, hw, hw).astype(np.float32)).to(
         dev, torch.bfloat16)
@@ -505,26 +542,29 @@ def _split_stage(a, d, tail=None):
     return jbu_epilogue_classify(*args, **tail, diameter=d)
 
 
-def _fused_range_kernels(rng, dev, tail):
-    """K5a at K2's shapes (d=11 28^2, d=7 28^2 and 112^2) and K5b at K3's
-    (d=11 56^2, d=7 224^2), B=2, C=512, K=32, G=3, Q=8, within K2's and K3's
-    bounds of their plain versions, beside two faults (the last tap dropped;
-    zero padding in place of reflection), with the bare library call timed
-    beside the wrapper; then against the split pair each replaces (K1 +
-    reflect pads + K2 / K3) on the card, within the same bound, with the
-    count of outputs that differ from it at all and the pair's time and the
-    kernel's taken in turns."""
+def _fused_range_kernels(rng, dev):
+    """K5a at K2's shapes (d=11 28^2, d=7 28^2 and 112^2, and the other
+    towers' first stages) and K5b at K3's (d=11 56^2, d=7 224^2, and the
+    other towers' last stages), B=2, K=32, G=3, Q=8, C=512 or the tower's,
+    within K2's and K3's bounds of their plain versions, beside two faults
+    (the last tap dropped; at C=512 zero padding in place of reflection),
+    with the bare library call timed beside the wrapper; then against the
+    split pair each replaces (K1 + reflect pads + K2 / K3) on the card,
+    within the same bound, with the count of outputs that differ from it at
+    all and the pair's time and the kernel's taken in turns."""
     from rs_ov_torch.kernels import jbu_epilogue as mod
 
     rows = {}
-    for key, tol, name, tpu_line, shapes, extra in (
+    for key, tol, name, tpu_line, shapes, classify in (
             ("K5a", K2_TOL, "jbu_epilogue_fused", "rs_ov/kernels/jbu_epilogue.py:640",
-             ((11, 28), (7, 28), (7, 112)), None),
+             ((11, 28, C), (7, 28, C), (7, 112, C),
+              *((11, first, c) for c, first, _ in TOWER_STAGES)), False),
             ("K5b", K3_TOL, "jbu_epilogue_fused_classify", "rs_ov/kernels/jbu_epilogue.py:675",
-             ((11, 56), (7, 224)), tail)):
+             ((11, 56, C), (7, 224, C), *((11, last, c) for c, _, last in TOWER_STAGES)), True)):
         checks = []
-        for d, hw in shapes:
-            a = _fused_inputs(rng, hw, dev, d)
+        for d, hw, c in shapes:
+            a = _fused_inputs(rng, hw, dev, d, c)
+            extra = _tail(rng, dev, c) if classify else None
             t = {} if extra is None else extra
             if extra is None:
                 kernel = lambda: mod.jbu_epilogue_fused(**a, diameter=d)  # noqa: E731
@@ -543,26 +583,26 @@ def _fused_range_kernels(rng, dev, tail):
                 with _zero_padding():
                     return plain()
 
-            label = f"{key} d={d} H=W={hw}"
-            c = _check(f"{key} {name} d={d} H=W={hw}", tol, kernel, plain, dropped,
-                       _epilogue_bound(hw, hw, extra is not None, d, fused=True),
-                       faults=[("zero padding", zero_padded)],
+            label = f"{key} d={d} H=W={hw}" + ("" if c == C else f" C={c}")
+            r = _check(f"{key} {name} {label[4:]}", tol, kernel, plain, dropped,
+                       _epilogue_bound(hw, hw, extra is not None, d, fused=True, C=c),
+                       faults=[("zero padding", zero_padded)] if c == C else (),
                        oracle=None if extra is None else _in_order(plain))
             _out, args, _keep = operands(**a, **t, diameter=d)  # _out outlives the calls
-            _bare_beside_wrapper(label, c, entry, args, kernel)
+            _bare_beside_wrapper(label, r, entry, args, kernel)
             split = lambda: _split_stage(a, d, extra)  # noqa: E731
             got, ref = kernel().float(), split().float()
-            c["split_rel"] = (got - ref).abs().max().item() / ref.abs().max().item()
-            c["split_ndiff"] = int((got != ref).sum())
-            c["split_ms"], c["split_kernel_ms"] = _timed_pair(split, kernel)
+            r["split_rel"] = (got - ref).abs().max().item() / ref.abs().max().item()
+            r["split_ndiff"] = int((got != ref).sum())
+            r["split_ms"], r["split_kernel_ms"] = _timed_pair(split, kernel)
             print(f"[kernels] {label} against the split pair K1 + pads + "
-                  f"{'K3' if extra is not None else 'K2'}: max|d|/max|ref|={c['split_rel']:.3e} "
-                  f"(tol {tol}), {c['split_ndiff']} of {ref.numel()} outputs differ; in turns: "
-                  f"split pair {c['split_ms']:.4f} ms, kernel {c['split_kernel_ms']:.4f} ms "
+                  f"{'K3' if extra is not None else 'K2'}: max|d|/max|ref|={r['split_rel']:.3e} "
+                  f"(tol {tol}), {r['split_ndiff']} of {ref.numel()} outputs differ; in turns: "
+                  f"split pair {r['split_ms']:.4f} ms, kernel {r['split_kernel_ms']:.4f} ms "
                   f"on {CARD['smi']}")
-            assert c["split_rel"] <= tol, f"{key} disagrees with the split pair"
-            checks.append((f"B={B} d={d} C={C} K={K} G={G}"
-                           + (f" Q={Q}" if extra is not None else "") + f" H=W={hw}", c))
+            assert r["split_rel"] <= tol, f"{key} disagrees with the split pair"
+            checks.append((f"B={B} d={d} C={c} K={K} G={G}"
+                           + (f" Q={Q}" if extra is not None else "") + f" H=W={hw}", r))
         rows[name] = _row(name, "rs_ov_torch/csrc/jbu_classify_sm90.cu", tpu_line, checks)
     return rows
 
@@ -688,7 +728,8 @@ def _bf16_conv_kernels(rng, dev):
 def _adaptive_conv_kernels(rng, dev):
     """K4b (fp32) and K4a (bf16) against the plain loop, on normal-distributed
     taps, at the channel-first route's shapes: jbu_one's two stages (d=11 at
-    56^2 and 28^2) and jbu_stack's d=7 at 56^2, the bare library call timed
+    56^2 and 28^2) and jbu_stack's d=7 at 56^2, and ViT-L/14's and ViT-H/14's
+    two stages (C=768 and 1024 at 32^2 and 64^2), the bare library call timed
     beside the wrapper's. The rows lead with d=11, 56^2. K4b's bound counts
     every product as 3 TF32 products (3xTF32 on the tensor cores), with the
     fp32 cores' reckoning beside it."""
@@ -702,32 +743,34 @@ def _adaptive_conv_kernels(rng, dev):
              "rs_ov/kernels/adaptive_conv_v5.py:68")):
         esz = torch.finfo(dtype).bits // 8
         checks = []
-        for d, hw in ((11, 56), (11, 28), (7, 56)):
-            inp = torch.from_numpy(rng.randn(B, C, hw + d - 1, hw + d - 1).astype(np.float32))
+        for d, hw, c in ((11, 56, C), (11, 28, C), (7, 56, C),
+                         *((11, hw, c) for c, first, last in TOWER_STAGES if c > C
+                           for hw in (first, last))):
+            inp = torch.from_numpy(rng.randn(B, c, hw + d - 1, hw + d - 1).astype(np.float32))
             filt = torch.from_numpy(rng.randn(B, d * d, hw, hw).astype(np.float32))
             inp, filt = inp.to(dev, dtype), filt.to(dev, dtype)
-            ops = 2 * B * C * hw * hw * d * d
-            nbytes = esz * (inp.numel() + filt.numel() + B * C * hw * hw)
+            ops = 2 * B * c * hw * hw * d * d
+            nbytes = esz * (inp.numel() + filt.numel() + B * c * hw * hw)
             bound = (_bound(nbytes, tf32_ops=3 * ops) if dtype == torch.float32
                      else _bound(nbytes, bf16_ops=ops))
             wrapper = lambda: ac.adaptive_conv_tapmajor(inp, filt, d)  # noqa: E731
-            label = f"{key} {name} d={d} H=W={hw}"
-            c = _check(label, tol, wrapper,
+            label = f"{key} {name} d={d} H=W={hw}" + ("" if c == C else f" C={c}")
+            r = _check(label, tol, wrapper,
                        lambda: ac.adaptive_conv_tapmajor_plain(inp, filt, d),
                        lambda: ac.adaptive_conv_tapmajor_plain(inp, _last_tap_dropped(filt), d),
                        bound)
             _out, entry, args = ac._adaptive_conv_operands(inp, filt, d)  # _out outlives them
-            _bare_beside_wrapper(label, c, entry, args, wrapper)
-            c["tiling"] = list(args[-2:])
+            _bare_beside_wrapper(label, r, entry, args, wrapper)
+            r["tiling"] = list(args[-2:])
             if dtype == torch.float32:
-                c["bound_ms_fp32_cores"] = _bound(nbytes, fp32_ops=ops)[0]
+                r["bound_ms_fp32_cores"] = _bound(nbytes, fp32_ops=ops)[0]
                 print(f"[kernels] {label}: bound {bound[0]:.4f} ms by {bound[1]} (3xTF32 on the "
-                      f"tensor cores); {c['bound_ms_fp32_cores']:.4f} ms reckoned with every "
+                      f"tensor cores); {r['bound_ms_fp32_cores']:.4f} ms reckoned with every "
                       f"product once at the fp32 cores' rate; tiling R x channels/warp "
                       f"{args[-2]} x {args[-1]}")
             else:
                 print(f"[kernels] {label}: tiling R x channels/warp {args[-2]} x {args[-1]}")
-            checks.append((f"B={B} C={C} d={d} H=W={hw}", c))
+            checks.append((f"B={B} C={c} d={d} H=W={hw}", r))
         rows[name] = _row(name, "rs_ov_torch/csrc/adaptive_conv.cu", tpu_line, checks)
     return rows
 
@@ -743,78 +786,98 @@ K6_SOURCE = {torch.bfloat16: "rs_ov_torch/csrc/selfself_attention_sm90.cu",
 def _selfself_attention_kernel(rng, dev):
     """K6 at the main path's shapes (16 crops of a 512x512 image, 12 heads,
     L=197, hd=64) in each mode, with and without the sim map, in bf16
-    (within 1e-2 of max|ref|: a bf16 step of the output) and fp32 (1e-5).
-    The row leads with the base config's case: Experimental, bf16, sim map;
-    the fp32 cases name their own source. The fault is the plain version
-    with its last key masked out of every softmax, through a -inf in the sim
-    map's last column. Each case times the bare library call beside the
-    wrapper. For vanilla and ClearCLIP one scaled_dot_product_attention call
-    (in the inputs' dtype; its bf16 version rounds the weights, so it is a
-    yardstick of time, not of numbers) is timed as the library call; no
-    single call computes the other modes. Each bound counts what the kernel
-    multiplies on the tensor cores: in bf16 the score products and, per
-    softmax term, weights @ v as the pair hi + lo; in fp32 the score
-    products and weights @ v per term, each as three TF32 products (3xTF32).
-    Beside each, the earlier reckoning: bf16 with weights @ v once at the
-    fp32 rate, fp32 with every product once at the fp32 cores' rate."""
-    from rs_ov_torch.kernels.selfself_attention import (SUPPORTED_MODES, _attention_operands,
-                                                        fused_selfself_attention,
-                                                        fused_selfself_attention_plain)
+    (within 1e-2 of max|ref|: a bf16 step of the output) and fp32 (1e-5);
+    then at the other towers' shapes with the sim map, in each mode and
+    both dtypes: ViT-B/32 (12 heads, L=50, hd=64), ViT-L/14 (16 heads,
+    L=257, hd=64) and ViT-H/14 (16 heads, L=257, hd=80; fp32 stages the
+    score operands in turn in one slot). The row leads with the base
+    config's case: Experimental, bf16, sim map; the fp32 cases name their
+    own source. The fault is the plain version with its last key masked out
+    of every softmax, through a -inf in the sim map's last column. Each case
+    times the bare library call beside the wrapper. For vanilla and
+    ClearCLIP one scaled_dot_product_attention call (in the inputs' dtype;
+    its bf16 version rounds the weights, so it is a yardstick of time, not
+    of numbers) is timed as the library call; no single call computes the
+    other modes. Each bound counts what the kernel multiplies on the tensor
+    cores: in bf16 the score products and, per softmax term, weights @ v as
+    the pair hi + lo; in fp32 the score products and weights @ v per term,
+    each as three TF32 products (3xTF32). Beside each, the earlier
+    reckoning: bf16 with weights @ v once at the fp32 rate, fp32 with every
+    product once at the fp32 cores' rate."""
+    from rs_ov_torch.kernels.selfself_attention import SUPPORTED_MODES
 
-    b, h, l, hd = 16, 12, 197, 64
-    q32, k32, v32 = (torch.from_numpy(rng.randn(b, h, l, hd).astype(np.float32)).to(dev)
-                     for _ in range(3))
-    sim = torch.from_numpy(np.pad((rng.randn(b, l - 1, l - 1) * 0.5).astype(np.float32),
-                                  ((0, 0), (1, 0), (1, 0)))).to(dev)
+    checks = []
     cases = [(m, dt, s) for dt in (torch.bfloat16, torch.float32) for m in SUPPORTED_MODES
              for s in (True, False)]
     cases.remove(("Experimental", torch.bfloat16, True))
-    checks = []
-    for mode, dtype, with_sim in [("Experimental", torch.bfloat16, True)] + cases:
-        q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-        sm = sim if with_sim else None
-        masked = (sim if with_sim else torch.zeros_like(sim)).clone()
-        masked[..., -1] = float("-inf")
-        prod = 2 * b * h * l * l * hd
-        nbytes = 4 * b * h * l * hd * q.element_size() + (4 * b * l * l if with_sim else 0)
-        n = K6_SCORES[mode]
-        if dtype == torch.bfloat16:
-            bound = _bound(nbytes, bf16_ops=(n + 2 * K6_TERMS.get(mode, 1)) * prod)
-            earlier = _bound(nbytes, fp32_ops=prod, bf16_ops=n * prod)
-        else:
-            bound = _bound(nbytes, tf32_ops=3 * (n + K6_TERMS.get(mode, 1)) * prod)
-            earlier = _bound(nbytes, fp32_ops=(n + 1) * prod)
-        tag = f"{mode} {str(dtype)[6:]} {'sim' if with_sim else 'no sim'}"
-        wrapper = lambda: fused_selfself_attention(q, k, v, sm, mode=mode)  # noqa: E731
-        c = _check(f"K6 fused_selfself_attention {tag}", K6_TOL[dtype], wrapper,
-                   lambda: fused_selfself_attention_plain(q, k, v, sm, mode=mode),
-                   lambda: fused_selfself_attention_plain(q, k, v, masked, mode=mode),
-                   bound, dropped="key")
-        _out, entry, args = _attention_operands(q, k, v, sm, mode, 1.0)  # _out outlives them
-        _bare_beside_wrapper(f"K6 {tag}", c, entry, args, wrapper)
-        if dtype == torch.bfloat16:
-            c["bound_ms_weights_v_fp32"] = earlier[0]
-            print(f"[kernels] K6 {tag}: bound {bound[0]:.4f} ms by {bound[1]} (weights @ v on "
-                  f"the tensor cores); {earlier[0]:.4f} ms by {earlier[1]} reckoned with "
-                  f"weights @ v at the fp32 rate")
-        else:
-            c["source"] = K6_SOURCE[dtype]
-            c["bound_ms_fp32_cores"] = earlier[0]
-            print(f"[kernels] K6 {tag}: bound {bound[0]:.4f} ms by {bound[1]} (3xTF32 on the "
-                  f"tensor cores); {earlier[0]:.4f} ms by {earlier[1]} reckoned with every "
-                  f"product once at the fp32 cores' rate")
-        if mode in ("vanilla", "ClearCLIP"):
-            keys = k if mode == "vanilla" else q
-            mask = None if sm is None else sm[:, None].to(dtype)
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, keys, v, attn_mask=mask, scale=hd ** -0.5)
-            sdpa()
-            c["library_ms"] = _median_ms(sdpa)
-            c["library"] = f"scaled_dot_product_attention ({str(dtype)[6:]})"
-            print(f"[kernels] {tag}: scaled_dot_product_attention {c['library_ms']:.4f} ms")
-        checks.append((f"B={b} H={h} L={l} hd={hd} {tag}", c))
+    for b, h, l, hd, shape_cases in (
+            (16, 12, 197, 64, [("Experimental", torch.bfloat16, True)] + cases),
+            *((16, h, l, hd, [(m, dt, True) for dt in (torch.bfloat16, torch.float32)
+                              for m in SUPPORTED_MODES])
+              for h, l, hd in ((12, 50, 64), (16, 257, 64), (16, 257, 80)))):
+        q32, k32, v32 = (torch.from_numpy(rng.randn(b, h, l, hd).astype(np.float32)).to(dev)
+                         for _ in range(3))
+        sim = torch.from_numpy(np.pad((rng.randn(b, l - 1, l - 1) * 0.5).astype(np.float32),
+                                      ((0, 0), (1, 0), (1, 0)))).to(dev)
+        for mode, dtype, with_sim in shape_cases:
+            c = _k6_case(q32.to(dtype), k32.to(dtype), v32.to(dtype), sim if with_sim else None,
+                         mode)
+            tag = f"{mode} {str(dtype)[6:]} {'sim' if with_sim else 'no sim'}"
+            checks.append((f"B={b} H={h} L={l} hd={hd} {tag}", c))
     return _row("fused_selfself_attention", K6_SOURCE[torch.bfloat16],
                 "rs_ov/kernels/selfself_attention.py:78", checks)
+
+
+def _k6_case(q, k, v, sm, mode):
+    """One K6 check (``_selfself_attention_kernel``); sm is the sim map or None."""
+    from rs_ov_torch.kernels.selfself_attention import (_attention_operands,
+                                                        fused_selfself_attention,
+                                                        fused_selfself_attention_plain)
+
+    b, h, l, hd = q.shape
+    dtype = q.dtype
+    masked = (sm if sm is not None else torch.zeros((b, l, l), device=q.device)).clone()
+    masked[..., -1] = float("-inf")
+    prod = 2 * b * h * l * l * hd
+    nbytes = 4 * b * h * l * hd * q.element_size() + (4 * b * l * l if sm is not None else 0)
+    n = K6_SCORES[mode]
+    if dtype == torch.bfloat16:
+        bound = _bound(nbytes, bf16_ops=(n + 2 * K6_TERMS.get(mode, 1)) * prod)
+        earlier = _bound(nbytes, fp32_ops=prod, bf16_ops=n * prod)
+    else:
+        bound = _bound(nbytes, tf32_ops=3 * (n + K6_TERMS.get(mode, 1)) * prod)
+        earlier = _bound(nbytes, fp32_ops=(n + 1) * prod)
+    tag = f"{mode} {str(dtype)[6:]} {'sim' if sm is not None else 'no sim'}"
+    if (l, hd) != (197, 64):
+        tag += f" L={l} hd={hd} H={h}"
+    wrapper = lambda: fused_selfself_attention(q, k, v, sm, mode=mode)  # noqa: E731
+    c = _check(f"K6 fused_selfself_attention {tag}", K6_TOL[dtype], wrapper,
+               lambda: fused_selfself_attention_plain(q, k, v, sm, mode=mode),
+               lambda: fused_selfself_attention_plain(q, k, v, masked, mode=mode),
+               bound, dropped="key")
+    _out, entry, args = _attention_operands(q, k, v, sm, mode, 1.0)  # _out outlives them
+    _bare_beside_wrapper(f"K6 {tag}", c, entry, args, wrapper)
+    if dtype == torch.bfloat16:
+        c["bound_ms_weights_v_fp32"] = earlier[0]
+        print(f"[kernels] K6 {tag}: bound {bound[0]:.4f} ms by {bound[1]} (weights @ v on "
+              f"the tensor cores); {earlier[0]:.4f} ms by {earlier[1]} reckoned with "
+              f"weights @ v at the fp32 rate")
+    else:
+        c["source"] = K6_SOURCE[dtype]
+        c["bound_ms_fp32_cores"] = earlier[0]
+        print(f"[kernels] K6 {tag}: bound {bound[0]:.4f} ms by {bound[1]} (3xTF32 on the "
+              f"tensor cores); {earlier[0]:.4f} ms by {earlier[1]} reckoned with every "
+              f"product once at the fp32 cores' rate")
+    if mode in ("vanilla", "ClearCLIP"):
+        keys = k if mode == "vanilla" else q
+        mask = None if sm is None else sm[:, None].to(dtype)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, keys, v, attn_mask=mask, scale=hd ** -0.5)
+        sdpa()
+        c["library_ms"] = _median_ms(sdpa)
+        c["library"] = f"scaled_dot_product_attention ({str(dtype)[6:]})"
+        print(f"[kernels] {tag}: scaled_dot_product_attention {c['library_ms']:.4f} ms")
+    return c
 
 
 def _base_model_cfg():
@@ -837,6 +900,46 @@ def _clearclip_cfg():
     """Path (c): ClearCLIP with layer fusion; the base config's outlier
     suppression then re-weights through the fused attention."""
     return {**_base_model_cfg(), "model_type": "ClearCLIP", "apply_layer_fusion": True}
+
+
+# Phase 4's other towers, each the base config on its clip_type and vit_type
+# (random weights from the seed): one of each arch _resolve_arch returns
+# besides the base config's ViT-B/16, as (clip_type, vit_type, arch).
+TOWERS = (("RemoteCLIP", "ViT-B/32", "ViT-B-32"), ("OpenCLIP", "ViT-B/16", "ViT-B-16"),
+          ("MetaCLIP", "ViT-B/16", "ViT-B-16-quickgelu"),
+          ("RemoteCLIP", "ViT-L/14", "ViT-L-14"),
+          ("MetaCLIP", "ViT-L/14", "ViT-L-14-quickgelu"),
+          ("GeoRSCLIP", "ViT-H/14", "ViT-H-14"))
+WIDE = ("ViT-L-14", "ViT-H-14")  # also fp32 channel-first, and each with fused attention
+BLIP_VOCAB = "tests/fixtures/blip_decode_vocab.txt"
+# Classes whose names the committed 61-entry WordPiece vocabulary spells
+# (Potsdam's "parking lot", "low vegetation", "car", "clutter" and
+# "background" are all [UNK] strings there, so their queries are equal and
+# their pixels exact ties): phase 5's BLIP pair.
+BLIP_CLASSES = "road\nbuilding\ntree\nwater\ngreen\n"
+
+
+def _tower_cfg(clip_type, vit_type):
+    return {**_base_model_cfg(), "clip_type": clip_type, "vit_type": vit_type}
+
+
+def _gem_cfg():
+    """GEM on the base config's CLIP ViT-B/16 (gem_depth 7) as GEM's own API
+    runs it (rs_ov/gem_api.py: the gem stream keeps its residual,
+    ignore_residual=False), without the global CLS debias: GEM gives no CLS
+    token. With the base config's ignore_residual the random-weights gem
+    stream is near-constant over a crop (a 336² image then has 9 distinct
+    regions), and phase 5's gate did not see a zeroed head on the H100."""
+    return {**_base_model_cfg(), "model_type": "GEM", "global_debias_factor": 0.0,
+            "ignore_residual": False}
+
+
+def _blip_cfg(**kw):
+    """BLIP base (crops at its 224) on the base config, its text queries
+    through the committed WordPiece vocabulary, without the global CLS
+    debias: BLIP's path gives no CLS token."""
+    return {**_base_model_cfg(), "clip_type": "BLIP", "global_debias_factor": 0.0,
+            "blip_vocab_path": BLIP_VOCAB, **kw}
 
 
 KERNELS = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "adaptive_conv_bf16",
@@ -1078,6 +1181,74 @@ def _segmentors():
             "clearclip": SegmentorEx(**_clearclip_cfg(), device=DEV, query_features=qf)}
 
 
+def _build(label, **kw):
+    """A SegmentorEx, its build time printed with its widths."""
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    t0 = time.perf_counter()
+    seg = SegmentorEx(**kw)
+    torch.cuda.synchronize()
+    v = seg.cfg.vision
+    print(f"[slice] {label}: SegmentorEx built in {time.perf_counter() - t0:.2f} s: "
+          f"{v.width} wide, {v.layers} layers, {v.heads} heads, patch {v.patch_size}, "
+          f"embed {seg.cfg.embed_dim}, dtype={seg.param_dtype}")
+    return seg
+
+
+def _drive_towers(images, s, by_path):
+    """The other towers at full width on random weights, each route with a
+    warm-up and two timed requests: one tower of each arch of TOWERS on the
+    bf16 channel-last route, ViT-L-14 and ViT-H-14 also with
+    RS_OV_FUSED_ATTN=1 and in fp32 channel-first with and without it; GEM
+    on CLIP ViT-B/16 in bf16 channel-last and fp32 channel-first; BLIP base
+    in bf16 channel-last. Each model is freed before the next but those
+    phase 5 compares: returned by name."""
+    from rs_ov_torch.core.config import get_model_config
+
+    n = len(images)
+    cl = {"range_logits": n * s * CHUNKS, "jbu_epilogue": n * (s - 1) * CHUNKS,
+          "jbu_epilogue_classify": n * CHUNKS}
+    cf = {"range_logits": n * s * CHUNKS, "adaptive_conv_f32": n * s * CHUNKS}
+    k6 = {"fused_selfself_attention": n}
+    kept = {}
+    for clip_type, vit_type, arch in TOWERS:
+        name = f"{clip_type} {arch}"
+        seg = _build(name, **_tower_cfg(clip_type, vit_type), device=DEV)
+        assert seg.cfg == get_model_config(arch), (name, seg.cfg)
+        by_path[name] = _drive(f"{name} bf16 channel-last (K1 K2 K3)", seg, images, cl)
+        if arch in WIDE:
+            with _env("RS_OV_FUSED_ATTN", "1"):
+                by_path[f"{name} fused attention"] = _drive(
+                    f"{name} bf16 channel-last, RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", seg, images,
+                    {**cl, **k6})
+            seg32 = _build(f"{name} fp32", **_tower_cfg(clip_type, vit_type),
+                           param_dtype=torch.float32, device=DEV,
+                           query_features=seg.query_features.cpu().numpy())
+            by_path[f"{name} fp32 channel-first"] = _drive(
+                f"{name} fp32 channel-first (K1 K4b)", seg32, images, cf)
+            with _env("RS_OV_FUSED_ATTN", "1"):
+                by_path[f"{name} fp32 fused attention"] = _drive(
+                    f"{name} fp32 channel-first, RS_OV_FUSED_ATTN=1 (fp32 K6, K1, K4b)", seg32,
+                    images, {**cf, **k6})
+            del seg32
+        if arch == "ViT-L-14":
+            kept["ViT-L-14"] = seg
+        del seg
+        torch.cuda.empty_cache()
+    gem = kept["GEM"] = _build("GEM on CLIP ViT-B/16", **_gem_cfg(), device=DEV)
+    by_path["GEM"] = _drive("GEM (CLIP ViT-B/16, gem_depth 7) bf16 channel-last (K1 K2 K3)",
+                            gem, images, cl)
+    gem32 = _build("GEM fp32", **_gem_cfg(), param_dtype=torch.float32, device=DEV,
+                   query_features=gem.query_features.cpu().numpy())
+    by_path["GEM fp32 channel-first"] = _drive("GEM fp32 channel-first (K1 K4b)", gem32, images,
+                                               cf)
+    del gem32
+    kept["BLIP"] = _build("BLIP base", **_blip_cfg(), device=DEV)
+    by_path["BLIP"] = _drive("BLIP base bf16 channel-last (K1 K2 K3)", kept["BLIP"], images, cl)
+    torch.cuda.empty_cache()
+    return kept
+
+
 def phase_slice(rows):
     """Each route through SegmentorEx.predict_raw, counters read per route.
     Returns the segmentors on the card, by name, for the e2e phase."""
@@ -1129,6 +1300,7 @@ def phase_slice(rows):
                                     channel_last)
     by_path["entry points"] = _drive_entry_points(segs["base fp32"], images[0])
     _classify_repairs(seg, images[0], rows)
+    segs.update(_drive_towers(images, s, by_path))
     own = {"range_logits": "bf16 channel-last", "jbu_epilogue": "bf16 channel-last",
            "jbu_epilogue_classify": "bf16 channel-last",
            "adaptive_conv_f32": "fp32 channel-first", "adaptive_conv_bf16": "bf16 channel-first",
@@ -1180,7 +1352,10 @@ E2E_PAIRS = (("bf16 channel-first", "bf16 channel-last", 0.95),
              ("jbu_stack fused range", "jbu_stack 4 stages fp32 CPU", 0.95),
              *((f"base batch {i}", f"base single {i}", 0.999) for i in range(3)),
              *((f"(b) fp32 batch {i}", f"(b) fp32 single {i}", 0.99) for i in range(3)),
-             *((f"(b) bf16 batch {i}", f"(b) bf16 single {i}", 0.95) for i in range(3)))
+             *((f"(b) bf16 batch {i}", f"(b) bf16 single {i}", 0.95) for i in range(3)),
+             ("GEM bf16", "GEM fp32 CPU", 0.95),
+             ("BLIP bf16", "BLIP fp32 CPU", 0.95),
+             ("ViT-L-14 bf16", "ViT-L-14 fp32 CPU", 0.95))
 # A pixel is decided where the reference's top-1 minus top-2 class
 # probability (seg_logits) is >= TAU. TAU is the smallest of TAUS at which
 # every pair bounded by 0.95 or 0.99 passed both conditions with the ViT's
@@ -1261,7 +1436,36 @@ def _e2e_outputs(segs):
     with _dbscan_labels() as labels["(b) fp32 CPU"]:
         out["(b) fp32 CPU"] = SegmentorEx(**_stack_cfg(), **cpu).predict_raw(img)[0]
     out["(c) fp32 CPU"] = SegmentorEx(**_clearclip_cfg(), **cpu).predict_raw(img)[0]
-    return out, labels, time.perf_counter() - t0
+    cpu_s = time.perf_counter() - t0
+    out.update(_e2e_towers(segs, img))
+    return out, labels, cpu_s
+
+
+def _e2e_towers(segs, img):
+    """GEM, BLIP base and ViT-L-14 (RemoteCLIP) in bf16 on the card and in
+    fp32 on the CPU, from the same seed and queries. BLIP on BLIP_CLASSES,
+    and on Potsdam's (printed, not gated: its classes tie)."""
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    def pair(name, seg, cfg):
+        out[f"{name} bf16"] = seg.predict_raw(img)[0]
+        cpu = SegmentorEx(**cfg, device="cpu", query_features=seg.query_features.cpu().numpy())
+        out[f"{name} fp32 CPU"] = cpu.predict_raw(img)[0]
+
+    t0 = time.perf_counter()
+    out = {}
+    pair("GEM", segs["GEM"], _gem_cfg())
+    pair("BLIP Potsdam", segs["BLIP"], _blip_cfg())
+    pair("ViT-L-14", segs["ViT-L-14"], _tower_cfg("RemoteCLIP", "ViT-L/14"))
+    with tempfile.TemporaryDirectory() as tmp:
+        classes = os.path.join(tmp, "cls_blip.txt")
+        with open(classes, "w") as f:
+            f.write(BLIP_CLASSES)
+        cfg = _blip_cfg(name_path=classes)
+        pair("BLIP", SegmentorEx(**cfg, device=DEV), cfg)
+    print(f"[e2e] GEM, BLIP and ViT-L-14 on the card and the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _pair_numbers(run, ref, tau):
@@ -1305,6 +1509,24 @@ def _one_head_zeroed(head=0):
         vit.custom_attn = fn
 
 
+@contextlib.contextmanager
+def _gem_head_zeroed(head=0):
+    """GEM's self-self attention with one head of its gem stream zeroed (the
+    ori stream, which feeds the next block, untouched)."""
+    from rs_ov_torch.nn import gem
+
+    fn = gem.self_self_attention
+
+    def faulty(p, x, heads, **kw):
+        return fn(_HeadZeroed(p, head, heads), x, heads, **kw)[0], fn(p, x, heads, **kw)[1]
+
+    gem.self_self_attention = faulty
+    try:
+        yield
+    finally:
+        gem.self_self_attention = fn
+
+
 def phase_e2e(segs):
     out, labels, cpu_s = _e2e_outputs(segs)
     for a, b, need in E2E_PAIRS:
@@ -1331,6 +1553,20 @@ def phase_e2e(segs):
           f"{decided:.6f} on {share:.4f} of the pixels (must fail: decided < "
           f"{DECIDED_AGREE}); at margin {_at_taus(bad, out['fp32 CPU'])}")
     assert not pair_passes(0.95, agree, decided, share), "the gate does not see the fault"
+    a, b = "BLIP Potsdam bf16", "BLIP Potsdam fp32 CPU"
+    agree, decided, share = _pair_numbers(out[a], out[b], TAU)
+    print(f"[e2e] {a} vs {b} (not gated: Potsdam's names are [UNK] strings in the committed "
+          f"vocabulary, so their queries tie): argmax agreement {agree:.6f}, decided {decided:.6f} "
+          f"on {share:.4f}; at margin {_at_taus(out[a], out[b])}")
+    # and for GEM: one head of the last block's gem stream zeroed, bf16
+    with _gem_head_zeroed():
+        bad = segs["GEM"].predict_raw(_e2e_image())[0]
+    agree, decided, share = _pair_numbers(bad, out["GEM fp32 CPU"], TAU)
+    print(f"[e2e] planted fault, one of 12 heads of the gem stream zeroed, GEM bf16 vs GEM "
+          f"fp32 CPU: argmax agreement {agree:.6f}, decided {decided:.6f} on {share:.4f} of "
+          f"the pixels (must fail: decided < {DECIDED_AGREE}); at margin "
+          f"{_at_taus(bad, out['GEM fp32 CPU'])}")
+    assert not pair_passes(0.95, agree, decided, share), "the gate does not see the GEM fault"
     print(f"[e2e] CPU runs {cpu_s:.1f} s")
 
 

@@ -24,7 +24,7 @@ from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
 __all__ = ["LayerNorm", "ResBlock", "VisionTower", "TextTower", "CLIP",
            "Proj2", "JBUModule", "JBUOne", "JBUStack", "init_clip_params",
            "init_jbu_one_params", "init_jbu_stack_params",
-           "clip_params_from_numpy", "jbu_params_from_numpy",
+           "clip_params_from_numpy", "blip_params_from_numpy", "jbu_params_from_numpy",
            "load_numpy_tree"]
 
 
@@ -297,6 +297,15 @@ def load_numpy_tree(module: nn.Module, tree) -> nn.Module:
 def clip_params_from_numpy(tree, cfg: CLIPConfig) -> CLIP:
     """The JAX ``init_clip_params`` pytree (numpy leaves) as a CPU fp32 CLIP."""
     return load_numpy_tree(CLIP(cfg), tree)
+
+
+def blip_params_from_numpy(tree):
+    """The JAX ``init_blip_params`` / ``blip_params_from_state_dict`` pytree
+    (numpy leaves) as a CPU fp32 ``rs_ov_torch.nn.blip.Blip``, shaped by the
+    tree: cross-attention layers, ``itm_head`` and ``temp`` where present."""
+    from rs_ov_torch.nn.blip import blip_from_tree  # nn.blip builds on this module
+
+    return blip_from_tree(tree)
 
 
 def jbu_params_from_numpy(tree, feat_dim: int, guidance_dim: int = 3,

@@ -59,8 +59,21 @@
 // product runs where the block has room for them (ClearCLIP's two operands),
 // else read from device memory in the fragments' layout: staging them at
 // L = 197 would take 5 warps a block and 3 blocks a head, which ran slower
-// on the H100 than the loads. An hd past 64 takes the scores again for each
-// further 64 output channels.
+// on the H100 than the loads. An hd past 64 (ViT-H/14's 80) takes weights @
+// v in passes of 64 output channels over the same weights; only SCLIP and
+// SegEarth, whose terms' weights meet v apart, take the scores again for
+// each further pass. hd <= 64 has instantiations of its own (MULTI false),
+// in which the weights die as weights @ v reads them: held across passes
+// they spill at L > 208.
+//
+// Where the three operands do not fit a block (ViT-H/14's L = 257, hd = 80:
+// 264096 B), the score operands share one slot of L rows, staged in turn
+// beside v (each self-self score product q q^T, k k^T or v v^T reads only its
+// own operand), with a barrier before and after each restage: (257 + 272) x
+// 84 x 4 = 177744 B there. vanilla's q k^T reads k from the slot and each
+// warp's own 16 query rows from a slice of the block's rows of q staged after
+// v. The order of the products, and so every sum, is the three-operand
+// layout's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,9 +99,28 @@ __host__ __device__ inline Shape make_shape(int L, int hd) {
   return Shape{L, hd, (L + 15) / 16 * 16, hd + 4};
 }
 
-// Bytes of the staged operands: (n - 1) L rows, then v's LP.
-__host__ __device__ inline size_t operand_bytes(int mode, const Shape& sh) {
-  return ((size_t)(n_operands(mode) - 1) * sh.L + sh.LP) * sh.ld * sizeof(float);
+// Bytes of the staged operands: (n - 1) L rows, then v's LP; with one slot
+// for the score operands (single), L rows, v's LP and for vanilla the block's
+// nw x 16 rows of q.
+__host__ __device__ inline size_t operand_bytes(int mode, const Shape& sh, int single, int nw) {
+  const size_t rows = single ? (size_t)sh.L + sh.LP + (mode == VANILLA ? 16 * nw : 0)
+                             : (size_t)(n_operands(mode) - 1) * sh.L + sh.LP;
+  return rows * sh.ld * sizeof(float);
+}
+
+// Warps a block and blocks a head: up to NW_MAX warps (16-row query tiles) a
+// block, over as few blocks a head as that allows.
+__host__ __device__ inline void block_shape(const Shape& sh, int& blocks, int& nw) {
+  const int tiles = sh.LP / 16;
+  blocks = (tiles + NW_MAX - 1) / NW_MAX;
+  nw = (tiles + blocks - 1) / blocks;
+}
+
+// The layout a launch takes: the three-operand one where it fits, else one
+// slot for the score operands; 0 where neither fits.
+__host__ __device__ inline int pick_layout(int mode, const Shape& sh, int nw, int& single) {
+  single = operand_bytes(mode, sh, 0, nw) > (size_t)SMEM_MAX;
+  return operand_bytes(mode, sh, single, nw) <= (size_t)SMEM_MAX;
 }
 
 // The B fragments of key tiles t .. t+G-1 (those below N), two tiles a
@@ -217,13 +249,44 @@ __device__ __forceinline__ void stage(float* dst, const float* x, int rows, int 
   }
 }
 
-// KT: key tiles of 8 a warp holds (L <= 8 KT)
-template <int MODE, int KT>
+// Output channels [c0, c0 + 64) of the warp's rows (rows of hd floats).
+__device__ __forceinline__ void store_rows(float* out, const float (&o)[HC / 8][4], int c0,
+                                           int hd, int r0, int L, int g, int tq) {
+#pragma unroll
+  for (int n = 0; n < HC / 8; ++n) {
+    const int c = c0 + 8 * n + 2 * tq;
+    if (c < hd) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + g + 8 * hf;
+        if (row < L)
+          *reinterpret_cast<float2*>(out + (size_t)row * hd + c) =
+              make_float2(o[n][2 * hf], o[n][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// The single-slot layout's restage: once every warp is done with what the
+// slot holds, operand x's L rows into it, landed for every warp on return.
+__device__ __forceinline__ void restage(float* slot, const float* x, const Shape& sh, int warp,
+                                        int nw, int lane) {
+  __syncthreads();
+  stage(slot, x, sh.L, sh.L, sh, warp, nw, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// KT: key tiles of 8 a warp holds (L <= 8 KT); MULTI: hd > 64, more than
+// one pass of weights @ v. single: the score operands share one slot
+// (operand_bytes).
+template <int MODE, int KT, bool MULTI>
 __global__ void __launch_bounds__(NW_MAX * 32, 1)
 selfself_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ sim,
                               float* __restrict__ out, int H, int L, int hd, float scale,
-                              float sim_weight, int sim_staged) {
+                              float sim_weight, int sim_staged, int single) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Shape sh = make_shape(L, hd);
   const int nw = blockDim.x / 32;
@@ -232,23 +295,38 @@ selfself_attention_f32_kernel(const float* __restrict__ q, const float* __restri
   constexpr bool NEED_K = MODE != CLEARCLIP;
   // the first score product's operands, and its A and B
   constexpr bool K_FIRST = MODE == SFP || MODE == EXPERIMENTAL;
+  const bool two_slots = NEED_K && !single;
   float* sq = reinterpret_cast<float*>(smem);
-  float* sk = sq + (size_t)L * sh.ld;
-  float* sv = NEED_K ? sk + (size_t)L * sh.ld : sk;
-  const float* first_a = K_FIRST ? sk : sq;
-  const float* first_b = MODE == VANILLA ? sk : first_a;
-
-  // group 1: the first product's operands; group 2: the rest
+  float* sk = two_slots ? sq + (size_t)L * sh.ld : sq;  // single: one slot, sq == sk
+  float* sv = sk + (size_t)L * sh.ld;
+  float* sqb = sv + (size_t)sh.LP * sh.ld;  // single vanilla: the block's rows of q
   const size_t head = (size_t)bh * L * hd;
-  if (!K_FIRST) stage(sq, q + head, L, L, sh, warp, nw, lane);
-  if (MODE == VANILLA || K_FIRST) stage(sk, k + head, L, L, sh, warp, nw, lane);
-  cp_async_commit();
-  if (K_FIRST) stage(sq, q + head, L, L, sh, warp, nw, lane);
-  if (MODE == SCLIP || MODE == SEGEARTH) stage(sk, k + head, L, L, sh, warp, nw, lane);
+  const float *gq = q + head, *gk = k + head;
+  const int r0 = (blockIdx.y * nw + warp) * 16;
+  const bool vanilla_rows = MODE == VANILLA && single;
+  const float* first_a = vanilla_rows ? sqb : (K_FIRST ? sk : sq);
+  const float* first_b = MODE == VANILLA ? sk : first_a;
+  const int ra = vanilla_rows ? 16 * warp : r0;  // the first product's A row
+  // the operand the slot must hold for the first product
+  const float* first_x = MODE == VANILLA || K_FIRST ? gk : gq;
+
+  if (single) {  // group 1: the slot's first operand (vanilla: and its q rows)
+    stage(sq, first_x, L, L, sh, warp, nw, lane);
+    if (MODE == VANILLA) {
+      const int row0 = blockIdx.y * nw * 16;
+      stage(sqb, gq + (size_t)row0 * hd, min(16 * nw, L - row0), 16 * nw, sh, warp, nw, lane);
+    }
+    cp_async_commit();
+  } else {  // group 1: the first product's operands; group 2: the rest
+    if (!K_FIRST) stage(sq, gq, L, L, sh, warp, nw, lane);
+    if (MODE == VANILLA || K_FIRST) stage(sk, gk, L, L, sh, warp, nw, lane);
+    cp_async_commit();
+    if (K_FIRST) stage(sq, gq, L, L, sh, warp, nw, lane);
+    if (MODE == SCLIP || MODE == SEGEARTH) stage(sk, gk, L, L, sh, warp, nw, lane);
+  }
   stage(sv, v + head, L, sh.LP, sh, warp, nw, lane);
   cp_async_commit();
 
-  const int r0 = (blockIdx.y * nw + warp) * 16;
   const bool active = r0 < L;
   const int nkt = (L + 7) / 8, rows = min(16, L - r0);
   // the warp's sim rows (per image, b = bh / H): staged into shared memory
@@ -258,7 +336,7 @@ selfself_attention_f32_kernel(const float* __restrict__ q, const float* __restri
   if (sim != nullptr && active) {
     simg = sim + ((size_t)(bh / H) * L + r0) * L;
     if (sim_staged)
-      simg = stage_sim(reinterpret_cast<float*>(smem + operand_bytes(MODE, sh)) +
+      simg = stage_sim(reinterpret_cast<float*>(smem + operand_bytes(MODE, sh, single, nw)) +
                            warp * sim_slice(L), simg, rows * L, lane);
     else
       cp_async_commit();
@@ -268,115 +346,145 @@ selfself_attention_f32_kernel(const float* __restrict__ q, const float* __restri
 
   cp_async_wait<2>();
   __syncthreads();
-  for (int c0 = 0; c0 < hd; c0 += HC) {
-    // the first score product (again for each further 64 channels); the
-    // rest of the operands land while the first one runs
-    float s[KT][4];
-    zero(s);
-    if (active) scores(s, first_a, first_b, r0, nkt, sh, lane);
-    if (c0 == 0) {
-      cp_async_wait<1>();
-      __syncthreads();
-      if (!active) return;  // no barrier follows
-    }
-    float o[HC / 8][4];
-    zero(o);
-    if (MODE == VANILLA || MODE == CLEARCLIP) {
-      logits(s, scale, simg, sim_weight, rows, L, g, tq);
-      softmax_rows(s);
-      weights_v(o, s, sv, c0, nkt, sh, g, tq);
-    } else if (MODE == SCLIP || MODE == SEGEARTH) {
+  // the first score product; the rest of the operands land while it runs
+  float s[KT][4];
+  zero(s);
+  if (active) scores(s, first_a, first_b, ra, nkt, sh, lane);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (!active && !single) return;  // no barrier follows
+  float* head_out = out + head;
+  if (MODE == SCLIP || MODE == SEGEARTH) {
+    // the terms' weights meet v apart: each further 64 output channels take
+    // the scores again
+    const float* held = gq;  // what the single slot holds
+#pragma unroll 1
+    for (int c0 = 0; c0 < hd; c0 += HC) {
+      float o[HC / 8][4];
+      zero(o);
 #pragma unroll 1
       for (int term = 0; term < (MODE == SEGEARTH ? 3 : 2); ++term) {
-        if (term > 0) {
-          const float* x = term == 1 ? sk : sv;
+        if (term > 0 || c0 > 0) {
+          const float* want = term == 0 ? gq : gk;
+          if (single && term < 2 && held != want) {
+            restage(sq, want, sh, warp, nw, lane);
+            held = want;
+          }
+          const float* x = term == 0 ? sq : (term == 1 ? sk : sv);
           zero(s);
-          scores(s, x, x, r0, nkt, sh, lane);
+          if (active) scores(s, x, x, r0, nkt, sh, lane);
         }
-        logits(s, scale, simg, sim_weight, rows, L, g, tq);
-        softmax_rows(s);
-        weights_v(o, s, sv, c0, nkt, sh, g, tq);
-      }
-    } else {  // SFP, EXPERIMENTAL: k k^T, then q q^T into the same accumulator
-      scores(s, sq, sq, r0, nkt, sh, lane);
-      if (MODE == SFP) {
-        logits(s, 0.5f * scale, simg, sim_weight, rows, L, g, tq);
-        softmax_rows(s);
-      } else {  // the sim map joins after the first softmax
-        logits(s, scale, nullptr, 0.f, rows, L, g, tq);
-        softmax_rows(s);
-        logits(s, 1.f, simg, sim_weight, rows, L, g, tq);
-        softmax_rows(s);
-      }
-      weights_v(o, s, sv, c0, nkt, sh, g, tq);
-    }
-#pragma unroll
-    for (int n = 0; n < HC / 8; ++n) {
-      const int c = c0 + 8 * n + 2 * tq;
-      if (c < hd) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r0 + g + 8 * hf;
-          if (row < L)
-            *reinterpret_cast<float2*>(out + head + (size_t)row * hd + c) =
-                make_float2(o[n][2 * hf], o[n][2 * hf + 1]);
+        if (active) {
+          logits(s, scale, simg, sim_weight, rows, L, g, tq);
+          softmax_rows(s);
+          weights_v(o, s, sv, c0, nkt, sh, g, tq);
         }
       }
+      if (active) store_rows(head_out, o, c0, hd, r0, L, g, tq);
     }
+    return;
+  }
+  // SFP, EXPERIMENTAL: k k^T, then q q^T into the same accumulator
+  if ((MODE == SFP || MODE == EXPERIMENTAL) && single) restage(sq, gq, sh, warp, nw, lane);
+  if (!active) return;  // no barrier follows
+  if (MODE == SFP || MODE == EXPERIMENTAL) scores(s, sq, sq, r0, nkt, sh, lane);
+  if (MODE == VANILLA || MODE == CLEARCLIP) {
+    logits(s, scale, simg, sim_weight, rows, L, g, tq);
+    softmax_rows(s);
+  } else if (MODE == SFP) {
+    logits(s, 0.5f * scale, simg, sim_weight, rows, L, g, tq);
+    softmax_rows(s);
+  } else {  // EXPERIMENTAL: the sim map joins after the first softmax
+    logits(s, scale, nullptr, 0.f, rows, L, g, tq);
+    softmax_rows(s);
+    logits(s, 1.f, simg, sim_weight, rows, L, g, tq);
+    softmax_rows(s);
+  }
+  // one softmax's weights, taken once, meet v in passes of 64 output
+  // channels; with one pass (hd <= 64) the weights die as they are read
+  if (!MULTI) {
+    float o[HC / 8][4];
+    zero(o);
+    weights_v(o, s, sv, 0, nkt, sh, g, tq);
+    store_rows(head_out, o, 0, hd, r0, L, g, tq);
+    return;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += HC) {
+    float o[HC / 8][4];
+    zero(o);
+    weights_v(o, s, sv, c0, nkt, sh, g, tq);
+    store_rows(head_out, o, c0, hd, r0, L, g, tq);
   }
 }
 
-template <int MODE, int KT>
+template <int MODE, int KT, bool MULTI>
 int launch(const float* q, const float* k, const float* v, const float* sim, float* out,
            int B, int H, int L, int hd, float scale, float sim_weight, cudaStream_t stream) {
   const Shape sh = make_shape(L, hd);
-  const size_t ops = operand_bytes(MODE, sh);
-  if (ops > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
-  // up to NW_MAX warps a block, over as few blocks a head as that allows;
-  // the sim rows are staged where the block has room for them at that
-  // count of blocks (a block per SM: fewer warps would cost more waves
-  // than the sim map's loads from device memory, measured on the H100)
-  const int tiles = sh.LP / 16;
-  const int blocks = (tiles + NW_MAX - 1) / NW_MAX;
-  const int nw = (tiles + blocks - 1) / blocks;
+  // the sim rows are staged where the block has room for them at its count
+  // of blocks (a block per SM: fewer warps would cost more waves than the
+  // sim map's loads from device memory, measured on the H100)
+  int blocks, nw, single;
+  block_shape(sh, blocks, nw);
+  if (!pick_layout(MODE, sh, nw, single)) return (int)cudaErrorInvalidValue;
+  const size_t ops = operand_bytes(MODE, sh, single, nw);
   const size_t sim_bytes = (size_t)nw * sim_slice(L) * sizeof(float);
   const int sim_staged = sim != nullptr && ops + sim_bytes <= (size_t)SMEM_MAX;
   const size_t smem = ops + (sim_staged ? sim_bytes : 0);
-  auto kernel = selfself_attention_f32_kernel<MODE, KT>;
+  auto kernel = selfself_attention_f32_kernel<MODE, KT, MULTI>;
   if (int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)smem))
     return err;
   kernel<<<dim3(B * H, blocks), nw * 32, smem, stream>>>(q, k, v, sim, out, H, L, hd, scale,
-                                                        sim_weight, sim_staged);
+                                                        sim_weight, sim_staged, single);
   return (int)cudaGetLastError();
 }
 
-template <int KT>
+// SCLIP and SegEarth take the scores again for each pass of 64 output
+// channels, so they have one instantiation for every hd
+template <int KT, bool MULTI>
 int dispatch(const float* q, const float* k, const float* v, const float* sim, float* out,
              int B, int H, int L, int hd, int mode, float scale, float w, cudaStream_t stream) {
   switch (mode) {
-    case VANILLA: return launch<VANILLA, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case CLEARCLIP: return launch<CLEARCLIP, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case SCLIP: return launch<SCLIP, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case SEGEARTH: return launch<SEGEARTH, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case SFP: return launch<SFP, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case VANILLA:
+      return launch<VANILLA, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case CLEARCLIP:
+      return launch<CLEARCLIP, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case SCLIP: return launch<SCLIP, KT, false>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case SEGEARTH:
+      return launch<SEGEARTH, KT, false>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case SFP: return launch<SFP, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
     case EXPERIMENTAL:
-      return launch<EXPERIMENTAL, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+      return launch<EXPERIMENTAL, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Bytes of shared memory the staged operands of a launch at (mode, L, hd)
+// take (the layout it picks), 0 where the launch is refused.
+extern "C" int rs_selfself_attention_f32_smem(int mode, int L, int hd) {
+  if (L < 1 || L > 288 || hd < 8 || hd > 128 || hd % 8 || mode < VANILLA || mode > EXPERIMENTAL)
+    return 0;
+  const Shape sh = make_shape(L, hd);
+  int blocks, nw, single;
+  block_shape(sh, blocks, nw);
+  return pick_layout(mode, sh, nw, single) ? (int)operand_bytes(mode, sh, single, nw) : 0;
+}
+
 // q, k, v, out [B, H, L, hd] fp32, 16-byte aligned; sim [B, L, L] fp32 or
 // null. L <= 288, hd a multiple of 8 up to 128; a block whose operands do
-// not fit in shared memory is refused with cudaErrorInvalidValue.
+// not fit in shared memory in either layout is refused with
+// cudaErrorInvalidValue.
 extern "C" int rs_selfself_attention_f32(const float* q, const float* k, const float* v,
                                          const float* sim, float* out, int B, int H, int L,
                                          int hd, int mode, float scale, float sim_weight,
                                          cudaStream_t stream) {
   if (L < 1 || L > 288 || hd < 8 || hd > 128 || hd % 8) return (int)cudaErrorInvalidValue;
-  if (L <= 208)
-    return dispatch<26>(q, k, v, sim, out, B, H, L, hd, mode, scale, sim_weight, stream);
-  return dispatch<36>(q, k, v, sim, out, B, H, L, hd, mode, scale, sim_weight, stream);
+  const bool multi = hd > HC;
+  const auto fn = L <= 208 ? (multi ? &dispatch<26, true> : &dispatch<26, false>)
+                           : (multi ? &dispatch<36, true> : &dispatch<36, false>);
+  return fn(q, k, v, sim, out, B, H, L, hd, mode, scale, sim_weight, stream);
 }

@@ -47,8 +47,10 @@
 // (FlashAttention-2's register reuse), and v is read with ldmatrix.trans, so
 // the weights never leave registers. SCLIP and SegEarth add each term's
 // weights @ v into the same output accumulators, so one score tile is live
-// at a time. The output is taken 64 channels at a time (an hd past 64 takes
-// the scores again for the second pass). Each warp stages its 16 rows of
+// at a time. The output is taken 64 channels at a time over the same
+// weights (an hd past 64, ViT-H/14's 80, takes the scores again for a
+// second pass only in SCLIP and SegEarth; hd <= 64 has instantiations of its
+// own, in which the weights die as they are read). Each warp stages its 16 rows of
 // the sim map (per image, b = bh / H) into shared memory by cp.async while
 // its first score product runs, where the block has room (at L = 197, 88 KB
 // for 7 warps beside the operands' 87 KB), else reads them from device
@@ -121,6 +123,24 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint3
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// Output channels [c0, c0 + 64) of the warp's rows (rows of hd bf16).
+__device__ __forceinline__ void store_rows(bf16* out, const float (&o)[HC / 8][4], int c0,
+                                           int hd, int r0, int L, int g, int tq) {
+#pragma unroll
+  for (int n = 0; n < HC / 8; ++n) {
+    const int c = c0 + 8 * n + 2 * tq;
+    if (c < hd) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + g + 8 * hf;
+        if (row < L)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * hd + c) =
+              __floats2bfloat162_rn(o[n][2 * hf], o[n][2 * hf + 1]);
+      }
+    }
+  }
+}
+
 // o += p @ v[:, c0 .. c0+63]: the weights p in the score accumulators' layout
 // are the A fragments (tiles 2t and 2t+1 are k16 step t), as hi + lo.
 template <int N>
@@ -150,8 +170,9 @@ __device__ __forceinline__ void weights_v(float (&o)[HC / 8][4], const float (&p
   }
 }
 
-// KT: key tiles of 16 a warp holds (L <= 16 KT)
-template <int MODE, int KT>
+// KT: key tiles of 16 a warp holds (L <= 16 KT); MULTI: hd > 64, more than
+// one pass of weights @ v
+template <int MODE, int KT, bool MULTI>
 __global__ void __launch_bounds__(NW * 32)
 selfself_attention_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                const bf16* __restrict__ v, const float* __restrict__ sim,
@@ -197,17 +218,15 @@ selfself_attention_sm90_kernel(const bf16* __restrict__ q, const bf16* __restric
                            warp * sim_slice(L), simg, rows * L, lane);
   }
 
-  for (int c0 = 0; c0 < hd; c0 += HC) {
-    float o[HC / 8][4];
-    zero(o);
-    float s[2 * KT][4];
-    if (MODE == VANILLA || MODE == CLEARCLIP) {
-      zero(s);
-      scores(s, sq, MODE == VANILLA ? sk : sq, r0, nkt, sh, lane);
-      logits(s, scale, simg, sim_weight, rows, L, g, tq);
-      softmax_rows(s);
-      weights_v(o, s, sv, c0, nkt, sh, lane);
-    } else if (MODE == SCLIP || MODE == SEGEARTH) {
+  bf16* head_out = out + head;
+  float s[2 * KT][4];
+  if (MODE == SCLIP || MODE == SEGEARTH) {
+    // the terms' weights meet v apart: each further 64 output channels take
+    // the scores again
+#pragma unroll 1
+    for (int c0 = 0; c0 < hd; c0 += HC) {
+      float o[HC / 8][4];
+      zero(o);
 #pragma unroll 1
       for (int term = 0; term < (MODE == SEGEARTH ? 3 : 2); ++term) {
         const bf16* x = term == 0 ? sq : (term == 1 ? sk : sv);
@@ -217,38 +236,47 @@ selfself_attention_sm90_kernel(const bf16* __restrict__ q, const bf16* __restric
         softmax_rows(s);
         weights_v(o, s, sv, c0, nkt, sh, lane);
       }
-    } else {  // SFP, EXPERIMENTAL: both score products in one accumulator
-      zero(s);
-      scores(s, sk, sk, r0, nkt, sh, lane);
-      scores(s, sq, sq, r0, nkt, sh, lane);
-      if (MODE == SFP) {
-        logits(s, 0.5f * scale, simg, sim_weight, rows, L, g, tq);
-        softmax_rows(s);
-      } else {  // the sim map joins after the first softmax
-        logits(s, scale, nullptr, 0.f, rows, L, g, tq);
-        softmax_rows(s);
-        logits(s, 1.f, simg, sim_weight, rows, L, g, tq);
-        softmax_rows(s);
-      }
-      weights_v(o, s, sv, c0, nkt, sh, lane);
+      store_rows(head_out, o, c0, hd, r0, L, g, tq);
     }
-#pragma unroll
-    for (int n = 0; n < HC / 8; ++n) {
-      const int c = c0 + 8 * n + 2 * tq;
-      if (c < hd) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r0 + g + 8 * hf;
-          if (row < L)
-            *reinterpret_cast<__nv_bfloat162*>(out + head + (size_t)row * hd + c) =
-                __floats2bfloat162_rn(o[n][2 * hf], o[n][2 * hf + 1]);
-        }
-      }
+    return;
+  }
+  zero(s);
+  if (MODE == VANILLA || MODE == CLEARCLIP) {
+    scores(s, sq, MODE == VANILLA ? sk : sq, r0, nkt, sh, lane);
+    logits(s, scale, simg, sim_weight, rows, L, g, tq);
+    softmax_rows(s);
+  } else {  // SFP, EXPERIMENTAL: both score products in one accumulator
+    scores(s, sk, sk, r0, nkt, sh, lane);
+    scores(s, sq, sq, r0, nkt, sh, lane);
+    if (MODE == SFP) {
+      logits(s, 0.5f * scale, simg, sim_weight, rows, L, g, tq);
+      softmax_rows(s);
+    } else {  // the sim map joins after the first softmax
+      logits(s, scale, nullptr, 0.f, rows, L, g, tq);
+      softmax_rows(s);
+      logits(s, 1.f, simg, sim_weight, rows, L, g, tq);
+      softmax_rows(s);
     }
+  }
+  // one softmax's weights, taken once, meet v in passes of 64 output
+  // channels; with one pass (hd <= 64) the weights die as they are read
+  if (!MULTI) {
+    float o[HC / 8][4];
+    zero(o);
+    weights_v(o, s, sv, 0, nkt, sh, lane);
+    store_rows(head_out, o, 0, hd, r0, L, g, tq);
+    return;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += HC) {
+    float o[HC / 8][4];
+    zero(o);
+    weights_v(o, s, sv, c0, nkt, sh, lane);
+    store_rows(head_out, o, c0, hd, r0, L, g, tq);
   }
 }
 
-template <int MODE, int KT>
+template <int MODE, int KT, bool MULTI>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* sim, bf16* out, int B,
            int H, int L, int hd, float scale, float sim_weight, cudaStream_t stream) {
   const Shape sh = make_shape(L, hd);
@@ -257,7 +285,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* sim, bf16* 
   const size_t sim_bytes = (size_t)NW * sim_slice(L) * sizeof(float);
   const int sim_staged = sim != nullptr && smem + sim_bytes <= (size_t)SMEM_MAX;
   if (sim_staged) smem += sim_bytes;
-  auto kernel = selfself_attention_sm90_kernel<MODE, KT>;
+  auto kernel = selfself_attention_sm90_kernel<MODE, KT, MULTI>;
   if (int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)smem))
     return err;
@@ -267,17 +295,22 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* sim, bf16* 
   return (int)cudaGetLastError();
 }
 
-template <int KT>
+// SCLIP and SegEarth take the scores again for each pass of 64 output
+// channels, so they have one instantiation for every hd
+template <int KT, bool MULTI>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* sim, bf16* out, int B,
              int H, int L, int hd, int mode, float scale, float w, cudaStream_t stream) {
   switch (mode) {
-    case VANILLA: return launch<VANILLA, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case CLEARCLIP: return launch<CLEARCLIP, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case SCLIP: return launch<SCLIP, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case SEGEARTH: return launch<SEGEARTH, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
-    case SFP: return launch<SFP, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case VANILLA:
+      return launch<VANILLA, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case CLEARCLIP:
+      return launch<CLEARCLIP, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case SCLIP: return launch<SCLIP, KT, false>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case SEGEARTH:
+      return launch<SEGEARTH, KT, false>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+    case SFP: return launch<SFP, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
     case EXPERIMENTAL:
-      return launch<EXPERIMENTAL, KT>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
+      return launch<EXPERIMENTAL, KT, MULTI>(q, k, v, sim, out, B, H, L, hd, scale, w, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -295,7 +328,8 @@ extern "C" int rs_selfself_attention_bf16(const void* q, const void* k, const vo
   const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
              *bv = static_cast<const bf16*>(v);
   bf16* bo = static_cast<bf16*>(out);
-  if (L <= 208)
-    return dispatch<13>(bq, bk, bv, sim, bo, B, H, L, hd, mode, scale, sim_weight, stream);
-  return dispatch<18>(bq, bk, bv, sim, bo, B, H, L, hd, mode, scale, sim_weight, stream);
+  const bool multi = hd > HC;
+  const auto fn = L <= 208 ? (multi ? &dispatch<13, true> : &dispatch<13, false>)
+                           : (multi ? &dispatch<18, true> : &dispatch<18, false>);
+  return fn(bq, bk, bv, sim, bo, B, H, L, hd, mode, scale, sim_weight, stream);
 }

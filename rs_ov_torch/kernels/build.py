@@ -37,8 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers, ints, floats, stream; every entry point returns
-# cudaError_t, but rs_jbu_block_smem and rs_adaptive_conv_smem a block's bytes
-# of shared memory
+# cudaError_t, but rs_jbu_block_smem, rs_adaptive_conv_smem and
+# rs_selfself_attention_f32_smem a block's bytes of shared memory
 _SIGNATURES = {
     "rs_range_logits": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rs_jbu_epilogue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -61,6 +61,7 @@ _SIGNATURES = {
     "rs_adaptive_conv_v4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rs_selfself_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "rs_selfself_attention_f32_smem": [_I, _I, _I],
 }
 
 

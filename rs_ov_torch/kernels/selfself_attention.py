@@ -25,7 +25,9 @@ bf16 in ``rs_ov_torch/csrc/selfself_attention_sm90.cu`` (the products on the
 tensor cores, the weights meeting v as a bf16 pair hi + lo), fp32 in
 ``rs_ov_torch/csrc/selfself_attention_f32_sm90.cu`` (the same design on the
 TF32 tensor cores, each fp32 product taken as three TF32 products of the
-operands split into hi + lo).
+operands split into hi + lo; where the three operands do not fit a block, as
+at ViT-H/14's L = 257, hd = 80, the score operands share one slot, staged in
+turn).
 """
 
 from __future__ import annotations
@@ -46,13 +48,22 @@ def _smem_bytes(mode: str, l: int, hd: int, dtype: torch.dtype) -> int:
     """The shared memory of a block's operands: those the mode needs, each
     row 16 bytes longer, and the last one, v, padded to a multiple of 16 rows
     (the tensor cores' query tiles). bf16 also pads hd to a multiple of 16.
-    The sim rows are staged where room is left, else read from device
-    memory."""
+    Where fp32's three operands do not fit, the score operands share one
+    slot of L rows, staged in turn, and vanilla also stages the block's own
+    rows of q (16 a warp, up to 8 warps a block over as few blocks a head as
+    that allows). The sim rows are staged where room is left, else read from
+    device memory. Mirrors ``rs_selfself_attention_f32_smem``."""
     n_ops = 2 if mode == "ClearCLIP" else 3
     lp = -(-l // 16) * 16
     if dtype == torch.bfloat16:
         return ((n_ops - 1) * l + lp) * (-(-hd // 16) * 16 + 8) * 2
-    return ((n_ops - 1) * l + lp) * (hd + 4) * 4
+    full = ((n_ops - 1) * l + lp) * (hd + 4) * 4
+    if full <= SMEM_MAX:
+        return full
+    tiles = lp // 16
+    blocks = -(-tiles // 8)
+    q_rows = 16 * -(-tiles // blocks) if mode == "vanilla" else 0
+    return (l + lp + q_rows) * (hd + 4) * 4
 
 
 def fused_selfself_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,12 +1,23 @@
-"""Open-vocabulary segmentor (rs_ov/pipeline/segmentor.py:70-812), CLIP branch.
+"""Open-vocabulary segmentor (rs_ov/pipeline/segmentor.py:51-812).
+
+The tower follows ``clip_type`` and ``vit_type`` as in the JAX package
+(``_resolve_arch``: the plain OpenAI-style ViTs of CLIP, RemoteCLIP,
+GeoRSCLIP, SkyCLIP, OpenCLIP, MetaCLIP and ALIP), or ``clip_type="BLIP"``
+(the BLIP ViT and its BERT text tower, ``blip_vocab_path`` naming the
+WordPiece vocabulary). ``model_type="GEM"`` runs the CLIP tower's GEM
+dual stream (``gem_depth``, ``ss_attn_iter``, ``ss_attn_temp``). GEM and
+BLIP give patch tokens only, so they refuse global debias,
+``cls_token_lambda`` and CTD, which read the CLS token.
 
 Per image, or per batch of N images of one geometry (``predict_batch_raw``):
-normalise (uint8 input: on the device) -> overlapping crops -> the
-decontaminating ViT over all N*T crops at once (every attention mode of
-``ATTENTION_MODES``, SOM, layer fusion, self-attention enhancement, outlier
-suppression) -> optional cross-tile fusion over each image's crops -> in
-chunks of ``tile_chunk`` crops (``RS_OV_TILE_CHUNK``; by default 2 with
-SimFeatUp, else all at once): global CLS debias, optional CTD (DBSCAN, then
+normalise (uint8 input: on the device) -> overlapping crops (BLIP: each
+resized to the tower's ``image_size``) -> the decontaminating ViT over all
+N*T crops at once (every attention mode of ``ATTENTION_MODES``, SOM, layer
+fusion, self-attention enhancement, outlier suppression; or GEM's gem
+stream, or the BLIP ViT with its q.q last block) -> optional cross-tile
+fusion over each image's crops -> in chunks of ``tile_chunk`` crops
+(``RS_OV_TILE_CHUNK``; by default 2 with SimFeatUp, else all at once):
+global CLS debias, optional CTD (DBSCAN, then
 clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack`` or
 ``bilinear``) and the cosine classifier -> optional CLS-logit blend
 (``cls_token_lambda``) -> bilinear resize of the logits to the padded crop
@@ -43,18 +54,23 @@ import torch
 from rs_ov_torch.core.checkpoint import (clip_params_from_state_dict,
                                          jbu_params_from_state_dict, load_torch_state_dict)
 from rs_ov_torch.core.config import get_model_config
-from rs_ov_torch.core.params import clip_params_from_numpy, init_clip_params, load_numpy_tree
+from rs_ov_torch.core.params import (blip_params_from_numpy, clip_params_from_numpy,
+                                     init_clip_params, load_numpy_tree)
 from rs_ov_torch.data.palette import colorize_mask, confidence_heatmap
 from rs_ov_torch.data.transforms import PREPROC_MEAN, PREPROC_STD
 from rs_ov_torch.decontam.cross_tile import CrossTileFusionConfig, fuse_tile_grid
 from rs_ov_torch.decontam.ctd import adaptive_debiasing, cluster_patch_tokens_dbscan
 from rs_ov_torch.decontam.global_debias import global_debias
 from rs_ov_torch.nn.attention import ATTENTION_MODES
+from rs_ov_torch.nn.blip import (BlipConfig, blip_encode_image, blip_encode_text,
+                                 blip_params_from_state_dict, init_blip_params)
+from rs_ov_torch.nn.gem import gem_vit_forward
 from rs_ov_torch.nn.vit import VitCallConfig, vit_forward
 from rs_ov_torch.pipeline.postprocess import postprocess_logits, query_onehot
 from rs_ov_torch.pipeline.tiler import compute_padsize, extract_tiles, stitch, tile_grid
 from rs_ov_torch.text.classifier import build_text_classifier, get_cls_idx
 from rs_ov_torch.text.templates import OPENAI_IMAGENET_TEMPLATES
+from rs_ov_torch.text.wordpiece import WordPieceTokenizer
 from rs_ov_torch.upsample.jbu import (get_upsampler, get_upsampler_nhwc,
                                       get_upsampler_nhwc_classify)
 from rs_ov_torch.utils.resize import resize_bilinear
@@ -62,8 +78,23 @@ from rs_ov_torch.utils.resize import resize_bilinear
 __all__ = ["SegmentorEx", "Segmentor"]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _resolve_arch(clip_type: str, vit_type: str) -> str:
+    """(clip_type, vit_type) -> the tower's config name
+    (rs_ov/pipeline/segmentor.py:51-67); BLIP takes its own branch."""
+    b = "B" in vit_type
+    table = {
+        "CLIP": "ViT-B/16" if b else "ViT-L/14",
+        "RemoteCLIP": "ViT-B-32" if b else "ViT-L-14",
+        "GeoRSCLIP": "ViT-B-32" if b else ("ViT-H-14" if "H" in vit_type else "ViT-L-14"),
+        "SkyCLIP": "ViT-B-32" if b else "ViT-L-14",
+        "OpenCLIP": "ViT-B-16" if b else "ViT-L-14",
+        "MetaCLIP": "ViT-B-16-quickgelu" if b else "ViT-L-14-quickgelu",
+        "ALIP": "ViT-B-32",
+    }
+    if clip_type not in table:
+        raise NotImplementedError(f"clip_type '{clip_type}' not yet supported (known: "
+                                  f"{sorted(table)} + BLIP via the dedicated branch)")
+    return table[clip_type]
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -110,11 +141,15 @@ class SegmentorEx:
                  params=None,
                  upsampler_params=None,
                  query_features=None,
+                 blip_vocab_path: Optional[str] = None,
                  param_dtype: Optional[torch.dtype] = None,
                  templates=OPENAI_IMAGENET_TEMPLATES,
                  tile_chunk: int = 0,
                  pred_dtype=None,
                  shape_bucket: int = 0,
+                 gem_depth: int = 7,
+                 ss_attn_iter: int = 1,
+                 ss_attn_temp: Optional[float] = None,
                  seed: int = 0,
                  clip_config=None,
                  device=None):
@@ -122,13 +157,15 @@ class SegmentorEx:
         # numerics are held against the JAX package's fp32 islands
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        for flag, what in ((clip_type != "CLIP", f"clip_type '{clip_type}'"),
-                           (model_type == "GEM", "the GEM tower")):
-            if flag:
-                raise _not_ported(what, "queue 1 item 8")
-        if model_type not in ATTENTION_MODES:
+        self.is_blip = clip_type == "BLIP"
+        # the BLIP path takes no attention mode (its last block is q.q)
+        if not self.is_blip and model_type not in ATTENTION_MODES + ("GEM",):
             raise ValueError(f"Unknown attention mode '{model_type}'. "
-                             f"Known: {ATTENTION_MODES}")
+                             f"Known: {ATTENTION_MODES + ('GEM',)}")
+        if (model_type == "GEM" or self.is_blip) and (
+                global_debias_factor != 0.0 or cls_token_lambda != 0.0 or apply_ctd):
+            raise ValueError("GEM/BLIP paths are incompatible with "
+                             "global_debias/cls_token_lambda/CTD (no CLS token)")
 
         self.clip_type, self.vit_type, self.model_type = clip_type, vit_type, model_type
         if device is None:
@@ -141,17 +178,32 @@ class SegmentorEx:
         if param_dtype is None:
             param_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.param_dtype = param_dtype
-        self.cfg = clip_config if clip_config is not None else get_model_config(
-            "ViT-B/16" if "B" in vit_type else "ViT-L/14")
+        # no implicit download: without params or a checkpoint, random
+        # weights from the seed keep the pipeline runnable
+        self.clip = self.blip = None
+        if self.is_blip:
+            self.cfg = clip_config if clip_config is not None else (
+                BlipConfig.base(slide_crop) if "B" in vit_type else BlipConfig.large(slide_crop))
+            if params is not None:
+                model = blip_params_from_numpy(params)
+            elif checkpoint_path:
+                model = blip_params_from_state_dict(load_torch_state_dict(checkpoint_path))
+            else:
+                model = init_blip_params(torch.Generator().manual_seed(seed), self.cfg)
+            self.blip = model.to(device=self.device, dtype=param_dtype)
+        else:
+            self.cfg = clip_config if clip_config is not None else get_model_config(
+                _resolve_arch(clip_type, vit_type))
+            if params is not None:
+                model = clip_params_from_numpy(params, self.cfg)
+            elif checkpoint_path:
+                model = clip_params_from_state_dict(load_torch_state_dict(checkpoint_path),
+                                                    self.cfg)
+            else:
+                model = init_clip_params(torch.Generator().manual_seed(seed), self.cfg)
+            self.clip = model.to(device=self.device, dtype=param_dtype)
         self.patch_size = self.cfg.vision.patch_size
-
-        if params is not None:
-            clip = clip_params_from_numpy(params, self.cfg)
-        elif checkpoint_path:
-            clip = clip_params_from_state_dict(load_torch_state_dict(checkpoint_path), self.cfg)
-        else:  # no implicit download: random weights keep the pipeline runnable
-            clip = init_clip_params(torch.Generator().manual_seed(seed), self.cfg)
-        self.clip = clip.to(device=self.device, dtype=param_dtype)
+        self.gem_depth, self.ss_attn_iter, self.ss_attn_temp = gem_depth, ss_attn_iter, ss_attn_temp
 
         query_words, self.query_idx = get_cls_idx(name_path)
         self.num_queries = len(query_words)
@@ -159,6 +211,9 @@ class SegmentorEx:
         if query_features is not None:
             self.query_features = torch.as_tensor(
                 np.asarray(query_features, np.float32)).to(self.device)
+        elif self.is_blip:
+            self.query_features = self._build_blip_classifier(query_words, templates,
+                                                              blip_vocab_path)
         else:
             self.query_features = build_text_classifier(
                 self.clip.text, query_words, self.cfg.text,
@@ -181,7 +236,7 @@ class SegmentorEx:
         som.update(som_cfg or {})
         self.call = VitCallConfig(
             model_type=model_type, ignore_residual=ignore_residual,
-            quick_gelu=self.cfg.quick_gelu,
+            quick_gelu=getattr(self.cfg, "quick_gelu", False),
             apply_similarity_enhancement=apply_similarity_enhancement,
             similarity_weight=sim_cfg["similarity_weight"],
             similarity_temperature=sim_cfg["temperature"],
@@ -274,6 +329,24 @@ class SegmentorEx:
             f32, qf = f32.to(torch.bfloat16).float(), qf.to(torch.bfloat16).float()
         return torch.matmul(f32, qf.t())
 
+    @torch.no_grad()
+    def _build_blip_classifier(self, query_words, templates, vocab_path) -> torch.Tensor:
+        """Prompt-ensembled queries through the BLIP text tower: per word,
+        each template's normalised projected CLS, averaged and normalised
+        again (rs_ov/pipeline/segmentor.py:397-419) -> [Q, embed_dim] fp32."""
+        if vocab_path is None:
+            raise ValueError("clip_type='BLIP' needs blip_vocab_path (a BERT vocab.txt) or "
+                             "precomputed query_features: no implicit downloads")
+        tok = WordPieceTokenizer(vocab_path)
+        feats = []
+        for word in query_words:
+            batch = tok([t.format(word) for t in templates], max_length=35)
+            ids, mask = (torch.from_numpy(batch[k]).to(self.device)
+                         for k in ("input_ids", "attention_mask"))
+            mean = blip_encode_text(self.blip, ids, mask, self.cfg).float().mean(0)
+            feats.append(mean / mean.norm().clamp_min(1e-12))
+        return torch.stack(feats)
+
     def _decontam_and_classify(self, tokens, cls_norm, cls_logits, tiles, grid_hw,
                                pads, tile_hw):
         """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]."""
@@ -360,10 +433,26 @@ class SegmentorEx:
         (rs_ov/pipeline/segmentor.py:434-487); cross-tile fusion regroups the
         crops per image."""
         tiles = tiles.to(self.param_dtype)
-        pooled, tokens = vit_forward(self.clip.visual, tiles, self.cfg.vision, self.call)
-        p32 = pooled.float()
-        cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-        cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
+        if self.is_blip:  # the crops at the tower's own size: no pos-embed resample
+            s = self.cfg.vision.image_size
+            tiles = resize_bilinear(tiles, (s, s))
+            tokens = blip_encode_image(self.blip, tiles, self.cfg,
+                                       ignore_residual=self.call.ignore_residual)
+        elif self.model_type == "GEM":
+            tokens = gem_vit_forward(
+                self.clip.visual, tiles, self.cfg.vision, depth=self.gem_depth,
+                ss_attn_iter=self.ss_attn_iter, ss_attn_temp=self.ss_attn_temp,
+                ignore_residual=self.call.ignore_residual, quick_gelu_act=self.cfg.quick_gelu)
+        else:
+            pooled, tokens = vit_forward(self.clip.visual, tiles, self.cfg.vision, self.call)
+        if self.is_blip or self.model_type == "GEM":  # patch tokens only: no CLS
+            cls_norm = torch.zeros((tokens.shape[0], tokens.shape[-1]), device=self.device)
+            cls_logits = torch.zeros((tokens.shape[0], self.query_features.shape[0]),
+                                     device=self.device)
+        else:
+            p32 = pooled.float()
+            cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
         if self.apply_cross_tile_fusion:
             tokens = self._fuse_tiles(tokens, grid_shape, grid_hw, n_images)

@@ -2,10 +2,14 @@
 
     python3 -m rs_ov_torch.tools.profile_request [--requests 3] [--fused-attn]
         [--route default|fp32-channel-first|bf16-channel-first]
+        [--clip-type CLIP] [--vit-type ViT-B/16] [--gem]
         [--out work_dirs/profile_request.json]
 
 Builds ``SegmentorEx`` from ``configs/base_config.py`` (CLIP ViT-B/16 at full
 width, random weights from its seed, the Potsdam vocabulary) on the card,
+or the same config on another tower (``--clip-type`` / ``--vit-type``; BLIP
+with the committed WordPiece vocabulary) or GEM (``--gem``: gem_depth 7 with
+its residual), both without the global CLS debias, which they refuse,
 runs two warm-up requests of one 512x512 image, then profiles ``--requests``
 more, and prints the device time per request split by kernel group (the
 port's kernels by name, GEMMs, elementwise casts and copies, softmax and
@@ -66,6 +70,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--fused-attn", action="store_true")
     ap.add_argument("--route", choices=ROUTES, default="default")
+    ap.add_argument("--clip-type", default="CLIP")
+    ap.add_argument("--vit-type", default="ViT-B/16")
+    ap.add_argument("--gem", action="store_true")
     ap.add_argument("--out", default=os.path.join("work_dirs", "profile_request.json"))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -83,7 +90,14 @@ def main(argv=None) -> dict:
         os.environ["RS_OV_JBU_FUSED"] = "0"
     cfg = dict(load_config("configs/base_config.py")["model"])
     cfg.pop("type")
-    cfg["name_path"] = "configs/cls_potsdam.txt"
+    cfg.update(name_path="configs/cls_potsdam.txt", clip_type=opts.clip_type,
+               vit_type=opts.vit_type)
+    if opts.gem or opts.clip_type == "BLIP":
+        cfg["global_debias_factor"] = 0.0
+    if opts.gem:
+        cfg.update(model_type="GEM", ignore_residual=False)
+    if opts.clip_type == "BLIP":
+        cfg["blip_vocab_path"] = "tests/fixtures/blip_decode_vocab.txt"
     if opts.route == "fp32-channel-first":
         cfg["param_dtype"] = torch.float32
     seg = SegmentorEx(**cfg, device=torch.device("cuda"))
@@ -112,8 +126,9 @@ def main(argv=None) -> dict:
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
     fused_range = os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
+    tower = f"{opts.clip_type} {opts.vit_type}{' GEM' if opts.gem else ''}"
     result = {"card": card, "requests": n, "route": opts.route, "fused_attn": opts.fused_attn,
-              "fused_range": fused_range,
+              "fused_range": fused_range, "tower": tower,
               "wall_ms_per_request": wall * 1e3 / n, "device_ms_per_request": device_ms,
               "busy_share": device_ms / (wall * 1e3 / n),
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -121,7 +136,7 @@ def main(argv=None) -> dict:
               "kernels": dict(sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1]["ms_per_request"])[:40])}
     print(card)
-    print(f"[profile] {n} requests of one 512x512 image (16 crops of 224²), "
+    print(f"[profile] {tower}: {n} requests of one 512x512 image (16 crops of 224²), "
           f"route {opts.route}{', K6 on' if opts.fused_attn else ''}"
           f"{', RS_OV_JBU_FUSED_RANGE=1' if fused_range else ''}: wall "
           f"{result['wall_ms_per_request']:.3f} ms, device {device_ms:.3f} ms per request "

@@ -6,6 +6,7 @@ both packages resize with the same numbers at every size:
   * bilinear, align_corners=False, no antialias   (torch 'bilinear')
   * bicubic,  align_corners=False, no antialias, A=-0.75 (torch 'bicubic')
   * bicubic with an explicit coordinate scale (the pos-embed +0.1 quirk)
+  * bicubic with antialias=True (GEM's pos-embed resample)
   * adaptive average pooling
 
 Dtype round-trips follow the JAX package: the matrices are cast to the
@@ -21,8 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["resize_bilinear", "resize_bicubic", "resize_bicubic_scaled",
-           "adaptive_avg_pool2d", "reflect_pad_2d", "resize_bicubic_nhwc",
-           "reflect_pad_nhwc"]
+           "resize_bicubic_antialias", "adaptive_avg_pool2d", "reflect_pad_2d",
+           "resize_bicubic_nhwc", "reflect_pad_nhwc"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +72,38 @@ def _bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _bicubic_antialias_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) matrix for torch bicubic with antialias=True
+    (rs_ov/utils/resize.py:118-149): torch's PIL-style resampling, the cubic
+    (A = -0.5) support widened by the downscale factor, the tap window kept
+    inside the input and each row renormalised; plain bicubic when
+    upscaling but for A."""
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    scale = in_size / out_size
+    kscale = max(scale, 1.0)
+    support = 2.0 * kscale
+    a = -0.5
+
+    def cubic(x):
+        x = abs(x)
+        if x <= 1.0:
+            return ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+        if x < 2.0:
+            return ((a * x - 5.0 * a) * x + 8.0 * a) * x - 4.0 * a
+        return 0.0
+
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        center = scale * (i + 0.5)
+        lo = max(0, int(center - support + 0.5))
+        hi = min(in_size, int(center + support + 0.5))
+        vals = np.array([cubic((j - center + 0.5) / kscale) for j in range(lo, hi)])
+        w[i, lo:hi] = vals / vals.sum()
+    return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
     w = np.zeros((out_size, in_size), dtype=np.float32)
     for i in range(out_size):
@@ -89,6 +122,7 @@ def _matrix(kind: str, in_size: int, out_size: int, device: torch.device,
     m = {"bilinear": lambda: _bilinear_matrix(in_size, out_size),
          "bicubic": lambda: _bicubic_matrix(in_size, out_size),
          "bicubic_scaled": lambda: _bicubic_matrix_scaled(in_size, out_size, coord_scale),
+         "bicubic_aa": lambda: _bicubic_antialias_matrix(in_size, out_size),
          "adaptive_avg": lambda: _adaptive_avg_matrix(in_size, out_size)}[kind]()
     return torch.from_numpy(m).to(device).to(dtype).float()
 
@@ -118,6 +152,11 @@ def resize_bicubic_scaled(x: torch.Tensor, out_hw: tuple[int, int],
     """F.interpolate(x, scale_factor=1/coord_scales, mode='bicubic',
     recompute_scale_factor=False) on (..., H, W)."""
     return _apply_separable(x, "bicubic_scaled", out_hw, coord_scales)
+
+
+def resize_bicubic_antialias(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """F.interpolate(x, size=out_hw, mode='bicubic', antialias=True) on (..., H, W)."""
+    return _apply_separable(x, "bicubic_aa", out_hw)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

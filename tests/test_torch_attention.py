@@ -220,6 +220,23 @@ def test_fused_f32_kernel_takes_what_the_fp32_core_kernel_took():
                     assert _smem_bytes(mode, l, hd, torch.float32) <= SMEM_MAX, (mode, l, hd)
 
 
+def test_fused_f32_kernel_takes_every_mode_up_to_vith14():
+    """The fp32 kernel's block holds every mode at L <= 288 and hd <= 80 (the
+    shapes ViT-L/14 and ViT-H/14 give at a 224² crop): where q, k and v do
+    not fit (L = 257, hd = 80: 264096 B), the score operands share one slot
+    (177744 B; vanilla also holds the block's 96 rows of q, 210000 B)."""
+    from rs_ov_torch.kernels.selfself_attention import LMAX, SMEM_MAX, _smem_bytes
+
+    for mode in SUPPORTED_MODES:
+        for l in range(1, LMAX + 1):
+            for hd in range(8, 81, 8):
+                assert _smem_bytes(mode, l, hd, torch.float32) <= SMEM_MAX, (mode, l, hd)
+    assert ([_smem_bytes(m, 257, 80, torch.float32) for m in SUPPORTED_MODES]
+            == [210000] + [177744] * 5)
+    # the main path's shape keeps the three-operand layout
+    assert _smem_bytes("Experimental", 197, 64, torch.float32) == (2 * 197 + 208) * 68 * 4
+
+
 def _f32_cases():
     """(mode, L, hd) over L in {50, 197, 257, 288} and hd in {64, 80, 128}
     wherever the fp32 kernel's block holds the mode's operands."""
@@ -290,3 +307,37 @@ def test_fused_f32_kernel_at_the_wrappers_limits(cuda, mode, l, hd, with_sim):
     ref = fused_selfself_attention_plain(q, k, v, sim, mode=mode, sim_weight=0.8)
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
     assert rel <= 1e-5, (l, hd, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sim", [False, True], ids=["nosim", "sim"])
+@pytest.mark.parametrize("mode", SUPPORTED_MODES)
+def test_fused_f32_kernel_at_vith14(cuda, mode, with_sim):
+    """The fp32 kernel at ViT-H/14's L=257, hd=80 (16 heads, the score
+    operands staged in turn in one slot) against its plain version, within
+    1e-5 of max|ref|."""
+    rng = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy(rng.randn(2, 16, 257, 80).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    sim = torch.from_numpy(np.pad(rng.randn(2, 256, 256).astype(np.float32) * 0.5,
+                                  ((0, 0), (1, 0), (1, 0)))).to(cuda) if with_sim else None
+    got = fused_selfself_attention(q, k, v, sim, mode=mode, sim_weight=0.8)
+    ref = fused_selfself_attention_plain(q, k, v, sim, mode=mode, sim_weight=0.8)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.cuda
+def test_fused_f32_smem_mirror_matches_the_library(cuda):
+    """_smem_bytes in fp32 is the library's own count of the layout a launch
+    picks (0 where it refuses), over every mode, L and hd the wrapper takes."""
+    from rs_ov_torch.kernels.build import load_library
+    from rs_ov_torch.kernels.selfself_attention import LMAX, SMEM_MAX, _smem_bytes
+
+    lib = load_library()
+    for i, mode in enumerate(SUPPORTED_MODES):
+        for l in range(1, LMAX + 1):
+            for hd in range(8, 129, 8):
+                want = _smem_bytes(mode, l, hd, torch.float32)
+                got = lib.rs_selfself_attention_f32_smem(i, l, hd)
+                assert got == (want if want <= SMEM_MAX else 0), (mode, l, hd, got, want)

@@ -8,6 +8,7 @@ On the CPU both packages take the channel-first JBU route
 channel-last route the card takes for bf16, with the classifier fused into
 the last stage, through its private route selector."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -110,10 +111,16 @@ def test_decontam_options_match_jax(weights, case):
 
 
 @pytest.mark.parametrize("option", [
-    dict(clip_type="BLIP"), dict(sim_feat_up_cfg=dict(model_name="ifa")),
-    dict(sim_feat_up_cfg=dict(model_name="carafe")), dict(model_type="GEM"),
+    dict(clip_config=dataclasses.replace(CFG, vision=dataclasses.replace(CFG.vision,
+                                                                         pool_type="avg"))),
+    dict(sim_feat_up_cfg=dict(model_name="ifa")),
+    dict(sim_feat_up_cfg=dict(model_name="carafe")),
+    dict(clip_config=dataclasses.replace(CFG, vision=dataclasses.replace(CFG.vision,
+                                                                         ls_init_value=1e-4))),
 ])
 def test_options_outside_the_slice_raise(weights, option):
+    """What ROADMAP queue 1 item 8d holds: a tower pooling other than by its
+    CLS token, the upsampler alternates and LayerScale."""
     kw = _kwargs(weights, 2)
     kw.update(option)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):

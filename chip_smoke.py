@@ -111,6 +111,28 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 sustained img/s and tiles/s; then rs_ov_torch.eval_all with
                 RS_OV_DATA_ROOT=data_synth, where the seven configs with
                 committed data must give metrics.
+  7. entry    - the open_clip entry (rs_ov_torch.factory, gem_api, hub) at
+                full width on random weights from seed 0: ViT-B-16 through
+                create_model_and_transforms (8 uint8 images of 256x320
+                through its preprocess, 8 prompts, the zero-shot logits),
+                on the card in fp32 against the CPU's fp32 (max|d|/max|ref|
+                <= ENTRY_TOL on the pooled and token embeddings, the text
+                embeddings and the logits; one head of the last block
+                zeroed must land above it) and in bf16 against the card's
+                fp32 (cosine >= ENTRY_COS per embedding); ViT-L-14-CLIPA
+                (avg pool, no ln_pre, the LN after the pool; fault: the LN
+                before the pool) and ViT-M-16-alt (LayerScale; fault: the
+                gammas left out) likewise; encode_image images/s at batch
+                64 in fp32 and bf16 for each; encode_image(model_type=
+                "Experimental") with RS_OV_FUSED_ATTN=1 launching K6
+                exactly once, against the plain route within K6's bounds;
+                create_gem_model's heatmaps on a 448² image against the
+                CPU; save_for_hub loaded back by create_model with equal
+                outputs; SegmentorEx with each of resize_conv, ifa, carafe
+                and sapa (base config otherwise): a 512² request each,
+                crops/s beside the default route, no kernel launched; and
+                carafe's 336² bf16 run against its fp32 CPU run on phase
+                5's decided-pixel gate, one zeroed head failing it.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -119,6 +141,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -1672,12 +1695,281 @@ def phase_eval(rows):
         print(f"[eval] eval_all {name}: {r['num_images']} images, mIoU {r['mIoU']:.4f}")
 
 
+# Phase 7, the open_clip entry (rs_ov_torch.factory, gem_api, hub) and the
+# alternate upsamplers. Embeddings on the card in fp32 are held to
+# max|card - CPU| / max|CPU| <= ENTRY_TOL against the CPU's fp32 run (the
+# ViT's fp32 products on both, TF32 off; the sums' order alone differs);
+# ViT-B-16's bf16 to a cosine >= ENTRY_COS per embedding against the card's
+# fp32 (the other towers' printed). K6 on the entry takes its kernel bounds
+# (K6_TOL) against the plain route. GEM's min-max heatmaps divide by each
+# map's range, so they take tools/parity_check.py's gem_stream 1e-3.
+ENTRY_TOL, ENTRY_COS, GEM_TOL = 1e-4, 0.99, 1e-3
+ENTRY_BATCH, ENTRY_TIMED_BATCH = 8, 64
+ENTRY_PROMPTS = ("road", "building", "tree", "water", "car", "field", "river", "parking lot")
+ALTERNATES = ("resize_conv", "ifa", "carafe", "sapa")
+
+
+def _rel(got, ref) -> float:
+    ref = ref.float().cpu()
+    return float((got.float().cpu() - ref).abs().max() / ref.abs().max())
+
+
+def _min_cos(a, b) -> float:
+    a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+
+
+def _encode(model, images, ids, **kw):
+    """(pooled, tokens, text, zero-shot logits) of a CLIPModel."""
+    pooled, tokens = model.encode_image(images, output_cls_token=True, **kw)
+    text = model.encode_text(ids, normalize=True).float()
+    img = pooled.float() / pooled.float().norm(dim=-1, keepdim=True)
+    return pooled, tokens, text, model.logit_scale.float() * img @ text.t()
+
+
+def _entry_errs(card, cpu):
+    return [_rel(a, b) for a, b in zip(card, cpu)]
+
+
+def _images_per_s(model, images):
+    """encode_image of one batch, median of CUDA-event times after a warm-up."""
+    model.encode_image(images)
+    torch.cuda.synchronize()
+    ms = _median_ms(lambda: model.encode_image(images), reps=5)
+    return images.shape[0] / ms * 1e3
+
+
+def _text_ids(cfg, rng):
+    """BPE ids of ENTRY_PROMPTS for a BPE tower; seeded random ids ending in
+    the EOT-like highest id for a tower whose tokenizer is an HF asset."""
+    from rs_ov_torch.factory import get_tokenizer
+
+    t = cfg.text
+    if t.hf_tokenizer_name is None:
+        return get_tokenizer("", context_length=t.context_length)(
+            [f"a photo of a {c}." for c in ENTRY_PROMPTS])
+    ids = rng.randint(1, t.vocab_size - 1, (len(ENTRY_PROMPTS), t.context_length))
+    ids[:, -1] = t.vocab_size - 1
+    return ids.astype(np.int32)
+
+
+def _entry_tower(name, images, ids, fault, fault_label, gate_cos):
+    """One tower through create_model at full width: card fp32 against the
+    CPU's fp32 on ``images``, the planted fault above the bound, card bf16
+    against card fp32 (gated where ``gate_cos``); images/s of encode_image at
+    batch ENTRY_TIMED_BATCH in fp32 and bf16. Returns the card's fp32 and
+    bf16 models."""
+    from rs_ov_torch.factory import create_model
+
+    t0 = time.perf_counter()
+    m32 = create_model(name, precision="fp32", seed=0)
+    m16 = create_model(name, precision="bf16", seed=0)
+    cpu = create_model(name, device="cpu", seed=0)
+    built = time.perf_counter() - t0
+    card = _encode(m32, images, ids)
+    t0 = time.perf_counter()
+    ref = _encode(cpu, images, ids)
+    cpu_s = time.perf_counter() - t0
+    errs = _entry_errs(card, ref)
+    with fault(m32):
+        bad = _entry_errs(_encode(m32, images, ids), ref)
+    cos = [_min_cos(a, b) for a, b in zip(_encode(m16, images, ids)[:3], card[:3])]
+    v = m32.cfg.vision
+    print(f"[entry] {name} ({v.width} wide, {v.layers} layers, {v.heads} heads, pool "
+          f"{v.pool_type}, ln_pre {not v.no_ln_pre}, LN after pool {v.final_ln_after_pool}, "
+          f"LayerScale {v.ls_init_value}; built x3 in {built:.1f} s, CPU fp32 run "
+          f"{cpu_s:.1f} s): {images.shape[0]} images {tuple(images.shape[-2:])}, "
+          f"{len(ids)} prompts; card fp32 vs CPU fp32 max|d|/max|ref| pooled {errs[0]:.3e} "
+          f"tokens {errs[1]:.3e} text {errs[2]:.3e} logits {errs[3]:.3e} (bound "
+          f"{ENTRY_TOL}); planted fault, {fault_label}: pooled {bad[0]:.3e} tokens "
+          f"{bad[1]:.3e} (must exceed the bound); bf16 vs fp32 on the card, least cosine "
+          f"pooled {cos[0]:.5f} tokens {cos[1]:.5f} text {cos[2]:.5f} "
+          f"({f'need >= {ENTRY_COS}' if gate_cos else 'not gated'})")
+    assert max(errs) <= ENTRY_TOL, (name, errs)
+    assert max(bad[:2]) > ENTRY_TOL, (name, "the bound does not see the fault", bad)
+    assert min(cos) >= ENTRY_COS or not gate_cos, (name, cos)
+    assert all(bool(torch.isfinite(x).all()) for x in card)
+    big = torch.randn(ENTRY_TIMED_BATCH, 3, v.image_size, v.image_size,
+                      generator=torch.Generator().manual_seed(5))
+    rates = {p: _images_per_s(m, big.to(DEV, m.dtype)) for p, m in (("fp32", m32),
+                                                                   ("bf16", m16))}
+    print(f"[entry] {name} encode_image at batch {ENTRY_TIMED_BATCH}, "
+          f"{v.image_size}²: fp32 {rates['fp32']:.1f} images/s, bf16 "
+          f"{rates['bf16']:.1f} images/s on {CARD['smi']}")
+    del cpu
+    return m32, m16
+
+
+@contextlib.contextmanager
+def _head_zeroed_model(model):
+    with _one_head_zeroed():
+        yield
+
+
+@contextlib.contextmanager
+def _ln_before_pool(model):
+    """CLIPA's tower with the LN taken before the pool, as the plain towers do."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, final_ln_after_pool=False))
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
+@contextlib.contextmanager
+def _layerscale_left_out(model):
+    gammas = {}
+    for i, blk in enumerate(model.clip.visual.blocks):
+        for k in ("ls_1", "ls_2"):
+            p = getattr(blk, k)
+            gammas[(i, k)] = p.detach().clone()
+            p.data.fill_(1.0)
+    try:
+        yield
+    finally:
+        for (i, k), g in gammas.items():
+            getattr(model.clip.visual.blocks[i], k).data.copy_(g)
+
+
+def _fused_entry(models, images, rows):
+    """encode_image(model_type="Experimental") with RS_OV_FUSED_ATTN=1: K6
+    once (counters at 0 before, read after), against the plain route."""
+    for dtype, model in models:
+        plain = model.encode_image(images, model_type="Experimental", output_cls_token=True)
+        with _env("RS_OV_FUSED_ATTN", "1"):
+            _reset_launches()
+            fused = model.encode_image(images, model_type="Experimental",
+                                       output_cls_token=True)
+            torch.cuda.synchronize()
+            label = f"entry: ViT-B-16 encode_image Experimental {dtype}, RS_OV_FUSED_ATTN=1 (K6)"
+            launches = _expect_launches(label, images.shape[0], {"fused_selfself_attention": 1})
+        rows["fused_selfself_attention"]["launches_by_path"][f"entry {dtype}"] = \
+            launches["fused_selfself_attention"]
+        errs = [_rel(f, p) for f, p in zip(fused, plain)]
+        tol = K6_TOL[model.dtype]
+        print(f"[entry] {label}: against the plain route max|d|/max|ref| pooled "
+              f"{errs[0]:.3e} tokens {errs[1]:.3e} (bound {tol})")
+        assert max(errs) <= tol, (dtype, errs)
+
+
+def _gem_entry():
+    """create_gem_model("ViT-B-16") on a 448² image, the card's fp32
+    heatmaps against the CPU's."""
+    from rs_ov_torch.gem_api import create_gem_model, get_gem_img_transform
+
+    raw = np.random.RandomState(6).randint(0, 256, (500, 460, 3), np.uint8)
+    image = get_gem_img_transform((448, 448))(raw)[None]
+    card = create_gem_model("ViT-B-16")(image, list(ENTRY_PROMPTS))
+    t0 = time.perf_counter()
+    cpu = create_gem_model("ViT-B-16", device="cpu")(image, list(ENTRY_PROMPTS))
+    err = float((card.cpu() - cpu).abs().max())
+    print(f"[entry] create_gem_model('ViT-B-16') heatmaps [1, {len(ENTRY_PROMPTS)}, 448, 448], "
+          f"card fp32 vs CPU fp32 (CPU {time.perf_counter() - t0:.1f} s): max |d| {err:.3e} "
+          f"on [0, 1] maps (bound {GEM_TOL})")
+    assert card.shape == (1, len(ENTRY_PROMPTS), 448, 448) and err <= GEM_TOL, err
+
+
+def _hub_entry(model, images):
+    """save_for_hub, then create_model(name, path) on the card: outputs equal."""
+    from rs_ov_torch.factory import create_model
+    from rs_ov_torch.hub import HF_SAFE_WEIGHTS_NAME, save_for_hub
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_for_hub(model, "ViT-B-16", tmp)
+        back = create_model("ViT-B-16", os.path.join(tmp, HF_SAFE_WEIGHTS_NAME))
+    same = [torch.equal(a, b) for a, b in zip(back.encode_image(images, output_cls_token=True),
+                                              model.encode_image(images, output_cls_token=True))]
+    print(f"[entry] save_for_hub -> create_model('ViT-B-16', path) on the card: pooled and "
+          f"tokens equal to the saved model's: {same}")
+    assert all(same), same
+
+
+def _alternates_entry(images):
+    """SegmentorEx with each alternate upsampler (base config otherwise, bf16
+    on the card): a warm-up and a timed 512² request each beside the
+    default route, no kernel launched; then carafe's phase-5 pair."""
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    base = SegmentorEx(**_base_model_cfg(), device=DEV)
+    qf = base.query_features.cpu().numpy()
+    rates = {}
+    for name in ("jbu_one (default)",) + ALTERNATES:
+        seg = base if name.startswith("jbu_one") else SegmentorEx(
+            **{**_base_model_cfg(), "sim_feat_up_cfg": {"model_name": name}}, device=DEV,
+            query_features=qf)
+        seg.predict_raw(images[0])
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = seg.predict_raw(images[1])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _check_results(name, seg, res)
+        if name in ALTERNATES:
+            _expect_launches(f"entry: SegmentorEx with {name}", 1, {})
+        rates[name] = 16 / secs
+        print(f"[entry] SegmentorEx {name}, bf16: {secs:.4f} s for a 512² request, "
+              f"{rates[name]:.2f} crops/s (224²) on {CARD['smi']}")
+        if name == "carafe":
+            carafe = seg
+    img = _e2e_image()
+    run = carafe.predict_raw(img)[0]
+    ref = SegmentorEx(**{**_base_model_cfg(), "sim_feat_up_cfg": {"model_name": "carafe"}},
+                      device="cpu", query_features=qf).predict_raw(img)[0]
+    agree, decided, share = _pair_numbers(run, ref, TAU)
+    print(f"[entry] 336x336: carafe bf16 vs carafe fp32 CPU: argmax agreement {agree:.6f}, "
+          f"decided {decided:.6f} on {share:.4f} (need decided >= {DECIDED_AGREE} on >= "
+          f"{DECIDED_SHARE}); at margin {_at_taus(run, ref)}")
+    assert pair_passes(0.95, agree, decided, share), (agree, decided, share)
+    with _one_head_zeroed():
+        bad = carafe.predict_raw(img)[0]
+    agree, decided, share = _pair_numbers(bad, ref, TAU)
+    print(f"[entry] planted fault, one of 12 heads of the last block zeroed, carafe bf16 vs "
+          f"fp32 CPU: argmax agreement {agree:.6f}, decided {decided:.6f} on {share:.4f} "
+          f"(must fail)")
+    assert not pair_passes(0.95, agree, decided, share), "the gate does not see the fault"
+
+
+def phase_entry(rows):
+    """The open_clip entry at full width on random weights from seed 0:
+    ViT-B-16 through create_model_and_transforms (8 images of 256x320
+    through its preprocess, 8 prompts, zero-shot logits), ViT-L-14-CLIPA and
+    ViT-M-16-alt through create_model, K6 on encode_image, GEM, the hub round
+    trip and SegmentorEx with each alternate upsampler."""
+    from rs_ov_torch.factory import create_model_and_transforms
+
+    rng = np.random.RandomState(7)
+    _, preprocess, _ = create_model_and_transforms("ViT-B-16", device="cpu")
+    raw = [rng.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(ENTRY_BATCH)]
+    images = torch.from_numpy(np.stack([preprocess(r) for r in raw]))
+    from rs_ov_torch.core.config import get_model_config
+
+    ids = _text_ids(get_model_config("ViT-B-16"), rng)
+    b32, b16 = _entry_tower("ViT-B-16", images, ids, _head_zeroed_model,
+                            "one of 12 heads of the last block zeroed", True)
+    _fused_entry((("fp32", b32), ("bf16", b16)), images.to(DEV), rows)
+    _hub_entry(b32, images.to(DEV))
+    del b32, b16
+    small = torch.from_numpy(rng.randn(2, 3, 224, 224).astype(np.float32))
+    for name, fault, label in (
+            ("ViT-L-14-CLIPA", _ln_before_pool, "the LN taken before the pool"),
+            ("ViT-M-16-alt", _layerscale_left_out, "LayerScale left out")):
+        _entry_tower(name, small, _text_ids(get_model_config(name), rng), fault, label, False)
+        torch.cuda.empty_cache()
+    _gem_entry()
+    seg_images = [rng.randint(0, 256, (1, 512, 512, 3), np.uint8) for _ in range(2)]
+    _alternates_entry(seg_images)
+
+
 def main():
     phase_device()
     phase_build()
     rows = phase_kernels()
     phase_e2e(phase_slice(rows))
     phase_eval(rows)
+    phase_entry(rows)
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -58,12 +58,18 @@ class Mlp(nn.Module):
 
 
 class ResBlock(nn.Module):
-    def __init__(self, width: int, mlp_ratio: float):
+    """Residual attention block; with ``layer_scale`` the per-branch
+    LayerScale gammas ``ls_1`` / ``ls_2`` (open_clip's ``ls_init_value``)."""
+
+    def __init__(self, width: int, mlp_ratio: float, layer_scale: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width)
         self.attn = Attention(width)
         self.ln_2 = LayerNorm(width)
         self.mlp = Mlp(width, int(width * mlp_ratio))
+        if layer_scale:
+            self.ls_1 = _p(width)
+            self.ls_2 = _p(width)
 
 
 class VisionTower(nn.Module):
@@ -73,8 +79,11 @@ class VisionTower(nn.Module):
         self.conv1_w = _p(cfg.width, 3, cfg.patch_size, cfg.patch_size)
         self.class_embedding = _p(cfg.width)
         self.positional_embedding = _p(gh * gw + 1, cfg.width)
+        # kept when ``no_ln_pre`` (CLIPA) as in the JAX pytree; the forward
+        # skips it then
         self.ln_pre = LayerNorm(cfg.width)
-        self.blocks = nn.ModuleList(ResBlock(cfg.width, cfg.mlp_ratio)
+        self.blocks = nn.ModuleList(ResBlock(cfg.width, cfg.mlp_ratio,
+                                             layer_scale=cfg.ls_init_value is not None)
                                     for _ in range(cfg.layers))
         self.ln_post = LayerNorm(cfg.width)
         self.proj = _p(cfg.width, cfg.output_dim)
@@ -89,20 +98,21 @@ class TextTower(nn.Module):
                                     for _ in range(cfg.layers))
         self.ln_final = LayerNorm(cfg.width)
         self.text_projection = _p(cfg.width, cfg.output_dim)
+        if cfg.proj_bias:
+            self.text_projection_b = _p(cfg.output_dim)
 
 
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         v, t = cfg.vision, cfg.text
-        if (v.timm_model_name or v.pool_type != "tok" or v.no_ln_pre
-                or v.final_ln_after_pool or v.ls_init_value is not None
-                or v.attentional_pool or t.proj_bias or t.pool_type != "argmax"
-                or t.no_causal_mask or t.hf_model_name or t.embed_cls
-                or t.norm_eps is not None):
+        if v.timm_model_name or t.hf_model_name:
             raise NotImplementedError(
-                "only plain OpenAI-style CLIP ViT towers are ported; the other "
-                "towers are ROADMAP queue 1 item 8")
+                f"the timm and HF towers ({v.timm_model_name or t.hf_model_name}) are "
+                "not ported yet (ROADMAP queue 1 item 8e)")
+        if v.attentional_pool or t.embed_cls:
+            raise NotImplementedError("CoCa's attentional pool and text CLS are not "
+                                      "ported yet (ROADMAP queue 1 item 9)")
         self.visual = VisionTower(v)
         self.text = TextTower(t)
         self.logit_scale = _p()
@@ -175,7 +185,8 @@ def _init_ln(ln: LayerNorm) -> None:
     ln.bias.zero_()
 
 
-def _init_block(blk: ResBlock, width: int, gen: torch.Generator) -> None:
+def _init_block(blk: ResBlock, width: int, gen: torch.Generator,
+                ls_init_value: float | None = None) -> None:
     attn_std = width ** -0.5
     proj_std = attn_std * 0.5
     fc_std = (2 * width) ** -0.5
@@ -189,6 +200,9 @@ def _init_block(blk: ResBlock, width: int, gen: torch.Generator) -> None:
     blk.mlp.c_fc_b.zero_()
     _normal(blk.mlp.c_proj_w, proj_std, gen)
     blk.mlp.c_proj_b.zero_()
+    if hasattr(blk, "ls_1"):
+        blk.ls_1.fill_(ls_init_value)
+        blk.ls_2.fill_(ls_init_value)
 
 
 @torch.no_grad()
@@ -202,7 +216,7 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
     _normal(v.positional_embedding, scale, gen)
     _init_ln(v.ln_pre)
     for blk in v.blocks:
-        _init_block(blk, cfg.vision.width, gen)
+        _init_block(blk, cfg.vision.width, gen, cfg.vision.ls_init_value)
     _init_ln(v.ln_post)
     _normal(v.proj, scale, gen)
     _normal(t.token_embedding, 0.02, gen)
@@ -211,6 +225,8 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
         _init_block(blk, cfg.text.width, gen)
     _init_ln(t.ln_final)
     _normal(t.text_projection, cfg.text.width ** -0.5, gen)
+    if cfg.text.proj_bias:
+        t.text_projection_b.zero_()
     m.logit_scale.fill_(float(np.log(1 / 0.07)))
     return m
 
@@ -295,7 +311,14 @@ def load_numpy_tree(module: nn.Module, tree) -> nn.Module:
 
 
 def clip_params_from_numpy(tree, cfg: CLIPConfig) -> CLIP:
-    """The JAX ``init_clip_params`` pytree (numpy leaves) as a CPU fp32 CLIP."""
+    """The JAX ``init_clip_params`` pytree (numpy leaves) as a CPU fp32 CLIP:
+    LayerScale gammas and the text projection bias where the config has
+    them; for a ``no_ln_pre`` tower (CLIPA) a tree without ``ln_pre`` gets
+    the identity LayerNorm, which the forward skips."""
+    if "ln_pre" not in tree["visual"] and cfg.vision.no_ln_pre:
+        width = cfg.vision.width
+        tree = {**tree, "visual": {**tree["visual"], "ln_pre": {
+            "scale": np.ones(width, np.float32), "bias": np.zeros(width, np.float32)}}}
     return load_numpy_tree(CLIP(cfg), tree)
 
 

@@ -1,16 +1,21 @@
 """The decontaminating vision transformer (rs_ov/nn/vit.py:39-331):
 
-  patchify -> CLS + (interpolated) pos-embed -> ln_pre
+  patchify -> CLS + (interpolated) pos-embed -> ln_pre (not for CLIPA)
   -> front blocks (capturing the mid-layer state for similarity enhancement,
      the head-averaged attention of the outlier source layers, or the
      layer-fusion EMA of every block's attention)
   -> last block(s): output (+)= custom_attn(ln_1(x))   [ignore_residual]
                     or x + attn + mlp                  [otherwise]
   -> SOM | layer-fusion re-weighting | self-attention enhancement
-  -> outlier suppression -> ln_post -> @proj (fp32) -> (pooled, tokens)
+  -> outlier suppression -> ln_post -> pool ('tok': CLS, 'avg': mean of the
+     patch tokens; CLIPA's final_ln_after_pool pools the raw stream, applies
+     ln_post to the pooled vector only and leaves the tokens un-normalised)
+  -> @proj (fp32) -> (pooled, tokens)
 
-The JAX package runs the homogeneous front blocks as one lax.scan; the port
-keeps a loop.
+LayerScale towers (ViT-M-16-alt) scale each branch of the ordinary blocks by
+``ls_1`` / ``ls_2``; the decontaminated last block's own output leaves them
+out, as in the JAX package (rs_ov/nn/vit.py:245-256). The JAX package runs
+the homogeneous front blocks as one lax.scan; the port keeps a loop.
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ __all__ = ["VitCallConfig", "vit_forward", "interpolate_pos_embedding"]
 @dataclasses.dataclass(frozen=True)
 class VitCallConfig:
     """rs_ov.nn.vit.VitCallConfig (rs_ov/nn/vit.py:39-85), with the same
-    defaults; the port's towers are the plain OpenAI ViTs, so the output
-    always holds (pooled, tokens)."""
+    defaults; ``vit_forward`` always returns (pooled, tokens), so the JAX
+    field ``output_cls_token`` is the caller's choice of what to keep
+    (``factory.CLIPModel.encode_image``)."""
 
     model_type: str = "ClearCLIP"
     ignore_residual: bool = True
@@ -103,9 +109,13 @@ def interpolate_pos_embedding(pos_embed: torch.Tensor,
 def _resblock(blk, x: torch.Tensor, heads: int, act, need_weights: bool = False):
     attn_out, weights = standard_attention(blk.attn, layer_norm(x, blk.ln_1), heads,
                                            need_weights=need_weights)
+    if hasattr(blk, "ls_1"):
+        attn_out = attn_out * blk.ls_1.to(attn_out.dtype)
     x = x + attn_out
-    x = x + mlp(layer_norm(x, blk.ln_2), blk.mlp, act=act)
-    return x, weights
+    mlp_out = mlp(layer_norm(x, blk.ln_2), blk.mlp, act=act)
+    if hasattr(blk, "ls_2"):
+        mlp_out = mlp_out * blk.ls_2.to(mlp_out.dtype)
+    return x + mlp_out, weights
 
 
 def _patch_stage(output: torch.Tensor, gh: int, gw: int, fn) -> torch.Tensor:
@@ -132,7 +142,9 @@ def vit_forward(p, images: torch.Tensor, vcfg: VisionConfig, call: VitCallConfig
     pos = p.positional_embedding
     if x.shape[1] != pos.shape[0]:
         pos = interpolate_pos_embedding(pos, (gh, gw))
-    x = layer_norm(x + pos.to(x.dtype)[None], p.ln_pre)
+    x = x + pos.to(x.dtype)[None]
+    if not vcfg.no_ln_pre:
+        x = layer_norm(x, p.ln_pre)
 
     n_layers = len(p.blocks)
     last_n = call.last_n_layers
@@ -227,8 +239,15 @@ def vit_forward(p, images: torch.Tensor, vcfg: VisionConfig, call: VitCallConfig
             s, attn_weights, gh, gw, top_k=call.outlier_top_k,
             contamination_temp=call.contamination_temp))
 
-    x = layer_norm(output, p.ln_post)
+    def pool(y):
+        return y[:, 1:].mean(1) if vcfg.pool_type == "avg" else y[:, 0]
+
+    if vcfg.final_ln_after_pool:
+        pooled, tokens = layer_norm(pool(output), p.ln_post), output[:, 1:]
+    else:
+        x = layer_norm(output, p.ln_post)
+        pooled, tokens = pool(x), x[:, 1:]
     proj = p.proj.float()
-    pooled = torch.matmul(x[:, 0].float(), proj).to(x.dtype)
-    tokens = torch.matmul(x[:, 1:].float(), proj).to(x.dtype)
-    return pooled, tokens
+    dtype = output.dtype
+    return (torch.matmul(pooled.float(), proj).to(dtype),
+            torch.matmul(tokens.float(), proj).to(dtype))

@@ -18,8 +18,9 @@ stream, or the BLIP ViT with its q.q last block) -> optional cross-tile
 fusion over each image's crops -> in chunks of ``tile_chunk`` crops
 (``RS_OV_TILE_CHUNK``; by default 2 with SimFeatUp, else all at once):
 global CLS debias, optional CTD (DBSCAN, then
-clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack`` or
-``bilinear``) and the cosine classifier -> optional CLS-logit blend
+clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack``, ``bilinear``
+or, random init only, the channel-first alternates ``resize_conv``,
+``ifa``, ``carafe`` and ``sapa``) and the cosine classifier -> optional CLS-logit blend
 (``cls_token_lambda``) -> bilinear resize of the logits to the padded crop
 -> per image: overlap-average stitch -> resize to the original shape ->
 softmax, synonym merge, argmax, threshold. With ``shape_bucket`` (or

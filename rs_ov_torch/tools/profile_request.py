@@ -2,7 +2,8 @@
 
     python3 -m rs_ov_torch.tools.profile_request [--requests 3] [--fused-attn]
         [--route default|fp32-channel-first|bf16-channel-first]
-        [--clip-type CLIP] [--vit-type ViT-B/16] [--gem]
+        [--clip-type CLIP] [--vit-type ViT-B/16] [--gem] [--upsampler NAME]
+        [--encode-image ARCH [--batch 64]]
         [--out work_dirs/profile_request.json]
 
 Builds ``SegmentorEx`` from ``configs/base_config.py`` (CLIP ViT-B/16 at full
@@ -21,7 +22,12 @@ route: K1, K2, K3), ``fp32-channel-first`` the weights in fp32
 ``RS_OV_JBU_FUSED=0`` (K1, K4a). With ``--fused-attn`` the last block's
 attention takes K6 (``RS_OV_FUSED_ATTN=1``); with ``RS_OV_JBU_FUSED_RANGE=1``
 in the environment the bf16 channel-last stages take the fused-range
-kernels K5a and K5b.
+kernels K5a and K5b. ``--upsampler`` names the SimFeatUp upsampler
+(``sim_feat_up_cfg["model_name"]``: ``jbu_stack``, ``bilinear`` or an
+alternate, ``resize_conv``, ``ifa``, ``carafe``, ``sapa``). With
+``--encode-image ARCH`` it profiles ``create_model(ARCH)``'s
+``encode_image`` on ``--batch`` random 224² images instead (one call a
+"request"; the route's precision, bf16 unless ``fp32-channel-first``).
 """
 
 from __future__ import annotations
@@ -73,6 +79,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--clip-type", default="CLIP")
     ap.add_argument("--vit-type", default="ViT-B/16")
     ap.add_argument("--gem", action="store_true")
+    ap.add_argument("--upsampler", default=None)
+    ap.add_argument("--encode-image", default=None, metavar="ARCH")
+    ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--out", default=os.path.join("work_dirs", "profile_request.json"))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -88,28 +97,45 @@ def main(argv=None) -> dict:
         os.environ["RS_OV_FUSED_ATTN"] = "1"
     if opts.route == "bf16-channel-first":
         os.environ["RS_OV_JBU_FUSED"] = "0"
-    cfg = dict(load_config("configs/base_config.py")["model"])
-    cfg.pop("type")
-    cfg.update(name_path="configs/cls_potsdam.txt", clip_type=opts.clip_type,
-               vit_type=opts.vit_type)
-    if opts.gem or opts.clip_type == "BLIP":
-        cfg["global_debias_factor"] = 0.0
-    if opts.gem:
-        cfg.update(model_type="GEM", ignore_residual=False)
-    if opts.clip_type == "BLIP":
-        cfg["blip_vocab_path"] = "tests/fixtures/blip_decode_vocab.txt"
-    if opts.route == "fp32-channel-first":
-        cfg["param_dtype"] = torch.float32
-    seg = SegmentorEx(**cfg, device=torch.device("cuda"))
-    image = np.random.RandomState(1).randint(0, 256, (1, 512, 512, 3), np.uint8)
+    if opts.encode_image:
+        from rs_ov_torch.factory import create_model
+
+        model = create_model(opts.encode_image, precision="fp32" if opts.route ==
+                             "fp32-channel-first" else "bf16")
+        size = model.cfg.vision.image_size
+        batch = torch.randn(opts.batch, 3, size, size, generator=torch.Generator().manual_seed(1))
+        batch = batch.to("cuda", model.dtype)
+
+        def run():
+            model.encode_image(batch)
+    else:
+        cfg = dict(load_config("configs/base_config.py")["model"])
+        cfg.pop("type")
+        cfg.update(name_path="configs/cls_potsdam.txt", clip_type=opts.clip_type,
+                   vit_type=opts.vit_type)
+        if opts.gem or opts.clip_type == "BLIP":
+            cfg["global_debias_factor"] = 0.0
+        if opts.gem:
+            cfg.update(model_type="GEM", ignore_residual=False)
+        if opts.clip_type == "BLIP":
+            cfg["blip_vocab_path"] = "tests/fixtures/blip_decode_vocab.txt"
+        if opts.route == "fp32-channel-first":
+            cfg["param_dtype"] = torch.float32
+        if opts.upsampler:
+            cfg["sim_feat_up_cfg"] = {"model_name": opts.upsampler}
+        seg = SegmentorEx(**cfg, device=torch.device("cuda"))
+        image = np.random.RandomState(1).randint(0, 256, (1, 512, 512, 3), np.uint8)
+
+        def run():
+            seg.predict_raw(image)
     for _ in range(2):
-        seg.predict_raw(image)
+        run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(opts.requests):
-            seg.predict_raw(image)
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = opts.requests
@@ -126,7 +152,9 @@ def main(argv=None) -> dict:
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
     fused_range = os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
-    tower = f"{opts.clip_type} {opts.vit_type}{' GEM' if opts.gem else ''}"
+    tower = (f"{opts.encode_image} encode_image, batch {opts.batch}" if opts.encode_image else
+             f"{opts.clip_type} {opts.vit_type}{' GEM' if opts.gem else ''}"
+             f"{' ' + opts.upsampler if opts.upsampler else ''}")
     result = {"card": card, "requests": n, "route": opts.route, "fused_attn": opts.fused_attn,
               "fused_range": fused_range, "tower": tower,
               "wall_ms_per_request": wall * 1e3 / n, "device_ms_per_request": device_ms,
@@ -136,7 +164,8 @@ def main(argv=None) -> dict:
               "kernels": dict(sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1]["ms_per_request"])[:40])}
     print(card)
-    print(f"[profile] {tower}: {n} requests of one 512x512 image (16 crops of 224²), "
+    what = "calls" if opts.encode_image else "requests of one 512x512 image (16 crops of 224²)"
+    print(f"[profile] {tower}: {n} {what}, "
           f"route {opts.route}{', K6 on' if opts.fused_attn else ''}"
           f"{', RS_OV_JBU_FUSED_RANGE=1' if fused_range else ''}: wall "
           f"{result['wall_ms_per_request']:.3f} ms, device {device_ms:.3f} ms per request "

@@ -19,7 +19,9 @@ Two layouts, as in the JAX package:
   computes the range logits and both reflect pads itself.
 
 The guidance stays channel-first in both. On the CPU every kernel wrapper
-takes its plain version.
+takes its plain version. ``get_upsampler`` also hands out the alternates of
+``upsample/alternates.py`` (resize_conv, ifa, carafe, sapa), channel-first
+only.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue, jbu_epilogue_classif
                                               jbu_epilogue_fused,
                                               jbu_epilogue_fused_classify)
 from rs_ov_torch.kernels.range_logits import range_logits
+from rs_ov_torch.upsample import alternates
 from rs_ov_torch.utils.resize import (adaptive_avg_pool2d, reflect_pad_2d,
                                       reflect_pad_nhwc, resize_bicubic,
                                       resize_bicubic_nhwc, resize_bilinear)
@@ -299,9 +302,14 @@ def _init_none(_gen: torch.Generator, _dim: int) -> torch.nn.Module:
     return torch.nn.Module()  # bilinear has no parameters
 
 
+ALTERNATES = ("resize_conv", "ifa", "carafe", "sapa")
+
+
 def get_upsampler(name: str, stages: int = 4):
     """(forward, init): forward(params, source [B,C,h,w], guidance [B,G,GH,GW])
-    -> upsampled features; init(gen, feat_dim) -> parameter module."""
+    -> upsampled features; init(gen, feat_dim) -> parameter module. ``stages``
+    applies to the JBU upsamplers; the alternates (``upsample.alternates``)
+    run their own fixed stages (IFA one 2x step, the others four)."""
     if name == "bilinear":
         return bilinear_upsample, _init_none
     if name == "jbu_one":
@@ -310,9 +318,9 @@ def get_upsampler(name: str, stages: int = 4):
     if name == "jbu_stack":
         return (lambda p, s, g: jbu_stack_forward(p, s, g, radius=3, stages=stages),
                 lambda gen, dim: init_jbu_stack_params(gen, dim))
-    if name in ("resize_conv", "ifa", "carafe", "sapa"):
-        raise NotImplementedError(f"upsampler '{name}' is not ported yet "
-                                  f"(ROADMAP queue 1 item 8)")
+    if name in ALTERNATES:
+        return (getattr(alternates, f"{name}_forward"),
+                lambda gen, dim: getattr(alternates, f"init_{name}_params")(gen, dim))
     raise ValueError(f"Unknown upsampler '{name}' (known: bilinear, jbu_one, jbu_stack, "
                      f"resize_conv, ifa, carafe, sapa)")
 

@@ -28,8 +28,11 @@ _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 
 
 def _as_tensor(x) -> torch.Tensor:
-    t = x.detach().cpu() if torch.is_tensor(x) else torch.from_numpy(
-        np.ascontiguousarray(x, np.asarray(x).dtype.newbyteorder("<")))
+    if torch.is_tensor(x):
+        t = x.detach().cpu()
+    else:  # contiguous, writable and little-endian, 0-d arrays kept 0-d
+        a = np.asarray(x)
+        t = torch.from_numpy(np.require(a, a.dtype.newbyteorder("<"), ["C", "W"]))
     if t.dtype not in _DTYPE_NAMES:
         raise ValueError(f"unsupported dtype for safetensors: {t.dtype}")
     return t.contiguous()

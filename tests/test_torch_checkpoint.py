@@ -206,11 +206,16 @@ def test_misnamed_extra_and_misshapen_keys_raise(trees):
     del up["upsampler.up.range_temp"]
     with pytest.raises(KeyError, match="up.range_temp"):
         ckpt.jbu_params_from_state_dict(up, "jbu_one")
+    # a timm-named ViT export takes the timm loader (item 8d), strict too;
+    # a timm-tower export (ConvNeXt's stem) is refused, naming item 8e
     timm = {"visual.trunk.patch_embed.proj.weight": np.zeros((8, 3, 16, 16), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(KeyError, match="pos_embed"):
         ckpt.clip_params_from_state_dict(timm)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(KeyError, match="pos_embed"):
         ckpt.infer_clip_config_from_state_dict(timm)
+    convnext = {"visual.trunk.stem.0.weight": np.zeros((8, 3, 4, 4), np.float32)}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8e"):
+        ckpt.clip_params_from_state_dict(convnext)
 
 
 def test_safetensors_round_trip_with_the_jax_reader(tmp_path):

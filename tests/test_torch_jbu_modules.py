@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from rs_ov.upsample import jbu as jjbu
 from rs_ov_torch.core.params import (JBUOne, JBUStack, init_jbu_stack_params,
                                      jbu_params_from_numpy, load_numpy_tree)
-from rs_ov_torch.upsample import jbu
+from rs_ov_torch.upsample import alternates, jbu
 
 torch.set_num_threads(1)
 
@@ -131,9 +131,11 @@ def test_registry():
     assert isinstance(init(torch.Generator().manual_seed(0), C), JBUStack)
     _, init = jbu.get_upsampler("jbu_one")
     assert isinstance(init(torch.Generator().manual_seed(0), C), JBUOne)
-    for name in ("resize_conv", "ifa", "carafe", "sapa"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            jbu.get_upsampler(name)
+    for name in ("resize_conv", "ifa", "carafe", "sapa"):  # ported with item 8d
+        fwd, init = jbu.get_upsampler(name)
+        assert fwd is getattr(alternates, f"{name}_forward")
+        assert isinstance(init(torch.Generator().manual_seed(0), C), torch.nn.Module)
+        assert jbu.get_upsampler_nhwc(name) is None
     with pytest.raises(ValueError, match="Unknown upsampler"):
         jbu.get_upsampler("nearest")
     assert jbu.get_upsampler_nhwc("bilinear") is None

@@ -131,10 +131,14 @@ def test_native_library_is_the_ports_own():
                                   "ViT-M-16-alt", "ViT-bigG-14"])
 def test_config_copy_matches_the_jax_package(name):
     from rs_ov.core.config import get_model_config as jax_cfg
-    from rs_ov_torch.core.config import get_model_config, list_models
+    from rs_ov_torch.core.config import COCA_MODELS, get_model_config, list_models
 
     assert dataclasses.asdict(get_model_config(name)) == dataclasses.asdict(jax_cfg(name))
     for n in list_models():  # every entry the port lists has the JAX numbers
+        if n in COCA_MODELS:  # CoCa's configs are its module's (queue 1 item 9)
+            with pytest.raises(NotImplementedError, match="item 9"):
+                get_model_config(n)
+            continue
         assert dataclasses.asdict(get_model_config(n)) == dataclasses.asdict(jax_cfg(n))
     ours = get_model_config(name)
     assert (ours.vision.heads, ours.vision.grid_size) == (jax_cfg(name).vision.heads,

@@ -110,21 +110,48 @@ def test_decontam_options_match_jax(weights, case):
     assert np.mean(pred == np.asarray(want["pred_sem_seg"])) >= 0.999
 
 
-@pytest.mark.parametrize("option", [
+ITEM_8D_OPTIONS = [
     dict(clip_config=dataclasses.replace(CFG, vision=dataclasses.replace(CFG.vision,
                                                                          pool_type="avg"))),
-    dict(sim_feat_up_cfg=dict(model_name="ifa")),
-    dict(sim_feat_up_cfg=dict(model_name="carafe")),
+    dict(sim_feat_up_cfg=dict(model_name="ifa"), upsampler_params=None),
+    dict(sim_feat_up_cfg=dict(model_name="carafe"), upsampler_params=None),
     dict(clip_config=dataclasses.replace(CFG, vision=dataclasses.replace(CFG.vision,
-                                                                         ls_init_value=1e-4))),
+                                                                         ls_init_value=1e-4)),
+         params=None),
+]
+
+
+@pytest.mark.parametrize("option", [
+    dict(clip_config=dataclasses.replace(CFG, vision=dataclasses.replace(
+        CFG.vision, timm_model_name="vit_base_patch16_siglip_224"))),
+    dict(clip_config=dataclasses.replace(CFG, text=dataclasses.replace(
+        CFG.text, hf_model_name="roberta-base"))),
+    dict(clip_config=dataclasses.replace(CFG, vision=dataclasses.replace(
+        CFG.vision, attentional_pool=True))),
+    dict(clip_config=dataclasses.replace(CFG, text=dataclasses.replace(
+        CFG.text, embed_cls=True))),
 ])
 def test_options_outside_the_slice_raise(weights, option):
-    """What ROADMAP queue 1 item 8d holds: a tower pooling other than by its
-    CLS token, the upsampler alternates and LayerScale."""
+    """What ROADMAP queue 1 items 8e and 9 hold: the timm and HF towers, and
+    CoCa's attentional pool and text CLS (item 8d's options build since it
+    was ported: test_item_8d_options_build)."""
     kw = _kwargs(weights, 2)
     kw.update(option)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         SegmentorEx(**kw, device="cpu")
+
+
+@pytest.mark.parametrize("option", ITEM_8D_OPTIONS,
+                         ids=["avg-pool", "ifa", "carafe", "layerscale"])
+def test_item_8d_options_build(weights, option):
+    """An avg-pooled tower, the ifa and carafe upsamplers and LayerScale
+    (random weights where the JAX tree has none) run a request."""
+    kw = _kwargs(weights, 2)
+    kw.update(option)
+    img = np.random.RandomState(9).randint(0, 256, (1, 64, 96, 3), np.uint8)
+    got = SegmentorEx(**kw, device="cpu").predict_raw(img)[0]
+    assert got["seg_logits"].shape == (6, 64, 96)
+    assert bool(torch.isfinite(got["seg_logits"]).all())
 
 
 def test_without_a_card_the_device_must_be_named(weights, monkeypatch):

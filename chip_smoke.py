@@ -133,6 +133,21 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 crops/s beside the default route, no kernel launched; and
                 carafe's 336² bf16 run against its fp32 CPU run on phase
                 5's decided-pixel gate, one zeroed head failing it.
+  8. timm     - the timm towers (rs_ov_torch.nn.timm_tower) through
+                create_model at full width on random weights from seed 0,
+                every LayerNorm scale, ConvNeXt gamma, bias and CLS token
+                drawn anew from one seeded RandomState in each model:
+                convnext_large_d (256², 'mlp' head), ViT-B-16-SigLIP (224²,
+                MAP head, logit_bias) and EVA02-B-16 (224², RoPE, SwiGLU,
+                inner norms, split qkv, the trunk's head). For each: two
+                images and 8 prompts (seeded ids where the tokenizer is an
+                HF asset) on the card in fp32 against the CPU's fp32
+                (max|d|/max|ref| <= ENTRY_TOL on the image and text
+                embeddings and the logits) with no kernel launched, a
+                planted fault above the bound (ConvNeXt's gammas left out,
+                the MAP head's MLP residual left out, RoPE left out), bf16
+                against the card's fp32 (cosine >= ENTRY_COS), and
+                encode_image images/s at batch 64 in fp32 and bf16.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1963,6 +1978,152 @@ def phase_entry(rows):
     _alternates_entry(seg_images)
 
 
+# Phase 8, the timm towers (rs_ov_torch.nn.timm_tower) through create_model at
+# full width, held to phase 7's ENTRY_TOL (card fp32 against CPU fp32) and
+# ENTRY_COS (card bf16 against card fp32). Before any comparison every
+# LayerNorm scale, ConvNeXt gamma, bias and CLS token of each model is drawn
+# anew from one seeded RandomState (the same values in every model): at the
+# init's ones and zeros a tower that dropped one of them would still match.
+TIMM_TOWERS = ("convnext_large_d", "ViT-B-16-SigLIP", "EVA02-B-16")
+TIMM_CPU_BATCH = 2
+
+
+@torch.no_grad()
+def _redraw_leaves(model, seed=11):
+    rng = np.random.RandomState(seed)
+    for name, p in model.clip.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            new = 1.0 + 0.1 * rng.randn(*p.shape)
+        elif leaf == "gamma":
+            new = 0.5 + 0.1 * rng.randn(*p.shape)
+        elif leaf in ("bias", "cls_token") or leaf.endswith("_b"):
+            new = 0.02 * rng.randn(*p.shape)
+        else:
+            continue
+        p.copy_(torch.from_numpy(new.astype(np.float32)))
+    return model
+
+
+@contextlib.contextmanager
+def _saved_params(model, names, value):
+    """The named parameters of ``model.clip`` filled with ``value`` for the block."""
+    params = {n: p for n, p in model.clip.named_parameters() if n.endswith(names)}
+    saved = {n: p.detach().clone() for n, p in params.items()}
+    assert params, names
+    for p in params.values():
+        p.data.fill_(value)
+    try:
+        yield
+    finally:
+        for n, p in params.items():
+            p.data.copy_(saved[n])
+
+
+@contextlib.contextmanager
+def _gamma_left_out(model):
+    with _saved_params(model, ("gamma",), 1.0):
+        yield
+
+
+@contextlib.contextmanager
+def _map_mlp_left_out(model):
+    """The MAP head's residual MLP contributing nothing (its output zeroed)."""
+    with _saved_params(model, ("attn_pool.mlp.c_proj_w", "attn_pool.mlp.c_proj_b"), 0.0):
+        yield
+
+
+@contextlib.contextmanager
+def _rope_left_out(model):
+    from rs_ov_torch.nn import timm_tower
+
+    name = model.cfg.vision.timm_model_name
+    arch = timm_tower.TIMM_ARCHS[name]
+    timm_tower.TIMM_ARCHS[name] = dataclasses.replace(arch, rope=False)
+    try:
+        yield
+    finally:
+        timm_tower.TIMM_ARCHS[name] = arch
+
+
+TIMM_FAULTS = {"convnext_large_d": (_gamma_left_out, "ConvNeXt's gammas left out"),
+               "ViT-B-16-SigLIP": (_map_mlp_left_out, "the MAP head's MLP residual left out"),
+               "EVA02-B-16": (_rope_left_out, "RoPE left out")}
+
+
+def _encode_pooled(model, images, ids):
+    """(image embedding, normalised text embedding, logits with the bias
+    where the model has one) of a timm-towered CLIPModel."""
+    image = model.encode_image(images)
+    text = model.encode_text(ids, normalize=True).float()
+    img = image.float() / image.float().norm(dim=-1, keepdim=True)
+    logits = model.logit_scale.float() * img @ text.t()
+    if hasattr(model.clip, "logit_bias"):
+        logits = logits + model.clip.logit_bias.float()
+    return image, text, logits
+
+
+def _timm_tower(name, rng):
+    """One timm tower through create_model at full width: card fp32 against
+    CPU fp32 with no kernel launched, its planted fault above the bound,
+    card bf16 against card fp32, images/s at batch ENTRY_TIMED_BATCH."""
+    from rs_ov_torch.core.config import get_model_config
+    from rs_ov_torch.factory import create_model
+
+    cfg = get_model_config(name)
+    size = cfg.vision.image_size
+    t0 = time.perf_counter()
+    m32 = _redraw_leaves(create_model(name, precision="fp32", seed=0))
+    m16 = _redraw_leaves(create_model(name, precision="bf16", seed=0))
+    cpu = _redraw_leaves(create_model(name, device="cpu", seed=0))
+    built = time.perf_counter() - t0
+    images = torch.from_numpy(rng.randn(TIMM_CPU_BATCH, 3, size, size).astype(np.float32))
+    ids = _text_ids(cfg, rng)
+    _reset_launches()
+    card = _encode_pooled(m32, images, ids)
+    torch.cuda.synchronize()
+    _expect_launches(f"timm: {name} encode_image / encode_text fp32", TIMM_CPU_BATCH, {})
+    t0 = time.perf_counter()
+    ref = _encode_pooled(cpu, images, ids)
+    cpu_s = time.perf_counter() - t0
+    errs = _entry_errs(card, ref)
+    fault, fault_label = TIMM_FAULTS[name]
+    with fault(m32):
+        bad = _entry_errs(_encode_pooled(m32, images, ids), ref)
+    cos = [_min_cos(a, b) for a, b in zip(_encode_pooled(m16, images, ids)[:2], card[:2])]
+    params = sum(p.numel() for p in m32.clip.visual.parameters())
+    print(f"[timm] {name} ({cfg.vision.timm_model_name}, head "
+          f"{cfg.vision.timm_proj}, {params / 1e6:.1f} M vision parameters; built x3 in "
+          f"{built:.1f} s, CPU fp32 run {cpu_s:.1f} s): {TIMM_CPU_BATCH} images {size}², "
+          f"{len(ids)} prompts; card fp32 vs CPU fp32 max|d|/max|ref| image {errs[0]:.3e} "
+          f"text {errs[1]:.3e} logits {errs[2]:.3e} (bound {ENTRY_TOL}); planted fault, "
+          f"{fault_label}: image {bad[0]:.3e} (must exceed the bound); bf16 vs fp32 on the "
+          f"card, least cosine image {cos[0]:.5f} text {cos[1]:.5f} (need >= {ENTRY_COS})")
+    assert tuple(card[0].shape) == (TIMM_CPU_BATCH, cfg.embed_dim), card[0].shape
+    assert all(bool(torch.isfinite(x).all()) for x in card)
+    assert max(errs) <= ENTRY_TOL, (name, errs)
+    assert bad[0] > ENTRY_TOL, (name, "the bound does not see the fault", bad)
+    assert min(cos) >= ENTRY_COS, (name, cos)
+    del cpu
+    big = torch.randn(ENTRY_TIMED_BATCH, 3, size, size, generator=torch.Generator().manual_seed(5))
+    rates = {p: _images_per_s(m, big.to(DEV, m.dtype)) for p, m in (("fp32", m32),
+                                                                   ("bf16", m16))}
+    print(f"[timm] {name} encode_image at batch {ENTRY_TIMED_BATCH}, {size}²: fp32 "
+          f"{rates['fp32']:.1f} images/s, bf16 {rates['bf16']:.1f} images/s on {CARD['smi']}")
+
+
+def phase_timm():
+    """The timm towers through create_model at full width, random weights
+    from seed 0 with the small leaves drawn anew: convnext_large_d (256²,
+    'mlp' head), ViT-B-16-SigLIP (224², MAP head, logit_bias) and
+    EVA02-B-16 (224², RoPE, SwiGLU, inner norms, split qkv, the trunk's
+    head)."""
+    rng = np.random.RandomState(8)
+    for name in TIMM_TOWERS:
+        _timm_tower(name, rng)
+        torch.cuda.empty_cache()
+
+
 def main():
     phase_device()
     phase_build()
@@ -1970,6 +2131,7 @@ def main():
     phase_e2e(phase_slice(rows))
     phase_eval(rows)
     phase_entry(rows)
+    phase_timm()
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

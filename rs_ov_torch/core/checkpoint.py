@@ -5,8 +5,10 @@ The way from a state dict in the reference's names to the port is a pure
 renaming into the JAX package's pytree layout (numpy leaves, torch's (out,
 in) orientation kept), then the strict bridge ``clip_params_from_numpy`` /
 ``load_numpy_tree``, which raises on a missing, unused or misshapen key.
-The timm-tower (ConvNeXt, SigLIP MAP-head ViT, EVA) and big_vision loaders
-are ROADMAP queue 1 item 8e, CoCa's is item 9.
+The timm-tower exports (``visual.trunk.*``: ConvNeXt, SigLIP MAP-head ViT,
+EVA) and big_vision ``.npz`` files (a classic ViT, or SigLIP onto its
+MAP-head tower and 'last'-pooled text tower) take the same way; CoCa's
+loader is ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -19,11 +21,14 @@ import torch
 from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
 from rs_ov_torch.core.params import (CLIP, JBUOne, JBUStack, clip_params_from_numpy,
                                      load_numpy_tree)
+from rs_ov_torch.nn.timm_tower import timm_arch
 
 __all__ = ["load_torch_state_dict", "vision_params_from_state_dict",
            "text_params_from_state_dict", "clip_params_from_state_dict",
            "infer_clip_config_from_state_dict", "jbu_params_from_state_dict",
-           "detect_timm_vision_prefix", "vision_params_from_timm_state_dict"]
+           "detect_timm_vision_prefix", "vision_params_from_timm_state_dict",
+           "timm_tower_params_from_state_dict", "vision_params_from_big_vision_npz",
+           "siglip_params_from_big_vision_npz"]
 
 
 def _np(x) -> np.ndarray:
@@ -229,14 +234,150 @@ def vision_params_from_timm_state_dict(sd: Mapping[str, np.ndarray],
     return tree
 
 
-def _clip_tree(sd: Mapping[str, np.ndarray]) -> dict:
-    """An open_clip-named CLIP state dict, or one whose vision tower has
-    timm's names, as the JAX pytree layout."""
-    if "visual.trunk.stem.0.weight" in sd:
-        raise NotImplementedError("loading a timm-tower export (visual.trunk.*) is not "
-                                  "ported yet (ROADMAP queue 1 item 8e)")
-    visual = (vision_params_from_state_dict(sd, "visual.") if "visual.conv1.weight" in sd
-              else vision_params_from_timm_state_dict(sd))
+# ---------------------------------------------------------------------------
+# open_clip timm-tower exports: visual.trunk.* in timm's names, visual.head.*
+# (rs_ov/core/checkpoint.py:313-460)
+# ---------------------------------------------------------------------------
+
+def _hwio(a) -> np.ndarray:
+    """torch OIHW conv weight -> HWIO, the JAX tree's ConvNeXt layout."""
+    return _f32(np.asarray(a).transpose(2, 3, 1, 0))
+
+
+def _convnext_trunk(sd, t: str, arch) -> dict:
+    trunk = {"stem_conv_w": _hwio(sd[t + "stem.0.weight"]),
+             "stem_conv_b": _f32(sd[t + "stem.0.bias"]),
+             "stem_norm": _ln(sd, t + "stem.1"),
+             "head_norm": _ln(sd, t + "head.norm"),
+             "stages": []}
+    for i, depth in enumerate(arch.depths):
+        st = {"blocks": []}
+        if i > 0:
+            pre = t + f"stages.{i}.downsample."
+            st["downsample"] = {"norm": _ln(sd, pre + "0"),
+                                "conv_w": _hwio(sd[pre + "1.weight"]),
+                                "conv_b": _f32(sd[pre + "1.bias"])}
+        for j in range(depth):
+            pre = t + f"stages.{i}.blocks.{j}."
+            st["blocks"].append({
+                "conv_dw_w": _hwio(sd[pre + "conv_dw.weight"]),
+                "conv_dw_b": _f32(sd[pre + "conv_dw.bias"]),
+                "norm": _ln(sd, pre + "norm"),
+                "fc1_w": _f32(sd[pre + "mlp.fc1.weight"]),
+                "fc1_b": _f32(sd[pre + "mlp.fc1.bias"]),
+                "fc2_w": _f32(sd[pre + "mlp.fc2.weight"]),
+                "fc2_b": _f32(sd[pre + "mlp.fc2.bias"]),
+                "gamma": _f32(sd[pre + "gamma"]),
+            })
+        trunk["stages"].append(st)
+    return trunk
+
+
+def _siglip_trunk(sd, t: str, arch) -> dict:
+    n = 0
+    while t + f"blocks.{n}.norm1.weight" in sd:
+        n += 1
+    a = t + "attn_pool."
+    return {
+        "patch_embed_w": _f32(sd[t + "patch_embed.proj.weight"]),
+        "patch_embed_b": _f32(sd[t + "patch_embed.proj.bias"]),
+        "pos_embed": _f32(sd[t + "pos_embed"]).reshape(-1, arch.width),
+        "blocks": [_timm_block(sd, t + f"blocks.{i}") for i in range(n)],
+        "norm": _ln(sd, t + "norm"),
+        "attn_pool": {
+            "latent": _f32(sd[a + "latent"]).reshape(-1, arch.width),
+            **{f"{k}_{s}": _f32(sd[f"{a}{k}.{name}"])
+               for k in ("q", "kv", "proj") for s, name in (("w", "weight"), ("b", "bias"))},
+            "norm": _ln(sd, a + "norm"),
+            "mlp": {"c_fc_w": _f32(sd[a + "mlp.fc1.weight"]),
+                    "c_fc_b": _f32(sd[a + "mlp.fc1.bias"]),
+                    "c_proj_w": _f32(sd[a + "mlp.fc2.weight"]),
+                    "c_proj_b": _f32(sd[a + "mlp.fc2.bias"])},
+        },
+    }
+
+
+def _eva_block(sd, pre: str, arch) -> dict:
+    blk = {"ln_1": _ln(sd, pre + "norm1"), "ln_2": _ln(sd, pre + "norm2")}
+    if arch.fused_qkv:
+        if pre + "attn.q_bias" in sd:  # timm eva's fused qkv: no k bias
+            b = np.concatenate([_f32(sd[pre + "attn.q_bias"]),
+                                np.zeros(arch.width, np.float32),
+                                _f32(sd[pre + "attn.v_bias"])])
+        else:
+            b = _f32(sd[pre + "attn.qkv.bias"])
+        blk.update({"in_proj_w": _f32(sd[pre + "attn.qkv.weight"]), "in_proj_b": b})
+    else:
+        blk.update({"q_w": _f32(sd[pre + "attn.q_proj.weight"]),
+                    "q_b": _f32(sd[pre + "attn.q_proj.bias"]),
+                    "k_w": _f32(sd[pre + "attn.k_proj.weight"]),
+                    "v_w": _f32(sd[pre + "attn.v_proj.weight"]),
+                    "v_b": _f32(sd[pre + "attn.v_proj.bias"])})
+    if arch.scale_attn_inner:
+        blk["inner_norm"] = _ln(sd, pre + "attn.norm")
+    blk.update({"out_proj_w": _f32(sd[pre + "attn.proj.weight"]),
+                "out_proj_b": _f32(sd[pre + "attn.proj.bias"])})
+    fc1 = (("fc1g", "fc1_g"), ("fc1x", "fc1_x")) if arch.swiglu else (("fc1", "fc1"),)
+    m = {}
+    for ours, theirs in fc1 + (("fc2", "fc2"),):
+        m[f"{ours}_w"] = _f32(sd[f"{pre}mlp.{theirs}.weight"])
+        m[f"{ours}_b"] = _f32(sd[f"{pre}mlp.{theirs}.bias"])
+    if arch.scale_mlp:
+        m["mlp_norm"] = _ln(sd, pre + "mlp.norm")
+    blk["mlp"] = m
+    return blk
+
+
+def _eva_trunk(sd, t: str, arch) -> dict:
+    w = arch.width
+    return {
+        "patch_embed_w": _f32(sd[t + "patch_embed.proj.weight"]),
+        "patch_embed_b": _f32(sd[t + "patch_embed.proj.bias"]),
+        "cls_token": _f32(sd[t + "cls_token"]).reshape(w),
+        "pos_embed": _f32(sd[t + "pos_embed"]).reshape(-1, w),
+        "blocks": [_eva_block(sd, t + f"blocks.{i}.", arch) for i in range(arch.depth)],
+        "norm": _ln(sd, t + "norm"),
+        "head_w": _f32(sd[t + "head.weight"]),
+        "head_b": _f32(sd[t + "head.bias"]),
+    }
+
+
+def timm_tower_params_from_state_dict(sd: Mapping[str, np.ndarray], timm_model_name: str,
+                                      prefix: str = "visual.") -> dict:
+    """An open_clip TimmModel export (``visual.trunk.*`` in timm's names and
+    the ``visual.head.*`` adapter head) as the JAX tree of the ConvNeXt /
+    SigLIP-ViT / EVA tower: {'trunk': ..., 'head': ...} with numpy leaves,
+    ConvNeXt's conv weights HWIO. A missing key raises ``KeyError``; an EVA
+    ``k`` projection gets no bias."""
+    arch = timm_arch(timm_model_name)
+    t = prefix + "trunk."
+    trunk = {"convnext": _convnext_trunk, "siglip_vit": _siglip_trunk,
+             "eva": _eva_trunk}[arch.family](sd, t, arch)
+    tree = {"trunk": trunk}
+    h = prefix + "head."
+    if h + "proj.weight" in sd:
+        tree["head"] = {"proj_w": _f32(sd[h + "proj.weight"])}
+        if h + "proj.bias" in sd:
+            tree["head"]["proj_b"] = _f32(sd[h + "proj.bias"])
+    elif h + "mlp.fc1.weight" in sd:
+        tree["head"] = {"mlp": {"c_fc_w": _f32(sd[h + "mlp.fc1.weight"]),
+                                "c_fc_b": _f32(sd[h + "mlp.fc1.bias"]),
+                                "c_proj_w": _f32(sd[h + "mlp.fc2.weight"]),
+                                "c_proj_b": _f32(sd[h + "mlp.fc2.bias"])}}
+    return tree
+
+
+def _clip_tree(sd: Mapping[str, np.ndarray], timm_model_name: str | None = None) -> dict:
+    """An open_clip-named CLIP state dict, one whose vision tower has timm's
+    ViT names, or, with ``timm_model_name``, an open_clip timm-tower export,
+    as the JAX pytree layout (rs_ov/core/checkpoint.py:462-482)."""
+    if timm_model_name and ("visual.trunk.stem.0.weight" in sd
+                            or "visual.trunk.patch_embed.proj.weight" in sd):
+        visual = timm_tower_params_from_state_dict(sd, timm_model_name)
+    elif "visual.conv1.weight" in sd:
+        visual = vision_params_from_state_dict(sd, "visual.")
+    else:
+        visual = vision_params_from_timm_state_dict(sd)
     text_prefix = "text." if "text.token_embedding.weight" in sd else ""
     tree = {"visual": visual,
             "text": text_params_from_state_dict(sd, text_prefix),
@@ -251,8 +392,9 @@ def clip_params_from_state_dict(sd: Mapping[str, np.ndarray],
     """An open_clip-named CLIP state dict (its vision tower in open_clip's
     or timm's names) as the port's CPU fp32 CLIP module; ``cfg`` defaults to
     the one the state dict implies. Strict: a missing, unused or misshapen
-    key raises."""
-    tree = _clip_tree(sd)
+    key raises. A ``cfg`` with ``timm_model_name`` reads a ``visual.trunk.*``
+    timm-tower export."""
+    tree = _clip_tree(sd, getattr(cfg.vision, "timm_model_name", None) if cfg else None)
     return clip_params_from_numpy(tree, cfg or infer_clip_config_from_state_dict(sd))
 
 
@@ -293,6 +435,163 @@ def infer_clip_config_from_state_dict(sd: Mapping[str, np.ndarray],
                       heads=t_width // 64, layers=_count_blocks(sd, "transformer.resblocks"),
                       output_dim=embed_dim)
     return CLIPConfig(embed_dim=embed_dim, vision=vision, text=text, quick_gelu=quick_gelu)
+
+
+# ---------------------------------------------------------------------------
+# big_vision .npz checkpoints (rs_ov/core/checkpoint.py:545-765)
+# ---------------------------------------------------------------------------
+
+def _npz_finder(path: str, prefixes: tuple[str, ...]):
+    """find(*names): the first of ``names`` under the first of ``prefixes``
+    that the .npz at ``path`` holds, as fp32; KeyError when none is."""
+    w = np.load(path)
+
+    def find(*names) -> np.ndarray:
+        for n in names:
+            for prefix in prefixes:
+                if prefix + n in w:
+                    return _f32(w[prefix + n])
+        raise KeyError(f"none of {names} in {path}")
+
+    return find
+
+
+def _bv_blocks(find, stacks: tuple[str, ...], width: int) -> list:
+    """big_vision's encoderblock_i stack, under the first of ``stacks`` that
+    has one (Transformer/ for a vision tower, Encoder_0/ for a text tower),
+    as blocks with q / k / v fused."""
+    stack = stacks[-1]
+    for cand in stacks[:-1]:
+        try:
+            find(cand + "/encoderblock_0/LayerNorm_0/scale")
+        except KeyError:
+            continue
+        stack = cand
+        break
+    blocks = []
+    while True:
+        pre = f"{stack}/encoderblock_{len(blocks)}/"
+        try:
+            ln1s = find(pre + "LayerNorm_0/scale")
+        except KeyError:
+            break
+        a = pre + "MultiHeadDotProductAttention_1/"
+        try:
+            find(a + "query/kernel")
+        except KeyError:
+            a = pre + "MultiHeadDotProductAttention_0/"
+        q, k, v = (find(a + f"{n}/kernel").reshape(width, -1) for n in ("query", "key", "value"))
+
+        def ln2(leaf):
+            return find(pre + f"LayerNorm_1/{leaf}", pre + f"LayerNorm_2/{leaf}")
+
+        def dense(i, leaf):
+            x = find(pre + f"MlpBlock_3/Dense_{i}/{leaf}")
+            return np.ascontiguousarray(x.T) if leaf == "kernel" else x
+
+        blocks.append({
+            "ln_1": {"scale": ln1s, "bias": find(pre + "LayerNorm_0/bias")},
+            "attn": {"in_proj_w": np.concatenate([q.T, k.T, v.T], 0),
+                     "in_proj_b": np.concatenate([find(a + f"{n}/bias").reshape(-1)
+                                                  for n in ("query", "key", "value")]),
+                     "out_proj_w": np.ascontiguousarray(
+                         find(a + "out/kernel").reshape(-1, width).T),
+                     "out_proj_b": find(a + "out/bias")},
+            "ln_2": {"scale": ln2("scale"), "bias": ln2("bias")},
+            "mlp": {"c_fc_w": dense(0, "kernel"), "c_fc_b": dense(0, "bias"),
+                    "c_proj_w": dense(1, "kernel"), "c_proj_b": dense(1, "bias")},
+        })
+    return blocks
+
+
+def vision_params_from_big_vision_npz(path: str) -> dict:
+    """A big_vision ViT (``params/img/...`` names) as the classic ViT tree:
+    the embedding conv, the CLS token (zeros, and a zero pos-embed row, for
+    a CLS-less tower), the encoder blocks with q / k / v fused, the encoder
+    norm as ``ln_post``, ``head/kernel`` (else the identity) as ``proj``,
+    an identity ``ln_pre``."""
+    find = _npz_finder(path, ("params/img/", "img/", ""))
+    emb_k = find("embedding/kernel")  # [ph, pw, 3, width]
+    width = emb_k.shape[-1]
+    pos = find("Transformer/posembed_input/pos_embedding")[0]
+    try:
+        cls = find("cls")[0, 0]
+    except KeyError:
+        cls = np.zeros(width, np.float32)
+        pos = np.concatenate([np.zeros((1, width), np.float32), pos], axis=0)
+    try:
+        proj = find("head/kernel")
+    except KeyError:
+        proj = np.eye(width, dtype=np.float32)
+    return {
+        "conv1_w": np.ascontiguousarray(emb_k.transpose(3, 2, 0, 1)),
+        "class_embedding": cls,
+        "positional_embedding": pos,
+        "ln_pre": _identity_ln(width),
+        "blocks": _bv_blocks(find, ("Transformer",), width),
+        "ln_post": {"scale": find("Transformer/encoder_norm/scale"),
+                    "bias": find("Transformer/encoder_norm/bias")},
+        "proj": proj,
+    }
+
+
+def siglip_params_from_big_vision_npz(path: str) -> dict:
+    """A big_vision SigLIP .npz onto the SigLIP towers: the CLS-less MAP-head
+    vision trunk and the 'last'-pooled text tower. Returns the JAX tree
+    {'visual': {'trunk': ...}, 'text': ..., 'logit_scale', 'logit_bias'}
+    (the last two where the file has ``t`` and ``b``)."""
+    f = _npz_finder(path, ("params/", ""))
+    emb_k = f("img/embedding/kernel")
+    width = emb_k.shape[-1]
+    m = "img/MAPHead_0/"
+    mha = m + "MultiHeadDotProductAttention_0/"
+    q_k, k_k, v_k = (f(mha + f"{n}/kernel").reshape(width, -1)
+                     for n in ("query", "key", "value"))
+
+    def dense(i, leaf):
+        x = f(m + f"MlpBlock_0/Dense_{i}/{leaf}")
+        return np.ascontiguousarray(x.T) if leaf == "kernel" else x
+
+    trunk = {
+        "patch_embed_w": np.ascontiguousarray(emb_k.transpose(3, 2, 0, 1)),
+        "patch_embed_b": f("img/embedding/bias"),
+        "pos_embed": f("img/Transformer/posembed_input/pos_embedding")[0],
+        "blocks": _bv_blocks(f, ("img/Transformer", "img/Encoder_0"), width),
+        "norm": {"scale": f("img/Transformer/encoder_norm/scale"),
+                 "bias": f("img/Transformer/encoder_norm/bias")},
+        "attn_pool": {
+            "latent": f(m + "probe")[0],
+            "q_w": np.ascontiguousarray(q_k.T),
+            "q_b": f(mha + "query/bias").reshape(-1),
+            "kv_w": np.concatenate([k_k.T, v_k.T], 0),
+            "kv_b": np.concatenate([f(mha + "key/bias").reshape(-1),
+                                    f(mha + "value/bias").reshape(-1)]),
+            "proj_w": np.ascontiguousarray(f(mha + "out/kernel").reshape(-1, width).T),
+            "proj_b": f(mha + "out/bias"),
+            "norm": {"scale": f(m + "LayerNorm_0/scale"), "bias": f(m + "LayerNorm_0/bias")},
+            "mlp": {"c_fc_w": dense(0, "kernel"), "c_fc_b": dense(0, "bias"),
+                    "c_proj_w": dense(1, "kernel"), "c_proj_b": dense(1, "bias")},
+        },
+    }
+    t_width = f("txt/Embed_0/embedding").shape[-1]
+    text = {
+        "token_embedding": f("txt/Embed_0/embedding"),
+        "positional_embedding": f("txt/pos_embedding")[0],
+        "blocks": _bv_blocks(f, ("txt/Transformer", "txt/Encoder_0"), t_width),
+        "ln_final": {"scale": f("txt/Encoder_0/encoder_norm/scale",
+                                "txt/Transformer/encoder_norm/scale"),
+                     "bias": f("txt/Encoder_0/encoder_norm/bias",
+                               "txt/Transformer/encoder_norm/bias")},
+        "text_projection": f("txt/head/kernel"),
+        "text_projection_b": f("txt/head/bias"),
+    }
+    tree = {"visual": {"trunk": trunk}, "text": text}
+    try:
+        tree["logit_scale"] = f("t").reshape(())
+        tree["logit_bias"] = f("b").reshape(())
+    except KeyError:
+        pass
+    return tree
 
 
 def _jbu_module(sd, prefix):

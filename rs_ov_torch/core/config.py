@@ -5,10 +5,10 @@ The port keeps its own definitions so that it imports nothing of rs_ov. The
 fields, defaults and registry entries are those of the JAX package, so a
 config from either package carries the same numbers; the port reads them by
 attribute only, so it accepts either package's dataclasses. The port's CLIP
-module builds the ViT towers (plain, LayerScale, CLIPA); the timm-towered
-entries (SigLIP, EVA, ConvNeXt) resolve here and are refused when built
-(ROADMAP queue 1 item 8e). CoCa names are listed, and resolving one raises
-(queue 1 item 9: their configs are the CoCa module's dataclasses).
+module builds the ViT towers (plain, LayerScale, CLIPA) and the timm-towered
+entries (SigLIP, EVA, ConvNeXt: ``nn.timm_tower``). CoCa names are listed,
+and resolving one raises (ROADMAP queue 1 item 9: their configs are the CoCa
+module's dataclasses).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class VisionConfig:
     attentional_pool: bool = False         # CoCa-style pooler head
     attn_pooler_heads: int = 8
     output_tokens: bool = False
-    timm_model_name: Optional[str] = None  # timm towers: not built by the port
+    timm_model_name: Optional[str] = None  # a timm tower (nn.timm_tower.TIMM_ARCHS)
     timm_pool: str = ""
     timm_proj: Optional[str] = None
 

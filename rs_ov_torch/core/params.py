@@ -20,12 +20,14 @@ import torch
 from torch import nn
 
 from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
+from rs_ov_torch.nn.timm_tower import oihw_conv_leaves, timm_arch, timm_head_width
 
-__all__ = ["LayerNorm", "ResBlock", "VisionTower", "TextTower", "CLIP",
+__all__ = ["LayerNorm", "ResBlock", "VisionTower", "TextTower", "TimmTower", "CLIP",
            "Proj2", "JBUModule", "JBUOne", "JBUStack", "init_clip_params",
+           "init_timm_tower_params",
            "init_jbu_one_params", "init_jbu_stack_params",
            "clip_params_from_numpy", "blip_params_from_numpy", "jbu_params_from_numpy",
-           "load_numpy_tree"]
+           "load_numpy_tree", "module_from_tree"]
 
 
 def _p(*shape) -> nn.Parameter:
@@ -49,12 +51,13 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, width: int, mlp_width: int):
+    def __init__(self, width: int, mlp_width: int, out_width: int | None = None):
         super().__init__()
+        out_width = width if out_width is None else out_width
         self.c_fc_w = _p(mlp_width, width)
         self.c_fc_b = _p(mlp_width)
-        self.c_proj_w = _p(width, mlp_width)
-        self.c_proj_b = _p(width)
+        self.c_proj_w = _p(out_width, mlp_width)
+        self.c_proj_b = _p(out_width)
 
 
 class ResBlock(nn.Module):
@@ -102,20 +105,184 @@ class TextTower(nn.Module):
             self.text_projection_b = _p(cfg.output_dim)
 
 
+# ---------------------------------------------------------------------------
+# the timm towers (rs_ov/nn/timm_tower.py's trees: ``trunk`` and ``head``)
+# ---------------------------------------------------------------------------
+
+class ConvNeXtBlock(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv_dw_w = _p(dim, 1, 7, 7)  # OIHW; the JAX tree holds HWIO
+        self.conv_dw_b = _p(dim)
+        self.norm = LayerNorm(dim)
+        self.fc1_w = _p(4 * dim, dim)
+        self.fc1_b = _p(4 * dim)
+        self.fc2_w = _p(dim, 4 * dim)
+        self.fc2_b = _p(dim)
+        self.gamma = _p(dim)
+
+
+class ConvNeXtDownsample(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.norm = LayerNorm(cin)
+        self.conv_w = _p(cout, cin, 2, 2)
+        self.conv_b = _p(cout)
+
+
+class ConvNeXtStage(nn.Module):
+    def __init__(self, cin: int | None, dim: int, depth: int):
+        super().__init__()
+        if cin is not None:
+            self.downsample = ConvNeXtDownsample(cin, dim)
+        self.blocks = nn.ModuleList(ConvNeXtBlock(dim) for _ in range(depth))
+
+
+class ConvNeXtTrunk(nn.Module):
+    def __init__(self, arch):
+        super().__init__()
+        dims = arch.dims
+        self.stem_conv_w = _p(dims[0], 3, 4, 4)
+        self.stem_conv_b = _p(dims[0])
+        self.stem_norm = LayerNorm(dims[0])
+        self.head_norm = LayerNorm(dims[-1])
+        self.stages = nn.ModuleList(
+            ConvNeXtStage(dims[i - 1] if i else None, dim, depth)
+            for i, (depth, dim) in enumerate(zip(arch.depths, dims)))
+
+
+class MapHead(nn.Module):
+    """timm's AttentionPoolLatent: latent probe, q / kv / proj, LN, MLP."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.latent = _p(1, width)
+        self.q_w = _p(width, width)
+        self.q_b = _p(width)
+        self.kv_w = _p(2 * width, width)
+        self.kv_b = _p(2 * width)
+        self.proj_w = _p(width, width)
+        self.proj_b = _p(width)
+        self.norm = LayerNorm(width)
+        self.mlp = Mlp(width, 4 * width)
+
+
+class SigLipTrunk(nn.Module):
+    def __init__(self, arch, image_size: int):
+        super().__init__()
+        w = arch.width
+        self.patch_embed_w = _p(w, 3, arch.patch, arch.patch)
+        self.patch_embed_b = _p(w)
+        self.pos_embed = _p((image_size // arch.patch) ** 2, w)
+        self.blocks = nn.ModuleList(ResBlock(w, 4.0) for _ in range(arch.depth))
+        self.norm = LayerNorm(w)
+        self.attn_pool = MapHead(w)
+
+
+class EvaMlp(nn.Module):
+    def __init__(self, arch):
+        super().__init__()
+        w, hidden = arch.width, arch.mlp_hidden
+        for name in ("fc1g", "fc1x") if arch.swiglu else ("fc1",):
+            setattr(self, f"{name}_w", _p(hidden, w))
+            setattr(self, f"{name}_b", _p(hidden))
+        if arch.scale_mlp:
+            self.mlp_norm = LayerNorm(hidden)
+        self.fc2_w = _p(w, hidden)
+        self.fc2_b = _p(w)
+
+
+class EvaBlock(nn.Module):
+    """Fused ``in_proj`` or split q / k / v (k without bias), the inner
+    LayerNorm where ``scale_attn_inner``."""
+
+    def __init__(self, arch):
+        super().__init__()
+        w = arch.width
+        self.ln_1 = LayerNorm(w)
+        self.ln_2 = LayerNorm(w)
+        if arch.fused_qkv:
+            self.in_proj_w = _p(3 * w, w)
+            self.in_proj_b = _p(3 * w)
+        else:
+            self.q_w, self.q_b = _p(w, w), _p(w)
+            self.k_w = _p(w, w)
+            self.v_w, self.v_b = _p(w, w), _p(w)
+        if arch.scale_attn_inner:
+            self.inner_norm = LayerNorm(w)
+        self.out_proj_w = _p(w, w)
+        self.out_proj_b = _p(w)
+        self.mlp = EvaMlp(arch)
+
+
+class EvaTrunk(nn.Module):
+    def __init__(self, arch, image_size: int, embed_dim: int):
+        super().__init__()
+        w = arch.width
+        self.patch_embed_w = _p(w, 3, arch.patch, arch.patch)
+        self.patch_embed_b = _p(w)
+        self.cls_token = _p(w)
+        self.pos_embed = _p((image_size // arch.patch) ** 2 + 1, w)
+        self.blocks = nn.ModuleList(EvaBlock(arch) for _ in range(arch.depth))
+        self.norm = LayerNorm(w)
+        self.head_w = _p(embed_dim, w)
+        self.head_b = _p(embed_dim)
+
+
+class TimmHead(nn.Module):
+    """open_clip's timm adapter head: 'linear' a projection (its bias only
+    where a checkpoint has one), 'mlp' Mlp(prev, 2 * embed, embed)."""
+
+    def __init__(self, proj: str, prev: int, embed_dim: int, proj_bias: bool = False):
+        super().__init__()
+        if proj == "mlp":
+            self.mlp = Mlp(prev, 2 * embed_dim, embed_dim)
+        else:
+            self.proj_w = _p(embed_dim, prev)
+            if proj_bias:
+                self.proj_b = _p(embed_dim)
+
+
+class TimmTower(nn.Module):
+    """A timm-named vision tower: ``trunk`` by family, ``head`` where the
+    config's ``timm_proj`` is 'linear' or 'mlp'."""
+
+    def __init__(self, cfg: VisionConfig, embed_dim: int, proj_bias: bool = False):
+        super().__init__()
+        arch = timm_arch(cfg.timm_model_name)
+        if arch.family == "convnext":
+            self.trunk = ConvNeXtTrunk(arch)
+        elif arch.family == "siglip_vit":
+            self.trunk = SigLipTrunk(arch, cfg.image_size)
+        else:
+            self.trunk = EvaTrunk(arch, cfg.image_size, embed_dim)
+        if cfg.timm_proj in ("linear", "mlp"):
+            self.head = TimmHead(cfg.timm_proj, timm_head_width(arch, embed_dim), embed_dim,
+                                 proj_bias)
+
+
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    """The CLIP tree: ``visual`` (a ViT tower or a ``TimmTower``), ``text``,
+    ``logit_scale`` and, where the config sets ``init_logit_bias`` (or
+    ``logit_bias`` says so for a checkpoint), ``logit_bias``."""
+
+    def __init__(self, cfg: CLIPConfig, logit_bias: bool | None = None,
+                 timm_proj_bias: bool = False):
         super().__init__()
         v, t = cfg.vision, cfg.text
-        if v.timm_model_name or t.hf_model_name:
+        if t.hf_model_name:
             raise NotImplementedError(
-                f"the timm and HF towers ({v.timm_model_name or t.hf_model_name}) are "
-                "not ported yet (ROADMAP queue 1 item 8e)")
+                f"the HF text tower ({t.hf_model_name}) is built only by CoCa, which is "
+                "not ported yet (ROADMAP queue 1 item 9)")
         if v.attentional_pool or t.embed_cls:
             raise NotImplementedError("CoCa's attentional pool and text CLS are not "
                                       "ported yet (ROADMAP queue 1 item 9)")
-        self.visual = VisionTower(v)
+        self.visual = (TimmTower(v, cfg.embed_dim, timm_proj_bias) if v.timm_model_name
+                       else VisionTower(v))
         self.text = TextTower(t)
         self.logit_scale = _p()
+        if cfg.init_logit_bias is not None if logit_bias is None else logit_bias:
+            self.logit_bias = _p()
 
 
 class Proj2(nn.Module):
@@ -206,28 +373,66 @@ def _init_block(blk: ResBlock, width: int, gen: torch.Generator,
 
 
 @torch.no_grad()
-def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
-    """Random fp32 CLIP weights on the CPU, drawn from ``gen``."""
-    m = CLIP(cfg)
-    v, t = m.visual, m.text
-    scale = cfg.vision.width ** -0.5
-    _normal(v.conv1_w, scale, gen)
-    _normal(v.class_embedding, scale, gen)
-    _normal(v.positional_embedding, scale, gen)
-    _init_ln(v.ln_pre)
-    for blk in v.blocks:
-        _init_block(blk, cfg.vision.width, gen, cfg.vision.ls_init_value)
-    _init_ln(v.ln_post)
-    _normal(v.proj, scale, gen)
+def init_timm_tower_params(gen: torch.Generator, cfg: VisionConfig,
+                           embed_dim: int) -> TimmTower:
+    """Random fp32 timm-tower weights on the CPU, drawn from ``gen`` with the
+    JAX init's distributions (rs_ov/nn/timm_tower.py:191-229, :301-340,
+    :461-510, :525-555): weights, pos-embeds and the MAP latent N(0, 0.02),
+    biases and ``cls_token`` zero, LayerNorms identity, ConvNeXt's ``gamma``
+    1e-6."""
+    m = TimmTower(cfg, embed_dim)
+    _init_timm_tower(m, gen)
+    return m
+
+
+def _init_timm_tower(m: TimmTower, gen: torch.Generator) -> None:
+    for mod in m.modules():
+        if isinstance(mod, LayerNorm):
+            _init_ln(mod)
+            continue
+        for name, p in mod.named_parameters(recurse=False):
+            if name == "gamma":
+                p.fill_(1e-6)
+            elif name == "cls_token" or name.endswith("_b"):
+                p.zero_()
+            else:
+                _normal(p, 0.02, gen)
+
+
+def _init_text(t: TextTower, cfg: TextConfig, gen: torch.Generator) -> None:
     _normal(t.token_embedding, 0.02, gen)
     _normal(t.positional_embedding, 0.01, gen)
     for blk in t.blocks:
-        _init_block(blk, cfg.text.width, gen)
+        _init_block(blk, cfg.width, gen)
     _init_ln(t.ln_final)
-    _normal(t.text_projection, cfg.text.width ** -0.5, gen)
-    if cfg.text.proj_bias:
+    _normal(t.text_projection, cfg.width ** -0.5, gen)
+    if cfg.proj_bias:
         t.text_projection_b.zero_()
+
+
+@torch.no_grad()
+def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
+    """Random fp32 CLIP weights on the CPU, drawn from ``gen``; a timm tower
+    from ``init_timm_tower_params``, ``logit_bias`` at the config's
+    ``init_logit_bias`` (rs_ov/factory.py:220-237)."""
+    m = CLIP(cfg)
+    if cfg.vision.timm_model_name:
+        _init_timm_tower(m.visual, gen)
+    else:
+        v = m.visual
+        scale = cfg.vision.width ** -0.5
+        _normal(v.conv1_w, scale, gen)
+        _normal(v.class_embedding, scale, gen)
+        _normal(v.positional_embedding, scale, gen)
+        _init_ln(v.ln_pre)
+        for blk in v.blocks:
+            _init_block(blk, cfg.vision.width, gen, cfg.vision.ls_init_value)
+        _init_ln(v.ln_post)
+        _normal(v.proj, scale, gen)
+    _init_text(m.text, cfg.text, gen)
     m.logit_scale.fill_(float(np.log(1 / 0.07)))
+    if cfg.init_logit_bias is not None:
+        m.logit_bias.fill_(cfg.init_logit_bias)
     return m
 
 
@@ -310,16 +515,42 @@ def load_numpy_tree(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+@torch.no_grad()
+def module_from_tree(tree) -> nn.Module:
+    """A module holding a pytree's numpy leaves as CPU fp32 parameters under
+    the tree's paths: dicts become modules, lists ``ModuleList``s, None
+    entries are left out."""
+    if isinstance(tree, (list, tuple)):
+        return nn.ModuleList(module_from_tree(v) for v in tree)
+    m = nn.Module()
+    for k, v in tree.items():
+        if v is None:
+            continue
+        if isinstance(v, (dict, list, tuple)):
+            m.add_module(k, module_from_tree(v))
+        else:
+            m.register_parameter(k, nn.Parameter(torch.from_numpy(np.array(v, np.float32)),
+                                                 requires_grad=False))
+    return m
+
+
 def clip_params_from_numpy(tree, cfg: CLIPConfig) -> CLIP:
     """The JAX ``init_clip_params`` pytree (numpy leaves) as a CPU fp32 CLIP:
     LayerScale gammas and the text projection bias where the config has
     them; for a ``no_ln_pre`` tower (CLIPA) a tree without ``ln_pre`` gets
-    the identity LayerNorm, which the forward skips."""
-    if "ln_pre" not in tree["visual"] and cfg.vision.no_ln_pre:
+    the identity LayerNorm, which the forward skips. A timm tower's tree
+    (``visual`` = {trunk, head}) loads with its ConvNeXt conv weights turned
+    from HWIO to OIHW, a head bias and ``logit_bias`` where the tree has them."""
+    visual = tree["visual"]
+    if cfg.vision.timm_model_name:
+        visual = {**visual, "trunk": oihw_conv_leaves(visual["trunk"])}
+    elif "ln_pre" not in visual and cfg.vision.no_ln_pre:
         width = cfg.vision.width
-        tree = {**tree, "visual": {**tree["visual"], "ln_pre": {
-            "scale": np.ones(width, np.float32), "bias": np.zeros(width, np.float32)}}}
-    return load_numpy_tree(CLIP(cfg), tree)
+        visual = {**visual, "ln_pre": {"scale": np.ones(width, np.float32),
+                                       "bias": np.zeros(width, np.float32)}}
+    module = CLIP(cfg, logit_bias="logit_bias" in tree,
+                  timm_proj_bias="proj_b" in (visual.get("head") or {}))
+    return load_numpy_tree(module, {**tree, "visual": visual})
 
 
 def blip_params_from_numpy(tree):

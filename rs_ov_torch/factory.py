@@ -12,8 +12,10 @@ card and no device they raise. ``precision`` "fp32" keeps fp32 weights and
 activations (full fp32 products, TF32 off), "bf16" and "fp16" mean bf16, as
 in the JAX package, whose ViT products then run on the tensor cores
 (``nn.layers.matmul32``). The transforms stay numpy + PIL on the host and
-give arrays equal to the JAX package's. The timm and HF towers and ``.npz``
-checkpoints are ROADMAP queue 1 item 8e, CoCa item 9, the losses item 10.
+give arrays equal to the JAX package's. The timm-named towers (ConvNeXt,
+SigLIP, EVA / EVA02, ``nn.timm_tower``) build from random weights, a
+``visual.trunk.*`` export or, for SigLIP, a big_vision ``.npz``; CoCa (and
+the HF text tower it alone uses) is ROADMAP queue 1 item 9, the losses item 10.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ from torch import nn
 
 from rs_ov_torch.core.checkpoint import (clip_params_from_state_dict,
                                          infer_clip_config_from_state_dict,
-                                         load_torch_state_dict)
+                                         load_torch_state_dict,
+                                         siglip_params_from_big_vision_npz)
 from rs_ov_torch.core.config import CLIPConfig, get_model_config
-from rs_ov_torch.core.params import CLIP, init_clip_params
+from rs_ov_torch.core.params import CLIP, clip_params_from_numpy, init_clip_params
+from rs_ov_torch.nn.timm_tower import timm_tower_forward
 from rs_ov_torch.nn.vit import VitCallConfig, vit_forward
 from rs_ov_torch.pretrained import (OPENAI_MEAN, OPENAI_STD, download_pretrained,
                                      get_pretrained_cfg, get_pretrained_url)
@@ -92,12 +96,22 @@ class CLIPModel(nn.Module):
         [B, E], tokens) with ``output_cls_token``; the last block runs
         ``model_type``'s attention (``nn.vit.vit_forward``), and with
         ``RS_OV_FUSED_ATTN=1`` on the card a self-self mode's context comes
-        from K6."""
+        from K6. A timm tower (``nn.timm_tower``) gives the pooled [B, E]
+        only and refuses every hook (rs_ov/factory.py:56-66)."""
+        x = torch.as_tensor(np.asarray(image) if not torch.is_tensor(image) else image)
+        x = x.to(self.device, self.dtype)
+        if self.cfg.vision.timm_model_name:
+            if (model_type not in ("vanilla", "default") or ignore_residual
+                    or output_cls_token or call_kwargs):
+                raise NotImplementedError(
+                    f"{self.cfg.vision.timm_model_name} towers expose the plain "
+                    "encode_image(image) contract (reference timm_model.py:150-153); the "
+                    "decontamination/self-self hooks apply to the CLIP ViT towers only.")
+            out = timm_tower_forward(self.clip.visual, x, self.cfg.vision)
+            return _l2norm(out) if normalize else out
         call = VitCallConfig(model_type=model_type, ignore_residual=ignore_residual,
                              quick_gelu=self.cfg.quick_gelu, **call_kwargs)
-        x = torch.as_tensor(np.asarray(image) if not torch.is_tensor(image) else image)
-        pooled, tokens = vit_forward(self.clip.visual, x.to(self.device, self.dtype),
-                                     self.cfg.vision, call)
+        pooled, tokens = vit_forward(self.clip.visual, x, self.cfg.vision, call)
         if output_cls_token:
             return (_l2norm(pooled), _l2norm(tokens)) if normalize else (pooled, tokens)
         return _l2norm(tokens) if normalize else tokens
@@ -117,12 +131,6 @@ class CLIPModel(nn.Module):
     @property
     def visual_patch_size(self) -> tuple[int, int]:
         return (self.cfg.vision.patch_size, self.cfg.vision.patch_size)
-
-
-def _refuse_timm(cfg: CLIPConfig, model_name: str) -> None:
-    if cfg.vision.timm_model_name or cfg.text.hf_model_name:
-        raise NotImplementedError(f"'{model_name}' has a timm or HF tower, which is not "
-                                  "ported yet (ROADMAP queue 1 item 8e)")
 
 
 def create_model(model_name: str, pretrained: Optional[str] = None,
@@ -152,10 +160,19 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     if model_name.startswith("coca"):
         raise NotImplementedError(f"CoCa model '{model_name}' is not ported yet "
                                   "(ROADMAP queue 1 item 9)")
+    if pretrained and os.path.exists(pretrained) and pretrained.endswith(".npz"):
+        try:
+            cfg = get_model_config(model_name)
+        except KeyError:
+            cfg = None
+        if cfg is not None and "siglip" in (cfg.vision.timm_model_name or ""):
+            tree = siglip_params_from_big_vision_npz(pretrained)
+            tree.setdefault("logit_scale", np.float32(np.log(10.0)))
+            if cfg.init_logit_bias is not None:
+                tree.setdefault("logit_bias", np.float32(cfg.init_logit_bias))
+            clip = clip_params_from_numpy(tree, cfg)
+            return CLIPModel(_sized(cfg), clip.to(device=device, dtype=dtype)).eval()
     if pretrained and os.path.exists(pretrained):
-        if pretrained.endswith(".npz"):
-            raise NotImplementedError("big_vision .npz checkpoints are not ported yet "
-                                      "(ROADMAP queue 1 item 8e)")
         sd = load_torch_state_dict(pretrained)
         quick_gelu = force_quick_gelu or "/" in model_name \
             or pretrained.endswith((".pt",)) and "openai" in pretrained.lower()
@@ -163,7 +180,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
             cfg = get_model_config(model_name)
         except KeyError:
             cfg = infer_clip_config_from_state_dict(sd, quick_gelu=quick_gelu)
-        _refuse_timm(cfg, model_name)
         clip = clip_params_from_state_dict(sd, cfg)
         cfg = _sized(cfg)
     elif pretrained:
@@ -175,7 +191,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
         cfg = _sized(get_model_config(model_name))
         if force_quick_gelu and not cfg.quick_gelu:
             cfg = dataclasses.replace(cfg, quick_gelu=True)
-        _refuse_timm(cfg, model_name)
         clip = init_clip_params(torch.Generator().manual_seed(seed), cfg)
     return CLIPModel(cfg, clip.to(device=device, dtype=dtype)).eval()
 

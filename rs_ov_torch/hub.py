@@ -57,6 +57,10 @@ def clip_state_dict(model) -> dict[str, np.ndarray]:
     clip = getattr(model, "clip", model)
     sd: dict[str, np.ndarray] = {}
     v = clip.visual
+    if not hasattr(v, "conv1_w"):
+        raise NotImplementedError(
+            "hub export covers the classic CLIP ViT+text tree; a timm-family tower "
+            "has no open_clip export here (rs_ov/hub.py:58-61)")
     sd["visual.conv1.weight"] = _np32(v.conv1_w)
     sd["visual.class_embedding"] = _np32(v.class_embedding)
     sd["visual.positional_embedding"] = _np32(v.positional_embedding)

@@ -195,6 +195,13 @@ class SegmentorEx:
         else:
             self.cfg = clip_config if clip_config is not None else get_model_config(
                 _resolve_arch(clip_type, vit_type))
+            if self.cfg.vision.timm_model_name:
+                # the JAX segmentor would build a plain ViT from the config's
+                # ViT fields; the port refuses (ROADMAP queue 3)
+                raise NotImplementedError(
+                    f"SegmentorEx takes CLIP ViT towers only: the decontamination hooks "
+                    f"do not apply to the timm tower {self.cfg.vision.timm_model_name} "
+                    "(a deliberate difference from the JAX package, ROADMAP queue 3)")
             if params is not None:
                 model = clip_params_from_numpy(params, self.cfg)
             elif checkpoint_path:

@@ -26,8 +26,9 @@ kernels K5a and K5b. ``--upsampler`` names the SimFeatUp upsampler
 (``sim_feat_up_cfg["model_name"]``: ``jbu_stack``, ``bilinear`` or an
 alternate, ``resize_conv``, ``ifa``, ``carafe``, ``sapa``). With
 ``--encode-image ARCH`` it profiles ``create_model(ARCH)``'s
-``encode_image`` on ``--batch`` random 224² images instead (one call a
-"request"; the route's precision, bf16 unless ``fp32-channel-first``).
+``encode_image`` on ``--batch`` random images at the arch's image size
+instead (a timm tower too, e.g. ``convnext_large_d``; one call a "request";
+the route's precision, bf16 unless ``fp32-channel-first``).
 """
 
 from __future__ import annotations

@@ -190,7 +190,7 @@ def test_segmentor_from_checkpoints_matches_jax(files):
     assert np.mean(got["pred_sem_seg"].numpy() == np.asarray(want["pred_sem_seg"])) >= 0.999
 
 
-def test_misnamed_extra_and_misshapen_keys_raise(trees):
+def test_misnamed_extra_and_misshapen_keys_raise(trees, monkeypatch):
     sd = _clip_state_dict(trees[0])
     misnamed = dict(sd)
     misnamed["visual.ln_post.gamma"] = misnamed.pop("visual.ln_post.weight")
@@ -207,14 +207,26 @@ def test_misnamed_extra_and_misshapen_keys_raise(trees):
     with pytest.raises(KeyError, match="up.range_temp"):
         ckpt.jbu_params_from_state_dict(up, "jbu_one")
     # a timm-named ViT export takes the timm loader (item 8d), strict too;
-    # a timm-tower export (ConvNeXt's stem) is refused, naming item 8e
+    # a ConvNeXt trunk export (item 8e) loads under its config, and one cut
+    # short raises KeyError
     timm = {"visual.trunk.patch_embed.proj.weight": np.zeros((8, 3, 16, 16), np.float32)}
     with pytest.raises(KeyError, match="pos_embed"):
         ckpt.clip_params_from_state_dict(timm)
     with pytest.raises(KeyError, match="pos_embed"):
         ckpt.infer_clip_config_from_state_dict(timm)
-    convnext = {"visual.trunk.stem.0.weight": np.zeros((8, 3, 4, 4), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8e"):
+    from test_torch_timm_checkpoint import export
+    from test_torch_timm_towers import CONVNEXT, jax_tree, register, timm_cfg
+
+    cfg = timm_cfg("tiny-convnext", 64, proj="linear")
+    register(monkeypatch, "tiny-convnext", CONVNEXT, cfg)
+    convnext = export(jax_tree(cfg), CONVNEXT)
+    clip = ckpt.clip_params_from_state_dict(convnext, cfg)
+    np.testing.assert_array_equal(clip.visual.trunk.stem_conv_w.numpy(),
+                                  convnext["visual.trunk.stem.0.weight"])
+    del convnext["visual.trunk.stages.3.blocks.0.gamma"]
+    with pytest.raises(KeyError, match="stages.3.blocks.0.gamma"):
+        ckpt.clip_params_from_state_dict(convnext, cfg)
+    with pytest.raises(KeyError):  # without the config's timm name: read as a timm ViT
         ckpt.clip_params_from_state_dict(convnext)
 
 

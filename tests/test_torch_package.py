@@ -143,6 +143,15 @@ def test_config_copy_matches_the_jax_package(name):
     ours = get_model_config(name)
     assert (ours.vision.heads, ours.vision.grid_size) == (jax_cfg(name).vision.heads,
                                                           jax_cfg(name).vision.grid_size)
+    # the timm towers' arch table is a copy too, and names every timm config's arch
+    from rs_ov.nn.timm_tower import TIMM_ARCHS as JAX_TIMM_ARCHS
+    from rs_ov_torch.nn.timm_tower import TIMM_ARCHS
+
+    assert {k: dataclasses.asdict(v) for k, v in TIMM_ARCHS.items()} == \
+        {k: dataclasses.asdict(v) for k, v in JAX_TIMM_ARCHS.items()}
+    timm_names = {get_model_config(n).vision.timm_model_name for n in list_models()
+                  if n not in COCA_MODELS} - {None}
+    assert timm_names == set(TIMM_ARCHS)
 
 
 def test_bridge_takes_the_ports_own_config():

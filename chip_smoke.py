@@ -148,6 +148,25 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 the MAP head's MLP residual left out, RoPE left out), bf16
                 against the card's fp32 (cosine >= ENTRY_COS), and
                 encode_image images/s at batch 64 in fp32 and bf16.
+  9. generate - generation at full width on random weights, every leaf
+                drawn anew: BLIP base captioning at 384² (beam 3 and nucleus
+                top-p 0.9, max_length 30, min_length 10, a synthetic
+                30522-entry vocabulary), VQA at 480² (rank over 128
+                candidates, beam-3 generate), ITM (itm, itc) and NLVR at
+                384², evaluate_captions and blip_retrieval_evaluation,
+                create_model("coca_ViT-L-14") at 224² in fp32 and bf16
+                (encoders, forward, beam-6 and top-p generate, seq_len 30),
+                coca_roberta-ViT-B-32's encoders, and the committed decode
+                golden. Gates, each beside a planted fault that must fail
+                it: card fp32 against CPU fp32 (GEN_TOL); the KV-cached
+                step against the full prefix under a parent permutation
+                (GEN_TOL; faults: the parent gather skipped, the cross K/V
+                zeroed, CoCa's CLS put first); tokens against the CPU and
+                the full prefix on every step the reference decides by at
+                least GEN_TAU (the decided share printed); bf16 logits
+                against fp32 (GEN_COS); the golden on the card. Prints
+                captions/s with each decode step's CUDA-event span and host
+                ms, VQA questions/s and ITM pairs/s. No kernel is launched.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2124,6 +2143,825 @@ def phase_timm():
         torch.cuda.empty_cache()
 
 
+# Phase 9, generation (rs_ov_torch.nn.blip_lm, nn.coca, the evaluations) at
+# full width on random weights, every leaf drawn anew from one seeded
+# RandomState (_redraw_module): at the inits' N(0, 0.02) the logits are so
+# flat that most decode steps are near ties. Gates, each beside a planted
+# fault that must fail it:
+# - the card in fp32 against the port on the CPU in fp32: max|d|/max|ref| <=
+#   GEN_TOL (phase 7's ENTRY_TOL) on image and text embeddings, teacher-forced
+#   decoder logits, ITM and NLVR logits;
+# - the KV-cached step against the full-prefix step on the card, rows
+#   reordered by a parent permutation before each step: <= GEN_TOL;
+# - tokens: two runs agree on every decode step before the first one whose
+#   decision margin in the reference run is below GEN_TAU (the log-probability
+#   gap that decides the step: top-1 minus top-2 for sampling; for a beam,
+#   the gap at the cut between the kept beams and the next candidate, at the
+#   top-k cut of each beam that reaches the kept ones, and between the best
+#   finished and the best kept score; the kept beams compared as a set);
+#   random weights make many steps near ties, so the decided share of steps
+#   is printed;
+# - bf16 teacher-forced logits against the card's fp32: least cosine >= GEN_COS;
+# - the committed decode golden on the card in fp32: the CPU run gives the
+#   golden, the card run agrees with it on every decided step.
+GEN_TOL, GEN_COS, GEN_TAU = ENTRY_TOL, ENTRY_COS, 1e-4
+GEN_VOCAB = 30522  # bert-base-uncased; the tokenizer adds [DEC] and [ENC]
+GEN_IMAGES, GEN_CPU_IMAGES = 4, 2
+VQA_QUESTIONS, VQA_CANDIDATES, ITM_PAIRS = 4, 128, 16
+GEN_COCA, GEN_COCA_HF = "coca_ViT-L-14", "coca_roberta-ViT-B-32"
+GOLDEN = "tests/fixtures/blip_decode_golden"
+GOLDEN_VISION = dict(image_size=32, patch_size=8, width=24, layers=2, heads=2)
+GOLDEN_TEXT = dict(vocab_size=64, hidden_size=16, num_layers=2, num_heads=2,
+                   intermediate_size=32, max_position_embeddings=40)
+
+
+def _blip_gen_cfg(image_size):
+    """BLIP base at ``image_size`` (a function, so a rehearsal can cut it)."""
+    from rs_ov_torch.nn.blip import BlipConfig
+
+    return BlipConfig.base(image_size)
+
+
+@torch.no_grad()
+def _redraw_module(m, seed=11):
+    """Every leaf drawn anew from one seeded CPU generator: LayerNorm scales
+    1 + N(0, 0.1), biases, CLS tokens and token types N(0, 0.02), every
+    other array N(0, 1 / fan-in) (fan-in: the product of its dims after the
+    first, or the first for the [in, out] ``proj`` / ``text_projection``);
+    scalars kept."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in m.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.dim() == 0:
+            continue
+        new = torch.randn(p.shape, generator=gen)
+        if leaf == "scale":
+            new = 1.0 + 0.1 * new
+        elif leaf in ("bias", "b", "b1", "b2", "cls_token", "token_type") or leaf.endswith("_b"):
+            new = 0.02 * new
+        else:
+            in_out = leaf in ("proj", "text_projection") or p.dim() == 1
+            new = new * (p.shape[0] if in_out else int(np.prod(p.shape[1:]))) ** -0.5
+        p.copy_(new)
+    return m
+
+
+class _Steps:
+    """Each decode step's (margin, decision), one list per decoded sequence
+    (a new one where the step position starts over)."""
+
+    def __init__(self):
+        self.runs = []
+
+    def add(self, new_run, margin, decision):
+        if new_run or not self.runs:
+            self.runs.append([])
+        self.runs[-1].append((float(margin), decision))
+
+
+def _beam_margin(cands, k, finished, kept, eos_in_cut=False):
+    """The least score gap that decides one beam step. ``cands``: (score,
+    beam, rank in the beam, is EOS, the token's own log-prob share) of each
+    beam's k + 1 best tokens (rank k is not a candidate). The cut: the kept
+    (the k best non-EOS candidates; with ``eos_in_cut`` the candidates taken
+    in score order until k are kept, EOS ones finishing) against the next;
+    each beam's rank k-1 / k gap where its rank k-1 token reaches the cut
+    or is EOS; the best finished score against the best kept one."""
+    live = sorted((c for c in cands if c[2] < k and (eos_in_cut or not c[3])),
+                  key=lambda c: -c[0])
+    if eos_in_cut:
+        n, taken = 0, 0
+        while taken < len(live) and n < k:
+            n += not live[taken][3]
+            taken += 1
+    else:
+        taken = min(k, len(live))
+    gaps = [live[taken - 1][0] - live[taken][0]] if 0 < taken < len(live) else []
+    cut = live[taken - 1][0] if taken else np.inf
+    by_beam = {}
+    for c in cands:
+        by_beam.setdefault(c[1], {})[c[2]] = c
+    for ranks in by_beam.values():
+        if k in ranks and k - 1 in ranks and (ranks[k - 1][0] >= cut or ranks[k - 1][3]
+                                              or ranks[k][3]):
+            gaps.append(ranks[k - 1][4] - ranks[k][4])
+    if finished and kept:
+        gaps.append(abs(finished[0][0] - kept[0][0]))
+    return min(gaps) if gaps else np.inf
+
+
+@contextlib.contextmanager
+def _recorded_steps():
+    """Record the decisions of the port's per-step functions: BLIP's beam
+    (``_expand``) and nucleus (``_nucleus_pick``) steps, CoCa's beam step
+    (``_beam_step``) and its top-p / top-k warpers (the margins; the tokens
+    come from the output)."""
+    from rs_ov_torch.nn import blip_lm, coca
+
+    steps = _Steps()
+    orig = {(blip_lm, "_expand"): blip_lm._expand, (blip_lm, "_nucleus_pick"):
+            blip_lm._nucleus_pick, (coca, "_beam_step"): coca._beam_step,
+            (coca, "_warp_top_p"): coca._warp_top_p, (coca, "_warp_top_k"): coca._warp_top_k}
+    last = {"pos": None}
+
+    def expand(beams, logits, pos, eos, num_beams, min_length, penalty, finished):
+        cands = []  # (score, beam, rank in the beam, eos)
+        for b, beam in enumerate(beams):
+            lg = blip_lm._penalised(logits[b], beam[1], penalty)
+            if pos + 1 < min_length:
+                lg[eos] = -1e9
+            logp = lg - np.log(np.exp(lg - lg.max()).sum()) - lg.max()
+            order = np.argsort(-logp)[:num_beams + 1]
+            cands += [(beam[0] + float(logp[t]), b, r, t == eos, float(logp[t]))
+                      for r, t in enumerate(order)]
+        kept = orig[(blip_lm, "_expand")](beams, logits, pos, eos, num_beams, min_length,
+                                          penalty, finished)
+        margin = _beam_margin(cands, num_beams, finished, kept)
+        new = last["pos"] is None or pos <= last["pos"]
+        last["pos"] = pos
+        steps.add(new, margin, (tuple(sorted(tuple(c[1]) for c in kept)), len(finished)))
+        return kept
+
+    def nucleus(logits, seq, pos, eos, min_length, top_p, rng):
+        lg = blip_lm._penalised(logits, seq, 1.1)
+        if pos + 1 < min_length:
+            lg[eos] = -1e9
+        nxt = orig[(blip_lm, "_nucleus_pick")](logits, seq, pos, eos, min_length, top_p, rng)
+        new = last["pos"] is None or pos <= last["pos"]
+        last["pos"] = pos
+        srt = np.sort(lg)[::-1]
+        steps.add(new, srt[0] - srt[1], nxt)
+        return nxt
+
+    def beam_step(beams, logits, num_beams, min_seq_len, eos, done):
+        m = logits.max(-1, keepdims=True)
+        logp = logits - m - np.log(np.exp(logits - m).sum(-1, keepdims=True))
+        cands = []
+        for b, ((score, toks, _), row) in enumerate(zip(beams, logp)):
+            if len(toks) <= min_seq_len:
+                row = row.copy()
+                row[eos] = -np.inf
+            order = np.argsort(-row)[:num_beams + 1]
+            cands += [((score + float(row[t])) / (len(toks) + 1), b, r, t == eos,
+                       float(row[t]) / (len(toks) + 1)) for r, t in enumerate(order)]
+        n_done = len(done)
+        kept = orig[(coca, "_beam_step")](beams, logits, num_beams, min_seq_len, eos, done)
+        margin = _beam_margin(cands, num_beams, None, kept, eos_in_cut=True)
+        steps.add(len(beams[0][1]) == 1, margin,
+                  (tuple(sorted(tuple(c[1]) for c in kept)), len(done) - n_done))
+        return kept
+
+    def warp(name):
+        def f(logits, arg):
+            srt = np.sort(logits, axis=-1)
+            steps.add(not steps.runs, 0.0, None)  # one entry per step: [B] margins
+            steps.runs[-1][-1] = (srt[:, -1] - srt[:, -2], None)
+            return orig[(coca, name)](logits, arg)
+        return f
+
+    blip_lm._expand, blip_lm._nucleus_pick = expand, nucleus
+    coca._beam_step, coca._warp_top_p, coca._warp_top_k = beam_step, warp("_warp_top_p"), \
+        warp("_warp_top_k")
+    try:
+        yield steps
+    finally:
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
+
+
+def _sampled_runs(steps, out):
+    """CoCa sampling: per row, (margin, token) of each step from the
+    recorded [B] margins and the output tokens."""
+    recs = steps.runs[0] if steps.runs else []
+    return [[(float(m[r]), int(out[r, k + 1]) if k + 1 < out.shape[1] else None)
+             for k, (m, _) in enumerate(recs)] for r in range(out.shape[0])]
+
+
+def _decided(ref_runs, runs):
+    """(decided steps, all steps, agree): the runs agree on every step before
+    the first one the reference decides by less than GEN_TAU, and, where
+    every step is decided, on their length."""
+    assert len(ref_runs) == len(runs), (len(ref_runs), len(runs))
+    decided = total = 0
+    agree = True
+    for ref, run in zip(ref_runs, runs):
+        d = next((i for i, (m, _) in enumerate(ref) if m < GEN_TAU), len(ref))
+        decided, total = decided + d, total + len(ref)
+        same = all(i < len(run) and run[i][1] == ref[i][1] for i in range(d))
+        agree &= same and (d < len(ref) or len(run) == len(ref))
+    return decided, total, agree
+
+
+def _token_gate(label, ref_runs, runs, fault_runs=None):
+    d, n, agree = _decided(ref_runs, runs)
+    line = (f"[generate] {label}: tokens agree on every decided step: {agree} (decided "
+            f"{d}/{n} steps, {d / max(n, 1):.3f}, margin >= {GEN_TAU})")
+    if fault_runs is not None:
+        fd, _, fagree = _decided(ref_runs, fault_runs)
+        line += f"; planted fault, the cross K/V zeroed: agree {fagree} (must be False)"
+    print(line)
+    assert agree, label
+    assert fault_runs is None or not fagree, (label, "the gate does not see the fault")
+
+
+class _Tokens:
+    """A WordPiece tokenizer whose decode also records the token ids."""
+
+    def __init__(self, tok):
+        self.tok, self.decoded = tok, []
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def __call__(self, *a, **kw):
+        return self.tok(*a, **kw)
+
+    def decode(self, ids, **kw):
+        self.decoded.append([int(i) for i in ids])
+        return self.tok.decode(ids, **kw)
+
+
+@contextlib.contextmanager
+def _patched(mod, name, fn):
+    orig = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def _no_gather(cache, parent):
+    return cache
+
+
+def _cross_kv_zeroed():
+    """The decoders' init with the projected cross K/V zeroed."""
+    from rs_ov_torch.nn import blip_lm, coca
+
+    bert_init, coca_init = blip_lm.bert_decode_init_cache, coca.coca_decode_init_cache
+
+    def zero(cache):
+        for part in ([cache["layers"]] if "layers" in cache else cache.values()):
+            for lc in part:
+                for k in ("xk", "xv"):
+                    if k in lc:
+                        lc[k] = torch.zeros_like(lc[k])
+        return cache
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(_patched(blip_lm, "bert_decode_init_cache",
+                                 lambda *a, **kw: zero(bert_init(*a, **kw))))
+    stack.enter_context(_patched(coca, "coca_decode_init_cache",
+                                 lambda *a, **kw: zero(coca_init(*a, **kw))))
+    return stack
+
+
+def _step_off_by_one():
+    """BLIP's cached step at position pos + 1 (its embedding, its cache slot
+    and its mask), an off-by-one."""
+    from rs_ov_torch.nn import blip_lm
+
+    step = blip_lm.bert_decode_step
+    return _patched(blip_lm, "bert_decode_step",
+                    lambda p, tokens, pos, *a, **kw: step(p, tokens, pos + 1, *a, **kw))
+
+
+def _cls_first():
+    """CoCa's text tower with the CLS put first (the token rows then see it)."""
+    from rs_ov_torch.nn import coca
+    from rs_ov_torch.nn.layers import layer_norm
+    from rs_ov_torch.text.encoder import causal_mask
+
+    def encode_text(p, text_ids, cfg, normalize=True):
+        t = p.text
+        b, seq = text_ids.shape
+        x = t.token_embedding[text_ids.long()]
+        x = torch.cat([t.cls_emb.to(x.dtype).expand(b, 1, -1), x], dim=1)
+        x = x + t.positional_embedding[:seq + 1].to(x.dtype)[None]
+        mask = causal_mask(seq + 1, x.device)
+        for blk in t.blocks:
+            x = coca._block(blk, x, cfg.text.heads, coca._act(cfg), mask=mask)
+        pooled = layer_norm(x[:, 0], t.ln_final) @ t.text_projection.to(x.dtype)
+        return pooled, x[:, 1:]
+
+    return _patched(coca, "coca_encode_text", encode_text)
+
+
+class _StepClock:
+    """Wraps a decoder maker's step: CUDA events around each step (the
+    span from its first launch to its last kernel) and the host's wall
+    time over the run."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.events = mod, name, []
+
+    def __enter__(self):
+        make = self.orig = getattr(self.mod, self.name)
+
+        def timed_make(*a, **kw):
+            init, step = make(*a, **kw)
+
+            def timed_step(*sa, **skw):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = step(*sa, **skw)
+                end.record()
+                self.events.append((start, end))
+                return out
+            return init, timed_step
+
+        setattr(self.mod, self.name, timed_make)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        setattr(self.mod, self.name, self.orig)
+        self.steps = len(self.events)
+        self.step_ms = sum(s.elapsed_time(e) for s, e in self.events) / max(self.steps, 1)
+
+
+def _rate_line(label, n_out, unit, clock):
+    host_ms = clock.wall * 1e3 / max(clock.steps, 1)
+    print(f"[generate] {label}: {n_out / clock.wall:.3f} {unit}/s ({n_out} in {clock.wall:.3f} "
+          f"s), {clock.steps} decode steps: {clock.step_ms:.3f} ms a step on the card "
+          f"(CUDA-event span of the step's launches), {host_ms:.3f} ms a step on the host's "
+          f"clock (the whole loop), span share {clock.step_ms / host_ms:.3f}, on {CARD['smi']}")
+
+
+def _on(x, model_dtype=torch.float32):
+    return torch.as_tensor(x).to(DEV, model_dtype)
+
+
+def _cached_vs_full(label, init, step, full, embs, vocab, n_steps, rows=3, faults=()):
+    """The cached step against the full prefix on the card: rows reordered
+    by a parent permutation before each step after the first, teacher-forced
+    random tokens; max|d|/max|ref| over the steps. ``full(seqs [R, n],
+    embs [R, ...]) -> logits at the last position``. Each fault (a context
+    and its label) must land above the bound."""
+    def run():
+        rng = np.random.RandomState(4)
+        cache = init(embs)
+        seqs = np.zeros((rows, 0), np.int32)
+        order = np.arange(rows)
+        worst = 0.0
+        for pos in range(n_steps):
+            parent = (rng.permutation(rows) if pos else np.arange(rows)).astype(np.int32)
+            seqs, order = seqs[parent], order[parent]
+            seqs = np.concatenate([seqs, rng.randint(1, vocab, (rows, 1)).astype(np.int32)], 1)
+            got, cache = step(seqs[:, -1], pos, cache, parent)
+            want = full(seqs, embs[torch.from_numpy(order).to(embs.device)])
+            worst = max(worst, _rel(got, want))
+        return worst
+
+    err = run()
+    bad = []
+    for ctx, flabel in faults:
+        with ctx():
+            bad.append((flabel, run()))
+    print(f"[generate] {label}: cached step vs full prefix on the card, {n_steps} steps, "
+          f"{rows} rows reordered each step: max|d|/max|ref| {err:.3e} (bound {GEN_TOL}); "
+          + "; ".join(f"planted fault, {f}: {e:.3e}" for f, e in bad) + " (must exceed it)")
+    assert err <= GEN_TOL, (label, err)
+    assert all(e > GEN_TOL for _, e in bad), (label, "the bound does not see a fault", bad)
+
+
+def _blip_models(init, size, seed):
+    """(card fp32, card bf16, CPU fp32) copies of one random BLIP model."""
+    import copy
+
+    cfg = _blip_gen_cfg(size)
+    cpu = _redraw_module(init(torch.Generator().manual_seed(seed), cfg), seed)
+    return cfg, copy.deepcopy(cpu).to(DEV), copy.deepcopy(cpu).to(DEV, torch.bfloat16), cpu
+
+
+def _caption_logits(m, cfg, images, ids):
+    """Teacher-forced decoder logits [B, L, V] (causal, over the image tokens)."""
+    from rs_ov_torch.nn.bert import bert_encode
+    from rs_ov_torch.nn.blip_lm import lm_logits
+    from rs_ov_torch.nn.blip_vit import blip_vit_forward
+
+    with torch.no_grad():
+        leaf = m.visual.cls_token
+        embs = blip_vit_forward(m.visual, torch.as_tensor(images).to(leaf.device, leaf.dtype),
+                                cfg.vision)
+        ids = torch.as_tensor(ids).to(embs.device)
+        hidden = bert_encode(m.text_decoder, ids, torch.ones_like(ids), cfg.text,
+                             encoder_hidden_states=embs, causal=True)
+        return embs, lm_logits(m.lm_head, hidden)
+
+
+def _blip_caption(rng, tok):
+    """BLIP base captioning at 384²: card fp32 vs CPU fp32 (image tokens,
+    teacher-forced logits), bf16 vs fp32, cached vs full prefix, beam and
+    nucleus tokens against the CPU and the full prefix, the rates."""
+    from rs_ov_torch.evalsuite.caption import evaluate_captions
+    from rs_ov_torch.nn import blip_lm
+
+    cfg, m32, m16, cpu = _blip_models(blip_lm.init_blip_decoder_params, 384, 11)
+    images = rng.randn(GEN_IMAGES, 3, 384, 384).astype(np.float32)
+    small = images[:GEN_CPU_IMAGES]
+    ids = rng.randint(1, GEN_VOCAB, (GEN_CPU_IMAGES, 30))
+    card = _caption_logits(m32, cfg, small, ids)
+    ref = _caption_logits(cpu, cfg, small, ids)
+    errs = [_rel(a, b) for a, b in zip(card, ref)]
+    last = m32.text_decoder.layers[-1]
+    saved = last.x_out_w.detach().clone()
+    last.x_out_w.data.zero_()
+    bad = _rel(_caption_logits(m32, cfg, small, ids)[1], ref[1])
+    last.x_out_w.data.copy_(saved)
+    cos = _min_cos(_caption_logits(m16, cfg, small, ids)[1], card[1])
+    print(f"[generate] BLIP base caption decoder, 384², vocabulary {cfg.text.vocab_size}: card "
+          f"fp32 vs CPU fp32 max|d|/max|ref| image tokens {errs[0]:.3e} teacher-forced logits "
+          f"{errs[1]:.3e} (bound {GEN_TOL}); planted fault, the last layer's cross-attention "
+          f"output zeroed: logits {bad:.3e} (must exceed it); bf16 vs fp32 on the card, least "
+          f"cosine of the logits {cos:.5f} (need >= {GEN_COS})")
+    assert max(errs) <= GEN_TOL and bad > GEN_TOL and cos >= GEN_COS, (errs, bad, cos)
+
+    init, step = blip_lm.make_cached_decoder(m32, cfg, 30)
+    full_step = blip_lm.make_caption_step(m32, cfg, 30)
+
+    def full(seqs, embs):
+        ids_p = np.zeros((len(seqs), 30), np.int32)
+        ids_p[:, :seqs.shape[1]] = seqs
+        return full_step(ids_p, seqs.shape[1] - 1, embs)
+
+    _cached_vs_full("BLIP caption", init, step, full, card[0][[0, 1, 0]],
+                    GEN_VOCAB, 30, faults=((lambda: _patched(blip_lm, "_gather_cache",
+                                                              _no_gather), "parent gather skipped"),
+                                           (_cross_kv_zeroed, "the cross K/V zeroed")))
+
+    kw = dict(num_beams=3, max_length=30, min_length=10)
+    for mode, extra in (("beam 3", {}), ("nucleus top_p 0.9", dict(sample=True, top_p=0.9))):
+        runs = {}
+        for name, model, use_cache, fault in (("cpu", cpu, True, None), ("card", m32, True, None),
+                                              ("card full", m32, False, None),
+                                              ("card fault", m32, True, _cross_kv_zeroed)):
+            if name == "card full" and "sample" in extra:
+                continue
+            t = _Tokens(tok)
+            with _recorded_steps() as steps, (fault() if fault else contextlib.nullcontext()):
+                blip_lm.generate_captions(model, small, cfg, t, use_cache=use_cache,
+                                          rng=np.random.RandomState(5), **kw, **extra)
+            runs[name] = steps.runs
+        _token_gate(f"BLIP {mode}, card fp32 vs CPU fp32", runs["cpu"], runs["card"],
+                    runs["card fault"])
+        if "card full" in runs:
+            _token_gate(f"BLIP {mode}, card cached vs card full prefix", runs["card full"],
+                        runs["card"])
+        for prec, model in (("fp32", m32), ("bf16", m16)):
+            blip_lm.generate_captions(model, images[:1], cfg, tok, **kw, **extra)  # warm-up
+            _reset_launches()
+            with _StepClock(blip_lm, "make_cached_decoder") as clock:
+                caps = blip_lm.generate_captions(model, images, cfg, tok,
+                                                 rng=np.random.RandomState(6), **kw, **extra)
+            _expect_launches(f"generate: BLIP {mode} {prec}", GEN_IMAGES, {})
+            assert len(caps) == GEN_IMAGES and all(isinstance(c, str) for c in caps)
+            _rate_line(f"BLIP {mode} {prec}, {GEN_IMAGES} images", GEN_IMAGES, "captions",
+                       clock)
+    recs = evaluate_captions(m16, cfg, images[:3], [7, 8, 9], tok, batch=2, num_beams=3,
+                             max_length=20, min_length=5)
+    print(f"[generate] evaluate_captions, BLIP bf16, 3 images in batches of 2: {recs}")
+    assert [r["image_id"] for r in recs] == [7, 8, 9]
+    del m32, m16, cpu
+
+
+def _blip_vqa(rng, tok):
+    """BLIP VQA at 480²: rank over VQA_CANDIDATES and beam-3 generate, card
+    fp32 against the CPU; questions/s in fp32 and bf16."""
+    from rs_ov_torch.nn import blip_lm
+
+    cfg, m32, m16, cpu = _blip_models(blip_lm.init_blip_vqa_params, 480, 12)
+    images = rng.randn(VQA_QUESTIONS, 3, 480, 480).astype(np.float32)
+    enc = tok([f"what is in the picture w{i}?" for i in range(VQA_QUESTIONS)], max_length=35)
+    q_ids = enc["input_ids"].astype(np.int32)
+    q_ids[:, 0] = tok.enc_token_id
+    q_mask = enc["attention_mask"]
+    ans = rng.randint(1, GEN_VOCAB, (VQA_CANDIDATES, 8)).astype(np.int32)
+    ans[:, 0] = tok.bos_token_id
+    ans[:, 5:] = 0
+    ans_mask = (ans != 0).astype(np.int32)
+    n = GEN_CPU_IMAGES
+    want = blip_lm.vqa_rank_answers(cpu, images[:n], q_ids[:n], q_mask[:n], ans, ans_mask, cfg,
+                                    k=VQA_CANDIDATES)
+    got = blip_lm.vqa_rank_answers(m32, images[:n], q_ids[:n], q_mask[:n], ans, ans_mask, cfg,
+                                   k=VQA_CANDIDATES)
+    runs = {}
+    for name, model, fault in (("cpu", cpu, None), ("card", m32, None),
+                               ("card fault", m32, _cross_kv_zeroed)):
+        with _recorded_steps() as steps, (fault() if fault else contextlib.nullcontext()):
+            blip_lm.vqa_generate_answers(model, images[:n], q_ids[:n], q_mask[:n], cfg, tok,
+                                         num_beams=3, max_length=10)
+        runs[name] = steps.runs
+    print(f"[generate] BLIP VQA, 480²: rank over {VQA_CANDIDATES} candidates, card fp32 "
+          f"{got.tolist()} CPU fp32 {want.tolist()}")
+    assert got.tolist() == want.tolist()
+    _token_gate("BLIP VQA generate beam 3, card fp32 vs CPU fp32", runs["cpu"], runs["card"],
+                runs["card fault"])
+    for prec, model in (("fp32", m32), ("bf16", m16)):
+        blip_lm.vqa_rank_answers(model, images[:1], q_ids[:1], q_mask[:1], ans, ans_mask, cfg,
+                                 k=VQA_CANDIDATES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = blip_lm.vqa_rank_answers(model, images, q_ids, q_mask, ans, ans_mask, cfg,
+                                       k=VQA_CANDIDATES)
+        torch.cuda.synchronize()
+        rank_s = time.perf_counter() - t0
+        assert tuple(idx.shape) == (VQA_QUESTIONS,)
+        with _StepClock(blip_lm, "make_cached_decoder") as clock:
+            answers = blip_lm.vqa_generate_answers(model, images, q_ids, q_mask, cfg, tok,
+                                                   num_beams=3, max_length=10)
+        assert len(answers) == VQA_QUESTIONS
+        print(f"[generate] BLIP VQA {prec}: rank {VQA_QUESTIONS / rank_s:.3f} questions/s "
+              f"({VQA_QUESTIONS} questions x {VQA_CANDIDATES} candidates in {rank_s:.3f} s) on "
+              f"{CARD['smi']}")
+        _rate_line(f"BLIP VQA generate beam 3 {prec}, {VQA_QUESTIONS} questions",
+                   VQA_QUESTIONS, "questions", clock)
+    del m32, m16, cpu
+
+
+def _blip_itm_nlvr(rng, tok):
+    """ITM (itm and itc heads) and NLVR at 384²: card fp32 vs CPU fp32,
+    ITM pairs/s; then the retrieval evaluation on a small set."""
+    from rs_ov_torch.evalsuite.retrieval import blip_retrieval_evaluation
+    from rs_ov_torch.nn import blip, blip_lm
+
+    cfg, m32, m16, cpu = _blip_models(blip_lm.init_blip_itm_params, 384, 13)
+    images = rng.randn(ITM_PAIRS, 3, 384, 384).astype(np.float32)
+    enc = tok([f"a picture of w{i} and w{i + 7}" for i in range(ITM_PAIRS)], max_length=35)
+    ids, mask = enc["input_ids"].astype(np.int64), enc["attention_mask"].astype(np.int64)
+    n = GEN_CPU_IMAGES
+
+    def heads(m):
+        leaf = m.visual.cls_token
+        with torch.no_grad():
+            args = (torch.as_tensor(images[:n]).to(leaf.device, leaf.dtype),
+                    torch.as_tensor(ids[:n]).to(leaf.device),
+                    torch.as_tensor(mask[:n]).to(leaf.device), cfg)
+            return [blip.blip_itm_score(m, *args, match_head=h) for h in ("itm", "itc")]
+
+    errs = [_rel(a, b) for a, b in zip(heads(m32), heads(cpu))]
+    ncfg, n32, _, ncpu = _blip_models(blip_lm.init_blip_nlvr_params, 384, 14)
+    nl_ids = ids[:n].copy()
+    nl_ids[:, 0] = tok.enc_token_id
+    nl = [blip_lm.blip_nlvr_forward(m, images[:2 * n], nl_ids, mask[:n], ncfg)
+          for m in (n32, ncpu)]
+    nl_err = _rel(*nl)
+    print(f"[generate] BLIP ITM 384²: card fp32 vs CPU fp32 max|d|/max|ref| itm {errs[0]:.3e} "
+          f"itc {errs[1]:.3e}; NLVR (twin cross-attention, the merge layer from layer "
+          f"{ncfg.text.num_layers // 2}) logits "
+          f"{nl_err:.3e} (bound {GEN_TOL})")
+    assert max(errs + [nl_err]) <= GEN_TOL, (errs, nl_err)
+    del n32, ncpu
+    for prec, model in (("fp32", m32), ("bf16", m16)):
+        args = (_on(images, model.visual.cls_token.dtype), torch.as_tensor(ids).to(DEV),
+                torch.as_tensor(mask).to(DEV), cfg)
+        with torch.no_grad():
+            blip.blip_itm_score(model, *args)
+            torch.cuda.synchronize()
+            ms = _median_ms(lambda: blip.blip_itm_score(model, *args), reps=5)
+        print(f"[generate] BLIP ITM itm head {prec}: {ITM_PAIRS / ms * 1e3:.1f} pairs/s "
+              f"({ITM_PAIRS} pairs, 384², {ms:.3f} ms) on {CARD['smi']}")
+    txt2img = [t % 4 for t in range(8)]
+    img2txt = [[t for t in range(8) if t % 4 == i] for i in range(4)]
+    enc = tok([f"a picture of w{i}" for i in range(8)], max_length=35)
+    res = blip_retrieval_evaluation(m16, cfg, images[:4], enc["input_ids"], enc["attention_mask"],
+                                    tok.enc_token_id, txt2img, img2txt, k_test=2,
+                                    rows_per_chunk=2)
+    print(f"[generate] blip_retrieval_evaluation, bf16, 4 images x 8 captions, k_test 2: {res}")
+    assert all(np.isfinite(v) for v in res.values())
+    del m32, m16, cpu
+
+
+@contextlib.contextmanager
+def _cls_mask_dropped(model):
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, pad_id=-1)
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
+def _coca_encode(model, images, ids):
+    out = model(images, ids)
+    return (out["image_features"], out["text_features"], out["logits"])
+
+
+def _coca(rng):
+    """create_model("coca_ViT-L-14") at 224² in fp32 and bf16: encoders and
+    forward against the CPU, cached vs full prefix, beam and top-p tokens,
+    the rates; coca_roberta-ViT-B-32's encoders against the CPU."""
+    from rs_ov_torch.factory import create_model, get_tokenizer
+    from rs_ov_torch.nn import coca, hf_text
+
+    t0 = time.perf_counter()
+    m32 = create_model(GEN_COCA, precision="fp32", seed=0)
+    m16 = create_model(GEN_COCA, precision="bf16", seed=0)
+    cpu = create_model(GEN_COCA, device="cpu", seed=0)
+    for m in (m32, m16, cpu):
+        _redraw_module(m.coca)
+    built = time.perf_counter() - t0
+    cfg = m32.cfg
+    size = cfg.vision.image_size
+    images = rng.randn(GEN_IMAGES, 3, size, size).astype(np.float32)
+    small = images[:GEN_CPU_IMAGES]
+    ids = get_tokenizer(GEN_COCA)(list(ENTRY_PROMPTS[:GEN_CPU_IMAGES]))
+    card, ref = _coca_encode(m32, small, ids), _coca_encode(cpu, small, ids)
+    errs = [_rel(a, b) for a, b in zip(card, ref)]
+    with _cls_mask_dropped(m32):
+        bad = _rel(_coca_encode(m32, small, ids)[1], ref[1])
+    cos = [_min_cos(a, b) for a, b in zip(_coca_encode(m16, small, ids), card)]
+    print(f"[generate] {GEN_COCA} ({cfg.vision.width} wide, {cfg.vision.layers} layers, "
+          f"pooler {cfg.attn_pooler_heads} heads x {cfg.attn_pooler_queries} queries; built x3 "
+          f"in {built:.1f} s), {size}²: card fp32 vs CPU fp32 max|d|/max|ref| image "
+          f"{errs[0]:.3e} text {errs[1]:.3e} teacher-forced logits {errs[2]:.3e} (bound "
+          f"{GEN_TOL}); planted fault, the CLS row's pad mask dropped: text {bad:.3e} (must "
+          f"exceed it); bf16 vs fp32 on the card, least cosine image {cos[0]:.5f} text "
+          f"{cos[1]:.5f} logits {cos[2]:.5f} (need >= {GEN_COS})")
+    assert max(errs) <= GEN_TOL and bad > GEN_TOL and min(cos) >= GEN_COS, (errs, bad, cos)
+
+    _, embs = coca.coca_encode_image(m32.coca, _on(small[:2]), cfg)
+    init, step = coca.make_coca_cached_decoder(m32.coca, cfg, 30)
+
+    def full(seqs, e):
+        with torch.no_grad():
+            return coca.coca_forward(m32.coca, None, torch.as_tensor(seqs).to(DEV), cfg,
+                                     image_latent=torch.zeros(1), image_embs=e)["logits"][:, -1]
+
+    _cached_vs_full(GEN_COCA, init, step, full, embs[[0, 1, 0, 1, 0, 1]],
+                    cfg.multimodal.vocab_size, 30, rows=6,
+                    faults=((lambda: _patched(coca, "_gather_cache", _no_gather),
+                             "parent gather skipped"),
+                            (_cross_kv_zeroed, "the cross K/V zeroed"),
+                            (_cls_first, "the CLS put first")))
+
+    for mode, kw in (("beam_search", dict(num_beams=6)), ("top_p", dict(top_p=0.9))):
+        kw = dict(kw, generation_type=mode, seq_len=30, seed=3)
+        runs = {}
+        for name, model, use_cache, fault in (("cpu", cpu, True, None), ("card", m32, True, None),
+                                              ("card full", m32, False, None),
+                                              ("card fault", m32, True, _cross_kv_zeroed)):
+            if name == "card full" and mode != "beam_search":
+                continue
+            with _recorded_steps() as steps, (fault() if fault else contextlib.nullcontext()):
+                out = model.generate(small, use_cache=use_cache, **kw)
+            runs[name] = steps.runs if mode == "beam_search" else _sampled_runs(steps, out)
+        _token_gate(f"{GEN_COCA} {mode}, card fp32 vs CPU fp32", runs["cpu"], runs["card"],
+                    runs["card fault"])
+        if "card full" in runs:
+            _token_gate(f"{GEN_COCA} {mode}, card cached vs card full prefix",
+                        runs["card full"], runs["card"])
+    for prec, model in (("fp32", m32), ("bf16", m16)):
+        kw = dict(generation_type="beam_search", num_beams=6, seq_len=30)
+        model.generate(images[:1], **kw)
+        _reset_launches()
+        with _StepClock(coca, "make_coca_cached_decoder") as clock:
+            out = model.generate(images, **kw)
+        _expect_launches(f"generate: {GEN_COCA} beam {prec}", GEN_IMAGES, {})
+        assert out.shape[0] == GEN_IMAGES and out.dtype == np.int32
+        _rate_line(f"{GEN_COCA} beam 6 {prec}, {GEN_IMAGES} images", GEN_IMAGES, "captions",
+                   clock)
+    del m32, m16, cpu
+    torch.cuda.empty_cache()
+
+    h32 = create_model(GEN_COCA_HF, precision="fp32", seed=0)
+    hcpu = create_model(GEN_COCA_HF, device="cpu", seed=0)
+    for m in (h32, hcpu):
+        _redraw_module(m.coca)
+    hcfg = hf_text.hf_text_config(h32.cfg.text.hf_model_name, output_dim=h32.cfg.embed_dim,
+                                  proj_type=h32.cfg.text.hf_proj_type)
+    hids = rng.randint(2, hcfg.vocab_size, (GEN_CPU_IMAGES, 20)).astype(np.int32)
+    hids[1, 12:] = hcfg.pad_token_id
+    hsize = h32.cfg.vision.image_size
+    himg = rng.randn(GEN_CPU_IMAGES, 3, hsize, hsize).astype(np.float32)
+
+    def enc(m):
+        return m.encode_image(himg), m.encode_text(hids)
+
+    ref = enc(hcpu)
+    errs = [_rel(a, b) for a, b in zip(enc(h32), ref)]
+    with _patched(hf_text, "_position_ids", lambda ids, c: None):
+        bad = _rel(enc(h32)[1], ref[1])
+    print(f"[generate] {GEN_COCA_HF} (HF text tower {h32.cfg.text.hf_model_name}), encoders "
+          f"only: card fp32 vs CPU fp32 max|d|/max|ref| image {errs[0]:.3e} text {errs[1]:.3e} "
+          f"(bound {GEN_TOL}); planted fault, BERT's positions 0..L-1 for RoBERTa's: text "
+          f"{bad:.3e} (must exceed it)")
+    assert max(errs) <= GEN_TOL and bad > GEN_TOL, (errs, bad)
+    del h32, hcpu
+
+
+def _golden_tree(flat, prefix):
+    root = {}
+    for path, arr in flat.items():
+        if not path.startswith(prefix):
+            continue
+        node = root
+        parts = path[len(prefix):].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def listify(node):
+        if isinstance(node, dict):
+            if node and all(k.isdigit() for k in node):
+                return [listify(node[str(i)]) for i in range(len(node))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return listify(root)
+
+
+def _golden(tok_path):
+    """The committed decode golden on the card in fp32 (the four cases of
+    tests/test_decode_golden.py): the CPU run gives the golden strings, the
+    card run agrees with them on every decided step; a run whose cached step
+    takes the position after its own must not."""
+    from rs_ov_torch.core.params import blip_decoder_params_from_numpy, blip_vqa_params_from_numpy
+    from rs_ov_torch.nn import blip_lm
+    from rs_ov_torch.nn.bert import BertConfig
+    from rs_ov_torch.nn.blip import BlipConfig
+    from rs_ov_torch.nn.blip_vit import BlipVisionConfig
+    from rs_ov_torch.text.wordpiece import WordPieceTokenizer
+
+    cfg = BlipConfig(vision=BlipVisionConfig(**GOLDEN_VISION), text=BertConfig(**GOLDEN_TEXT),
+                     embed_dim=8)
+    flat = dict(np.load(GOLDEN + ".npz"))
+    with open(GOLDEN + ".json") as f:
+        expect = json.load(f)
+    cap_cpu = blip_decoder_params_from_numpy(_golden_tree(flat, "cap/"))
+    vqa_cpu = blip_vqa_params_from_numpy(_golden_tree(flat, "vqa/"))
+    cap, vqa = cap_cpu.to(DEV), vqa_cpu.to(DEV)
+    tok = WordPieceTokenizer(tok_path)
+    rng = np.random.RandomState(0)
+    images = rng.randn(2, 3, 32, 32).astype(np.float32)
+    q_ids = rng.randint(4, 60, size=(2, 6)).astype(np.int32)
+    q_ids[:, 0] = tok.enc_token_id
+    q_mask = np.ones((2, 6), np.int32)
+    q_mask[1, 4:] = 0
+    ans_ids = rng.randint(4, 60, size=(4, 5)).astype(np.int32)
+    ans_ids[:, 0] = tok.bos_token_id
+    ans_mask = np.ones((4, 5), np.int32)
+    cases = {
+        "beam_captions": lambda m, _: blip_lm.generate_captions(
+            m, images, cfg, tok, prompt="a picture of ", max_length=14, min_length=3,
+            num_beams=3),
+        "nucleus_captions": lambda m, _: blip_lm.generate_captions(
+            m, images, cfg, tok, prompt="a picture of ", sample=True, max_length=14,
+            min_length=3, rng=np.random.RandomState(7)),
+        "vqa_generated_answers": lambda _, m: blip_lm.vqa_generate_answers(
+            m, images, q_ids, q_mask, cfg, tok, num_beams=2, max_length=8)}
+    for key, run in cases.items():
+        outs = {}
+        for name, (c, v), fault in (("cpu", (cap_cpu, vqa_cpu), None), ("card", (cap, vqa), None),
+                                    ("card fault", (cap, vqa), _step_off_by_one)):
+            with _recorded_steps() as steps, (fault() if fault else contextlib.nullcontext()):
+                outs[name] = (run(c, v), steps.runs)
+        assert outs["cpu"][0] == expect[key], (key, outs["cpu"][0], expect[key])
+        d, n, agree = _decided(outs["cpu"][1], outs["card"][1])
+        fd, _, fagree = _decided(outs["cpu"][1], outs["card fault"][1])
+        print(f"[generate] decode golden {key} on the card fp32: {outs['card'][0]} (golden "
+              f"{expect[key]}); agrees on every decided step: {agree} (decided {d}/{n}); "
+              f"planted fault, the step's position off by one: agrees {fagree} (must be False)")
+        assert agree and (d < n or outs["card"][0] == expect[key]), key
+        assert not fagree, (key, "the gate does not see the fault")
+    got = blip_lm.vqa_rank_answers(vqa, images, q_ids, q_mask, ans_ids, ans_mask, cfg, k=4)
+    print(f"[generate] decode golden vqa_rank_indices on the card fp32: {got.tolist()} (golden "
+          f"{expect['vqa_rank_indices']})")
+    assert got.tolist() == expect["vqa_rank_indices"]
+
+
+def phase_generate():
+    """Generation at full width on random weights: BLIP base captioning at
+    384² (beam 3 / nucleus, max_length 30, min_length 10, 4 images), VQA at
+    480² (rank over 128 candidates, beam-3 generate), ITM (itm / itc) and
+    NLVR at 384², the caption and retrieval evaluations, coca_ViT-L-14 at
+    224² in fp32 and bf16 (encoders, forward, beam 6 / top-p generate,
+    seq_len 30) and coca_roberta-ViT-B-32's encoders; then the decode
+    golden on the card. The BLIP vocabulary is a synthetic 30522-entry
+    vocab.txt in a temporary directory."""
+    from rs_ov_torch.text.wordpiece import WordPieceTokenizer, write_synthetic_vocab
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(9)
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = WordPieceTokenizer(write_synthetic_vocab(os.path.join(tmp, "vocab.txt"),
+                                                       GEN_VOCAB))
+    _blip_caption(rng, tok)
+    torch.cuda.empty_cache()
+    _blip_vqa(rng, tok)
+    torch.cuda.empty_cache()
+    _blip_itm_nlvr(rng, tok)
+    torch.cuda.empty_cache()
+    _coca(rng)
+    torch.cuda.empty_cache()
+    _golden(BLIP_VOCAB)
+    print(f"[generate] phase 9 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     phase_device()
     phase_build()
@@ -2132,6 +2970,7 @@ def main():
     phase_eval(rows)
     phase_entry(rows)
     phase_timm()
+    phase_generate()
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

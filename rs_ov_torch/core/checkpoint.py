@@ -7,8 +7,9 @@ in) orientation kept), then the strict bridge ``clip_params_from_numpy`` /
 ``load_numpy_tree``, which raises on a missing, unused or misshapen key.
 The timm-tower exports (``visual.trunk.*``: ConvNeXt, SigLIP MAP-head ViT,
 EVA) and big_vision ``.npz`` files (a classic ViT, or SigLIP onto its
-MAP-head tower and 'last'-pooled text tower) take the same way; CoCa's
-loader is ROADMAP queue 1 item 9.
+MAP-head tower and 'last'-pooled text tower) take the same way, and an
+open_clip CoCa state dict (``coca_params_from_state_dict``, a numpy tree
+for ``core.params.coca_params_from_numpy``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ __all__ = ["load_torch_state_dict", "vision_params_from_state_dict",
            "infer_clip_config_from_state_dict", "jbu_params_from_state_dict",
            "detect_timm_vision_prefix", "vision_params_from_timm_state_dict",
            "timm_tower_params_from_state_dict", "vision_params_from_big_vision_npz",
-           "siglip_params_from_big_vision_npz"]
+           "siglip_params_from_big_vision_npz", "coca_params_from_state_dict"]
 
 
 def _np(x) -> np.ndarray:
@@ -634,3 +635,40 @@ def jbu_params_from_state_dict(sd: Mapping[str, np.ndarray], model_name: str,
                              else tree["ups"][0])["range_proj"]["w0"].shape[:2]
     cls = JBUOne if model_name == "jbu_one" else JBUStack
     return load_numpy_tree(cls(tree["final_fixup"]["b"].shape[0], guidance_dim, key_dim), tree)
+
+
+def coca_params_from_state_dict(sd: Mapping[str, np.ndarray]) -> dict:
+    """An open_clip CoCa state dict (``visual.*`` with ``attn_pool``,
+    ``text.*`` with ``cls_emb`` or an HF tower at ``text.transformer.*`` /
+    ``text.proj.*``, ``text_decoder.*``) as the JAX package's CoCa pytree
+    with fp32 numpy leaves (rs_ov/core/checkpoint.py:810-858)."""
+    def pool(prefix):
+        return {"query": _f32(sd[f"{prefix}.query"]), "ln_q": _ln(sd, f"{prefix}.ln_q"),
+                "ln_k": _ln(sd, f"{prefix}.ln_k"),
+                "q_proj_w": _f32(sd[f"{prefix}.attn.q_proj_weight"]),
+                "k_proj_w": _f32(sd[f"{prefix}.attn.k_proj_weight"]),
+                "v_proj_w": _f32(sd[f"{prefix}.attn.v_proj_weight"]),
+                "in_proj_b": _f32(sd[f"{prefix}.attn.in_proj_bias"]),
+                "out_proj_w": _f32(sd[f"{prefix}.attn.out_proj.weight"]),
+                "out_proj_b": _f32(sd[f"{prefix}.attn.out_proj.bias"])}
+
+    visual = vision_params_from_state_dict(sd, prefix="visual.")
+    visual["attn_pool"] = pool("visual.attn_pool")
+    if "text.transformer.embeddings.word_embeddings.weight" in sd:
+        from rs_ov_torch.nn.hf_text import _hf_text_tree
+
+        text = _hf_text_tree(sd, prefix="text.")
+    else:
+        text = text_params_from_state_dict(sd, prefix="text.")
+        text["cls_emb"] = _f32(sd["text.cls_emb"])
+    n = _count_blocks(sd, "text_decoder.resblocks")
+    cross = []
+    for i in range(n):
+        blk = _block(sd, f"text_decoder.cross_attn.{i}")
+        blk["ln_1_kv"] = _ln(sd, f"text_decoder.cross_attn.{i}.ln_1_kv")
+        cross.append(blk)
+    multimodal = {"blocks": [_block(sd, f"text_decoder.resblocks.{i}") for i in range(n)],
+                  "cross_blocks": cross, "ln_final": _ln(sd, "text_decoder.ln_final"),
+                  "text_projection": _f32(sd["text_decoder.text_projection"])}
+    return {"visual": visual, "text": text, "multimodal": multimodal,
+            "logit_scale": _f32(sd["logit_scale"])}

@@ -6,9 +6,9 @@ fields, defaults and registry entries are those of the JAX package, so a
 config from either package carries the same numbers; the port reads them by
 attribute only, so it accepts either package's dataclasses. The port's CLIP
 module builds the ViT towers (plain, LayerScale, CLIPA) and the timm-towered
-entries (SigLIP, EVA, ConvNeXt: ``nn.timm_tower``). CoCa names are listed,
-and resolving one raises (ROADMAP queue 1 item 9: their configs are the CoCa
-module's dataclasses).
+entries (SigLIP, EVA, ConvNeXt: ``nn.timm_tower``); a CoCa name resolves to
+a ``CoCaConfig`` (``get_coca_config``, rs_ov/core/config.py:293-344, with
+the dataclasses of rs_ov/nn/coca.py:59-95), which ``nn.coca`` builds.
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["VisionConfig", "TextConfig", "CLIPConfig", "COCA_MODELS", "get_model_config",
-           "list_models", "register_model"]
+__all__ = ["VisionConfig", "TextConfig", "CLIPConfig", "MultimodalConfig", "CoCaConfig",
+           "COCA_MODELS", "get_coca_config", "get_model_config", "list_models",
+           "register_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,19 +272,80 @@ _MODEL_CONFIGS: dict[str, CLIPConfig] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class MultimodalConfig:
+    context_length: int = 76
+    vocab_size: int = 49408
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    mlp_ratio: float = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CoCaConfig:
+    embed_dim: int
+    vision: VisionConfig
+    text: TextConfig
+    multimodal: MultimodalConfig
+    quick_gelu: bool = False
+    attn_pooler_heads: int = 8
+    attn_pooler_queries: int = 256
+    pad_id: int = 0
+
+
 COCA_MODELS = ("coca_base", "coca_ViT-B-32", "coca_ViT-L-14", "coca_roberta-ViT-B-32")
 
 
-def get_model_config(name: str) -> CLIPConfig:
-    """Resolve a model name ('ViT-B/16', 'ViT-L-14', ...) to its config;
-    '/' and '-' spellings are interchangeable, as in open_clip. A CoCa name
-    raises NotImplementedError."""
+def get_coca_config(name: str) -> CoCaConfig:
+    """The CoCa archs (reference model_configs/coca_*.json). For
+    coca_roberta-ViT-B-32 (an HF roberta text tower) the reference's own
+    caption forward is broken: its 512-wide image tokens meet a 768-wide
+    cross-attention LayerNorm; the contrastive encoders are what works."""
+    if name == "coca_roberta-ViT-B-32":
+        return CoCaConfig(
+            embed_dim=512,
+            vision=VisionConfig(image_size=224, patch_size=32, width=768, layers=12,
+                                output_dim=512, output_tokens=True),
+            text=TextConfig(width=768, output_dim=512, output_tokens=True,
+                            hf_model_name="roberta-base", hf_tokenizer_name="roberta-base",
+                            hf_proj_type="linear"),
+            multimodal=MultimodalConfig(context_length=76, width=768, heads=8, layers=12))
+    if name == "coca_base":
+        return CoCaConfig(
+            embed_dim=512,
+            vision=VisionConfig(image_size=288, patch_size=18, width=768, layers=12,
+                                output_dim=512, output_tokens=True),
+            text=TextConfig(context_length=76, vocab_size=64000, width=768, heads=12,
+                            layers=12, output_dim=512, pool_type="last", embed_cls=True,
+                            output_tokens=True),
+            multimodal=MultimodalConfig(context_length=76, vocab_size=64000, width=768,
+                                        heads=12, layers=12))
+    if name in ("coca_ViT-B-32", "coca_ViT-L-14"):
+        large = name.endswith("L-14")
+        ed, tw, th = (768, 768, 12) if large else (512, 512, 8)
+        return CoCaConfig(
+            embed_dim=ed,
+            vision=VisionConfig(image_size=224, patch_size=14 if large else 32,
+                                width=1024 if large else 768, layers=24 if large else 12,
+                                output_dim=ed, attentional_pool=True, attn_pooler_heads=8,
+                                output_tokens=True),
+            text=TextConfig(context_length=76, width=tw, heads=th, layers=12, output_dim=ed,
+                            pool_type="last", embed_cls=True, output_tokens=True),
+            multimodal=MultimodalConfig(context_length=76, width=tw, heads=th, layers=12),
+            attn_pooler_heads=12 if large else 8)
+    raise KeyError(f"Unknown CoCa model '{name}'. Known: {COCA_MODELS}")
+
+
+def get_model_config(name: str):
+    """Resolve a model name ('ViT-B/16', 'ViT-L-14', 'coca_ViT-B-32', ...)
+    to its config (a CoCaConfig for a CoCa name); '/' and '-' spellings are
+    interchangeable, as in open_clip."""
     for key in (name, name.replace("/", "-")):
         if key in _MODEL_CONFIGS:
             return _MODEL_CONFIGS[key]
     if name in COCA_MODELS:
-        raise NotImplementedError(f"CoCa model '{name}' is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        return get_coca_config(name)
     raise KeyError(f"Unknown model '{name}'. Known: {list_models()}")
 
 

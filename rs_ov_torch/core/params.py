@@ -1,4 +1,4 @@
-"""CLIP tower and JBU parameters as ``nn.Module``s, random init, weight bridge.
+"""CLIP, CoCa and JBU parameters as ``nn.Module``s, random init, weight bridge.
 
 The modules hold exactly the leaves of the JAX package's parameter pytrees
 (rs_ov/core/params.py, rs_ov/upsample/jbu.py:483-530), under the same names
@@ -19,14 +19,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
+from rs_ov_torch.core.config import CLIPConfig, CoCaConfig, TextConfig, VisionConfig
 from rs_ov_torch.nn.timm_tower import oihw_conv_leaves, timm_arch, timm_head_width
 
 __all__ = ["LayerNorm", "ResBlock", "VisionTower", "TextTower", "TimmTower", "CLIP",
-           "Proj2", "JBUModule", "JBUOne", "JBUStack", "init_clip_params",
-           "init_timm_tower_params",
+           "AttentionalPooler", "CoCaVisionTower", "CoCaTextTower", "MultimodalDecoder",
+           "CoCa", "Proj2", "JBUModule", "JBUOne", "JBUStack", "init_clip_params",
+           "init_timm_tower_params", "init_coca_params",
            "init_jbu_one_params", "init_jbu_stack_params",
-           "clip_params_from_numpy", "blip_params_from_numpy", "jbu_params_from_numpy",
+           "clip_params_from_numpy", "blip_params_from_numpy",
+           "blip_decoder_params_from_numpy", "blip_vqa_params_from_numpy",
+           "blip_nlvr_params_from_numpy", "coca_params_from_numpy", "jbu_params_from_numpy",
            "load_numpy_tree", "module_from_tree"]
 
 
@@ -264,25 +267,112 @@ class TimmTower(nn.Module):
 class CLIP(nn.Module):
     """The CLIP tree: ``visual`` (a ViT tower or a ``TimmTower``), ``text``,
     ``logit_scale`` and, where the config sets ``init_logit_bias`` (or
-    ``logit_bias`` says so for a checkpoint), ``logit_bias``."""
+    ``logit_bias`` says so for a checkpoint), ``logit_bias``. CoCa's fields
+    (``attentional_pool``, ``embed_cls``, ``hf_model_name``) do not change
+    the CLIP tree, as in the JAX package: only ``CoCa`` builds them."""
 
     def __init__(self, cfg: CLIPConfig, logit_bias: bool | None = None,
                  timm_proj_bias: bool = False):
         super().__init__()
         v, t = cfg.vision, cfg.text
-        if t.hf_model_name:
-            raise NotImplementedError(
-                f"the HF text tower ({t.hf_model_name}) is built only by CoCa, which is "
-                "not ported yet (ROADMAP queue 1 item 9)")
-        if v.attentional_pool or t.embed_cls:
-            raise NotImplementedError("CoCa's attentional pool and text CLS are not "
-                                      "ported yet (ROADMAP queue 1 item 9)")
         self.visual = (TimmTower(v, cfg.embed_dim, timm_proj_bias) if v.timm_model_name
                        else VisionTower(v))
         self.text = TextTower(t)
         self.logit_scale = _p()
         if cfg.init_logit_bias is not None if logit_bias is None else logit_bias:
             self.logit_bias = _p()
+
+
+# ---------------------------------------------------------------------------
+# CoCa (rs_ov/nn/coca.py:591-688's tree)
+# ---------------------------------------------------------------------------
+
+class AttentionalPooler(nn.Module):
+    """Learned queries over the tokens: separate q / k / v projections (k
+    and v ``ctx_dim`` wide) and one fused 3 x d bias, as torch's
+    MultiheadAttention with kdim = vdim = ctx_dim holds them."""
+
+    def __init__(self, d_model: int, ctx_dim: int, n_queries: int):
+        super().__init__()
+        self.query = _p(n_queries, d_model)
+        self.ln_q = LayerNorm(d_model)
+        self.ln_k = LayerNorm(ctx_dim)
+        self.q_proj_w = _p(d_model, d_model)
+        self.k_proj_w = _p(d_model, ctx_dim)
+        self.v_proj_w = _p(d_model, ctx_dim)
+        self.in_proj_b = _p(3 * d_model)
+        self.out_proj_w = _p(d_model, d_model)
+        self.out_proj_b = _p(d_model)
+
+
+class CoCaVisionTower(nn.Module):
+    """The ViT trunk, the attentional pooler into ``embed_dim``, ``ln_post``
+    and the square ``proj`` of the pooled and token outputs."""
+
+    def __init__(self, cfg: CoCaConfig):
+        super().__init__()
+        v, d = cfg.vision, cfg.embed_dim
+        gh, gw = v.grid_size
+        self.conv1_w = _p(v.width, 3, v.patch_size, v.patch_size)
+        self.class_embedding = _p(v.width)
+        self.positional_embedding = _p(gh * gw + 1, v.width)
+        self.ln_pre = LayerNorm(v.width)
+        self.blocks = nn.ModuleList(ResBlock(v.width, v.mlp_ratio) for _ in range(v.layers))
+        self.attn_pool = AttentionalPooler(d, v.width, cfg.attn_pooler_queries)
+        self.ln_post = LayerNorm(d)
+        self.proj = _p(d, d)
+
+
+class CoCaTextTower(nn.Module):
+    """The text tower with its learned CLS (``cls_emb``, appended at the end
+    of the sequence, hence ``context_length + 1`` positions)."""
+
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.token_embedding = _p(cfg.vocab_size, cfg.width)
+        self.positional_embedding = _p(cfg.context_length + 1, cfg.width)
+        self.cls_emb = _p(cfg.width)
+        self.blocks = nn.ModuleList(ResBlock(cfg.width, cfg.mlp_ratio)
+                                    for _ in range(cfg.layers))
+        self.ln_final = LayerNorm(cfg.width)
+        self.text_projection = _p(cfg.width, cfg.output_dim)
+
+
+class CrossBlock(ResBlock):
+    """A cross-attention block: ``ln_1_kv`` normalises the image tokens."""
+
+    def __init__(self, width: int, mlp_ratio: float):
+        super().__init__(width, mlp_ratio)
+        self.ln_1_kv = LayerNorm(width)
+
+
+class MultimodalDecoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.blocks = nn.ModuleList(ResBlock(cfg.width, cfg.mlp_ratio)
+                                    for _ in range(cfg.layers))
+        self.cross_blocks = nn.ModuleList(CrossBlock(cfg.width, cfg.mlp_ratio)
+                                          for _ in range(cfg.layers))
+        self.ln_final = LayerNorm(cfg.width)
+        self.text_projection = _p(cfg.width, cfg.vocab_size)
+
+
+class CoCa(nn.Module):
+    """The CoCa tree: ``visual``, ``text`` (a ``CoCaTextTower``, or for a
+    config with ``hf_model_name`` an ``nn.hf_text.HFTextTower``, or the HF
+    module given as ``text``), ``multimodal`` and ``logit_scale``."""
+
+    def __init__(self, cfg: CoCaConfig, text: nn.Module | None = None):
+        super().__init__()
+        self.visual = CoCaVisionTower(cfg)
+        if text is None and cfg.text.hf_model_name:
+            from rs_ov_torch.nn.hf_text import HFTextTower, hf_text_config
+
+            text = HFTextTower(hf_text_config(cfg.text.hf_model_name, output_dim=cfg.embed_dim,
+                                              proj_type=cfg.text.hf_proj_type))
+        self.text = text if text is not None else CoCaTextTower(cfg.text)
+        self.multimodal = MultimodalDecoder(cfg.multimodal)
+        self.logit_scale = _p()
 
 
 class Proj2(nn.Module):
@@ -436,6 +526,70 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
     return m
 
 
+def _init_coca_block(blk: ResBlock, width: int, gen: torch.Generator) -> None:
+    """rs_ov/nn/coca.py:595-613: width^-0.5 for in / out projections and
+    c_fc, (2 width)^-0.5 for c_proj (not CLIP's halved out-projection)."""
+    s = width ** -0.5
+    for ln in (blk.ln_1, blk.ln_2) + ((blk.ln_1_kv,) if hasattr(blk, "ln_1_kv") else ()):
+        _init_ln(ln)
+    _normal(blk.attn.in_proj_w, s, gen)
+    blk.attn.in_proj_b.zero_()
+    _normal(blk.attn.out_proj_w, s, gen)
+    blk.attn.out_proj_b.zero_()
+    _normal(blk.mlp.c_fc_w, s, gen)
+    blk.mlp.c_fc_b.zero_()
+    _normal(blk.mlp.c_proj_w, (2 * width) ** -0.5, gen)
+    blk.mlp.c_proj_b.zero_()
+
+
+@torch.no_grad()
+def init_coca_params(gen: torch.Generator, cfg: CoCaConfig) -> CoCa:
+    """Random fp32 CoCa weights on the CPU, drawn from ``gen`` with the JAX
+    init's shapes and scales (rs_ov/nn/coca.py:631-688); an HF text tower
+    from ``nn.hf_text.init_hf_text_params``."""
+    from rs_ov_torch.nn.hf_text import hf_text_config, init_hf_text_params
+
+    v, t, mm, d = cfg.vision, cfg.text, cfg.multimodal, cfg.embed_dim
+    text = None
+    if t.hf_model_name:
+        text = init_hf_text_params(gen, hf_text_config(t.hf_model_name, output_dim=d,
+                                                       proj_type=t.hf_proj_type))
+    m = CoCa(cfg, text)
+    vis = m.visual
+    _normal(vis.conv1_w, (3 * v.patch_size ** 2) ** -0.5, gen)
+    _normal(vis.class_embedding, v.width ** -0.5, gen)
+    _normal(vis.positional_embedding, v.width ** -0.5, gen)
+    _init_ln(vis.ln_pre)
+    for blk in vis.blocks:
+        _init_coca_block(blk, v.width, gen)
+    pool = vis.attn_pool
+    _normal(pool.query, 1.0, gen)
+    _init_ln(pool.ln_q)
+    _init_ln(pool.ln_k)
+    for w in (pool.q_proj_w, pool.k_proj_w, pool.v_proj_w, pool.out_proj_w):
+        _normal(w, d ** -0.5, gen)
+    pool.in_proj_b.zero_()
+    pool.out_proj_b.zero_()
+    _init_ln(vis.ln_post)
+    _normal(vis.proj, d ** -0.5, gen)
+    if not t.hf_model_name:
+        tt = m.text
+        _normal(tt.token_embedding, 0.02, gen)
+        _normal(tt.positional_embedding, 0.01, gen)
+        _normal(tt.cls_emb, 0.01, gen)
+        for blk in tt.blocks:
+            _init_coca_block(blk, t.width, gen)
+        _init_ln(tt.ln_final)
+        _normal(tt.text_projection, t.width ** -0.5, gen)
+    dec = m.multimodal
+    for blk in list(dec.blocks) + list(dec.cross_blocks):
+        _init_coca_block(blk, mm.width, gen)
+    _init_ln(dec.ln_final)
+    _normal(dec.text_projection, mm.width ** -0.5, gen)
+    m.logit_scale.fill_(float(np.log(1 / 0.07)))
+    return m
+
+
 def _init_proj2(p: Proj2, gen: torch.Generator) -> None:
     _normal(p.w0, p.w0.shape[1] ** -0.5, gen)
     p.b0.zero_()
@@ -560,6 +714,40 @@ def blip_params_from_numpy(tree):
     from rs_ov_torch.nn.blip import blip_from_tree  # nn.blip builds on this module
 
     return blip_from_tree(tree)
+
+
+def blip_decoder_params_from_numpy(tree):
+    """The JAX ``init_blip_decoder_params`` / ``blip_decoder_params_from_state_dict``
+    pytree as a CPU fp32 ``nn.blip_lm.BlipDecoder``."""
+    from rs_ov_torch.nn.blip_lm import blip_decoder_from_tree
+
+    return blip_decoder_from_tree(tree)
+
+
+def blip_vqa_params_from_numpy(tree):
+    """The JAX VQA pytree (``visual``, ``text_encoder``, ``text_decoder``,
+    ``lm_head``) as a CPU fp32 ``nn.blip_lm.BlipVQA``."""
+    from rs_ov_torch.nn.blip_lm import blip_vqa_from_tree
+
+    return blip_vqa_from_tree(tree)
+
+
+def blip_nlvr_params_from_numpy(tree):
+    """The JAX NLVR pytree (the twin-stream ``text_encoder``, ``cls_head``)
+    as a CPU fp32 ``nn.blip_lm.BlipNLVR``."""
+    from rs_ov_torch.nn.blip_lm import blip_nlvr_from_tree
+
+    return blip_nlvr_from_tree(tree)
+
+
+def coca_params_from_numpy(tree, cfg: CoCaConfig) -> CoCa:
+    """The JAX ``init_coca_params`` / ``coca_params_from_state_dict`` pytree
+    (numpy leaves) as a CPU fp32 CoCa; the HF text tower's subtree (None
+    entries left out) for a config with ``hf_model_name``."""
+    text = module_from_tree(tree["text"]) if cfg.text.hf_model_name else None
+    if text is not None:
+        tree = {**tree, "text": {k: v for k, v in tree["text"].items() if v is not None}}
+    return load_numpy_tree(CoCa(cfg, text), tree)
 
 
 def jbu_params_from_numpy(tree, feat_dim: int, guidance_dim: int = 3,

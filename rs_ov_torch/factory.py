@@ -14,8 +14,10 @@ in the JAX package, whose ViT products then run on the tensor cores
 (``nn.layers.matmul32``). The transforms stay numpy + PIL on the host and
 give arrays equal to the JAX package's. The timm-named towers (ConvNeXt,
 SigLIP, EVA / EVA02, ``nn.timm_tower``) build from random weights, a
-``visual.trunk.*`` export or, for SigLIP, a big_vision ``.npz``; CoCa (and
-the HF text tower it alone uses) is ROADMAP queue 1 item 9, the losses item 10.
+``visual.trunk.*`` export or, for SigLIP, a big_vision ``.npz``. A CoCa
+name gives a ``CoCaModel`` (``encode_image``, ``encode_text``, ``forward``,
+``generate``; ``nn.coca``) from random weights or an open_clip CoCa
+checkpoint. The training losses are ROADMAP queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -29,11 +31,13 @@ import torch
 from torch import nn
 
 from rs_ov_torch.core.checkpoint import (clip_params_from_state_dict,
+                                         coca_params_from_state_dict,
                                          infer_clip_config_from_state_dict,
                                          load_torch_state_dict,
                                          siglip_params_from_big_vision_npz)
-from rs_ov_torch.core.config import CLIPConfig, get_model_config
-from rs_ov_torch.core.params import CLIP, clip_params_from_numpy, init_clip_params
+from rs_ov_torch.core.config import CLIPConfig, CoCaConfig, get_coca_config, get_model_config
+from rs_ov_torch.core.params import (CLIP, CoCa, clip_params_from_numpy, coca_params_from_numpy,
+                                     init_clip_params, init_coca_params)
 from rs_ov_torch.nn.timm_tower import timm_tower_forward
 from rs_ov_torch.nn.vit import VitCallConfig, vit_forward
 from rs_ov_torch.pretrained import (OPENAI_MEAN, OPENAI_STD, download_pretrained,
@@ -41,7 +45,7 @@ from rs_ov_torch.pretrained import (OPENAI_MEAN, OPENAI_STD, download_pretrained
 from rs_ov_torch.text.encoder import text_forward
 from rs_ov_torch.text.tokenizer import SimpleTokenizer
 
-__all__ = ["CLIPModel", "create_loss", "create_model", "create_model_and_transforms",
+__all__ = ["CLIPModel", "CoCaModel", "create_loss", "create_model", "create_model_and_transforms",
            "create_model_from_pretrained", "get_tokenizer", "image_transform",
            "image_transform_v2", "PreprocessCfg", "preprocess_style", "center_crop_or_pad",
            "resolve_device"]
@@ -133,6 +137,77 @@ class CLIPModel(nn.Module):
         return (self.cfg.vision.patch_size, self.cfg.vision.patch_size)
 
 
+def _as_input(x, device, dtype) -> torch.Tensor:
+    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    return x.to(device, dtype if x.is_floating_point() else torch.long)
+
+
+class CoCaModel(nn.Module):
+    """The open_clip ``CoCa`` surface over the port's CoCa module ``coca``
+    (rs_ov/factory.py:97-128): encode_image / encode_text (normalised by
+    default), forward (the output dict) and generate (int32 token rows)."""
+
+    def __init__(self, cfg: CoCaConfig, coca: CoCa):
+        super().__init__()
+        self.cfg = cfg
+        self.coca = coca
+
+    @property
+    def device(self) -> torch.device:
+        return self.coca.logit_scale.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.coca.logit_scale.dtype
+
+    @torch.no_grad()
+    def encode_image(self, images, normalize: bool = True) -> torch.Tensor:
+        from rs_ov_torch.nn.coca import coca_encode_image
+
+        return coca_encode_image(self.coca, _as_input(images, self.device, self.dtype),
+                                 self.cfg, normalize=normalize)[0]
+
+    @torch.no_grad()
+    def encode_text(self, text_ids, normalize: bool = True) -> torch.Tensor:
+        from rs_ov_torch.nn.coca import coca_encode_text
+
+        return coca_encode_text(self.coca, _as_input(text_ids, self.device, self.dtype),
+                                self.cfg, normalize=normalize)[0]
+
+    @torch.no_grad()
+    def forward(self, images, texts=None, **kw) -> dict:
+        from rs_ov_torch.nn.coca import coca_forward
+
+        return coca_forward(self.coca, _as_input(images, self.device, self.dtype),
+                            None if texts is None else _as_input(texts, self.device, None),
+                            self.cfg, **kw)
+
+    def generate(self, images, **kw) -> np.ndarray:
+        from rs_ov_torch.nn.coca import coca_generate
+
+        return coca_generate(self.coca, images, self.cfg, **kw)
+
+    @property
+    def logit_scale(self) -> torch.Tensor:
+        return torch.exp(self.coca.logit_scale)
+
+
+def _create_coca(model_name: str, pretrained, dtype, seed: int, device) -> CoCaModel:
+    """(rs_ov/factory.py:131-145) random weights from ``seed`` or a local
+    open_clip CoCa checkpoint."""
+    cfg = get_coca_config(model_name)
+    if pretrained and os.path.exists(pretrained):
+        coca = coca_params_from_numpy(coca_params_from_state_dict(
+            load_torch_state_dict(pretrained)), cfg)
+    elif pretrained:
+        raise FileNotFoundError(
+            f"No implicit downloads; pass a local checkpoint path as `pretrained` for "
+            f"{model_name}.")
+    else:
+        coca = init_coca_params(torch.Generator().manual_seed(seed), cfg)
+    return CoCaModel(cfg, coca.to(device=device, dtype=dtype)).eval()
+
+
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "fp32", device=None, force_quick_gelu: bool = False,
                  seed: int = 0, force_image_size: Optional[int] = None,
@@ -140,7 +215,8 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     """(rs_ov/factory.py:148-239). ``pretrained``: a local checkpoint path
     or a registry tag staged in the cache; None gives random weights from a
     ``torch.Generator`` seeded with ``seed``. ``force_image_size`` overrides
-    the arch's input resolution (the pos-embed is interpolated at run time)."""
+    the arch's input resolution (the pos-embed is interpolated at run time).
+    A coca_* name gives a ``CoCaModel``."""
     device = resolve_device(device)
 
     def _sized(c):
@@ -158,8 +234,7 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
             except RuntimeError:
                 pass  # not staged: the refusal below names the URL
     if model_name.startswith("coca"):
-        raise NotImplementedError(f"CoCa model '{model_name}' is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        return _create_coca(model_name, pretrained, dtype, seed, device)
     if pretrained and os.path.exists(pretrained) and pretrained.endswith(".npz"):
         try:
             cfg = get_model_config(model_name)
@@ -354,7 +429,7 @@ def get_tokenizer(model_name: str = "", context_length: int | None = None,
     if model_name:
         try:
             cfg = get_model_config(model_name)
-        except (KeyError, NotImplementedError):
+        except KeyError:
             cfg = None
     tcfg = getattr(cfg, "text", None)
     hf_name = getattr(tcfg, "hf_tokenizer_name", None)

@@ -1,12 +1,12 @@
-"""BLIP for the segmentation path (rs_ov/nn/blip.py): the vision tower and
-its projection for patch features, the BERT text tower and its projection
-for the text queries, random init, and the BLIP checkpoint's names.
+"""BLIP (rs_ov/nn/blip.py): the vision tower and its projection for patch
+features, the BERT text tower and its projection for the text queries, the
+multimodal (image-grounded) text stream and the ITM / ITC heads, random
+init, and the BLIP checkpoint's names (the NLVR twin cross-attention too).
 
 ``Blip`` holds the JAX pytree's leaves under its names (``visual``,
 ``vision_proj``, ``text``, ``text_proj``; a retrieval checkpoint's
 ``itm_head`` and ``temp`` where present), so ``core.params.load_numpy_tree``
-bridges a JAX pytree. ``blip_multimodal_features`` and ``blip_itm_score``
-are ROADMAP queue 1 item 9.
+bridges a JAX pytree.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from rs_ov_torch.nn.layers import linear
 
 __all__ = ["BlipConfig", "Blip", "init_blip_params", "bert_params_from_state_dict",
            "blip_visual_params_from_state_dict", "blip_params_from_state_dict",
-           "blip_encode_image", "blip_encode_text"]
+           "blip_encode_image", "blip_encode_text", "blip_multimodal_features",
+           "blip_itm_score"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,13 +95,11 @@ def init_blip_params(gen: torch.Generator, cfg: BlipConfig) -> Blip:
 # BLIP checkpoint names (visual_encoder.* / text_encoder.*) -> modules
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _bert_tree(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
     """The JAX package's ``bert_params_from_state_dict`` pytree
-    (rs_ov/nn/blip.py:159-241) as numpy arrays."""
+    (rs_ov/nn/blip.py:159-241) as numpy arrays: the MED cross-attention
+    and the NLVR twin streams (``self0`` / ``self1``, ``dense0`` /
+    ``dense1``, ``merge_layer``) where the checkpoint has them."""
     def a(name):
         return np.asarray(sd[name], np.float32)
 
@@ -121,8 +120,6 @@ def _bert_tree(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
     layers = []
     for i in range(n_layers):
         pre = f"{tp}.encoder.layer.{i}"
-        if f"{pre}.crossattention.self0.query.weight" in sd:
-            raise _not_ported("the NLVR twin cross-attention", "queue 1 item 9")
         layer = {"attn_ln": ln(f"{pre}.attention.output.LayerNorm"),
                  "inter_w": a(f"{pre}.intermediate.dense.weight"),
                  "inter_b": a(f"{pre}.intermediate.dense.bias"),
@@ -137,6 +134,14 @@ def _bert_tree(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
                 ("q", "query"), ("k", "key"), ("v", "value"))]
             names.append(("x_out", "crossattention.output.dense"))
             layer["x_ln"] = ln(f"{pre}.crossattention.output.LayerNorm")
+        if f"{pre}.crossattention.self0.query.weight" in sd:
+            for st in (0, 1):
+                names += [(f"x{st}{n}", f"crossattention.self{st}.{t}") for n, t in (
+                    ("q", "query"), ("k", "key"), ("v", "value"))]
+                names.append((f"x{st}_out", f"crossattention.output.dense{st}"))
+            layer["x_ln"] = ln(f"{pre}.crossattention.output.LayerNorm")
+            if f"{pre}.crossattention.output.merge_layer.weight" in sd:
+                names.append(("merge", "crossattention.output.merge_layer"))
         for n, t in names:
             layer[f"{n}_w"], layer[f"{n}_b"] = a(f"{pre}.{t}.weight"), a(f"{pre}.{t}.bias")
         layers.append(layer)
@@ -151,8 +156,13 @@ def _bert_module(tree: dict) -> BertEncoder:
                      num_layers=len(layers),
                      intermediate_size=layers[0]["inter_w"].shape[0] if layers else 1,
                      max_position_embeddings=pos.shape[0])
-    return BertEncoder(cfg, cross=bool(layers) and "x_ln" in layers[0],
-                       token_type="token_type" in tree["embeddings"])
+    first = layers[0] if layers else {}
+    twin = "x0k_w" in first
+    key = "x0k_w" if twin else "xk_w"
+    merge_from = next((i for i, l in enumerate(layers) if "merge_w" in l), None)
+    return BertEncoder(cfg, cross="x_ln" in first, token_type="token_type" in tree["embeddings"],
+                       encoder_width=first[key].shape[1] if key in first else None, twin=twin,
+                       merge_from=merge_from)
 
 
 def bert_params_from_state_dict(sd: Mapping[str, np.ndarray], prefix: str) -> BertEncoder:
@@ -242,6 +252,33 @@ def blip_encode_image(p: Blip, images: torch.Tensor, cfg: BlipConfig,
     (rs_ov/nn/blip.py:321-329)."""
     feats = blip_vit_forward(p.visual, images, cfg.vision, ignore_residual=ignore_residual)
     return linear(feats[:, 1:], p.vision_proj.w, p.vision_proj.b)
+
+
+def blip_multimodal_features(p: Blip, images: torch.Tensor, input_ids: torch.Tensor,
+                             attention_mask: torch.Tensor, cfg: BlipConfig) -> torch.Tensor:
+    """BLIP_Base mode='multimodal' (rs_ov/nn/blip.py:322-331): the text
+    stream cross-attending over the full image tokens -> the last hidden
+    state [B, L, H]. input_ids[:, 0] must be the [ENC] token."""
+    image_embeds = blip_vit_forward(p.visual, images, cfg.vision)
+    return bert_encode(p.text, input_ids, attention_mask, cfg.text,
+                       encoder_hidden_states=image_embeds)
+
+
+def blip_itm_score(p: Blip, images: torch.Tensor, input_ids: torch.Tensor,
+                   attention_mask: torch.Tensor, cfg: BlipConfig,
+                   match_head: str = "itm") -> torch.Tensor:
+    """BLIP_ITM (rs_ov/nn/blip.py:334-356): 'itm' the [B, 2] match logits of
+    the multimodal CLS; 'itc' the [B, B] fp32 image x text cosine matrix."""
+    if match_head == "itm":
+        hidden = blip_multimodal_features(p, images, input_ids, attention_mask, cfg)
+        return linear(hidden[:, 0], p.itm_head.w, p.itm_head.b)
+    if match_head != "itc":
+        raise ValueError(f"match_head must be 'itm' or 'itc', got {match_head!r}")
+    image_embeds = blip_vit_forward(p.visual, images, cfg.vision)
+    image_feat = linear(image_embeds[:, 0], p.vision_proj.w, p.vision_proj.b).float()
+    image_feat = image_feat / image_feat.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    text_feat = blip_encode_text(p, input_ids, attention_mask, cfg)
+    return image_feat @ text_feat.float().t()
 
 
 def blip_encode_text(p: Blip, input_ids: torch.Tensor, attention_mask: torch.Tensor,

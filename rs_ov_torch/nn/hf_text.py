@@ -15,9 +15,8 @@ Linear, both bias-free.
 
 The parameters are a module tree with the JAX pytree's names
 (``transformer.embeddings.word``, ``pooler.w``, ``proj.w0``, ...), so a JAX
-tree crosses with ``core.params.module_from_tree``. Only
-CoCa's HF-text variant builds this tower, so nothing of the port wires it
-yet (ROADMAP queue 1 item 9).
+tree crosses with ``core.params.module_from_tree``. CoCa's HF-text variant
+(coca_roberta-ViT-B-32, ``nn.coca``) is the one model that builds it.
 """
 
 from __future__ import annotations
@@ -29,12 +28,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from rs_ov_torch.core.params import module_from_tree
-from rs_ov_torch.nn.bert import BertConfig, bert_encode
+from rs_ov_torch.core.params import _p, module_from_tree
+from rs_ov_torch.nn.bert import BertConfig, BertEncoder, bert_encode
 from rs_ov_torch.nn.layers import gelu, linear
 
-__all__ = ["HFTextConfig", "hf_text_config", "hf_text_encode", "init_hf_text_params",
-           "hf_text_params_from_state_dict"]
+__all__ = ["HFTextConfig", "HFTextTower", "hf_text_config", "hf_text_encode",
+           "init_hf_text_params", "hf_text_params_from_state_dict"]
 
 # the reference's hf_configs.py arch_dict: default pooler, pad id and eps
 _ARCH = {
@@ -66,6 +65,28 @@ class HFTextConfig:
                           intermediate_size=self.intermediate_size,
                           max_position_embeddings=self.max_position_embeddings,
                           layer_norm_eps=self.layer_norm_eps)
+
+
+class HFTextTower(nn.Module):
+    """The tree of ``init_hf_text_params``, its leaves uninitialised: the
+    BERT stack under ``transformer``, ``pooler`` for 'cls_pooler', ``proj``
+    by ``proj_type``. A checkpoint's tree, whose shapes may differ (RoBERTa's
+    one token type), loads through ``module_from_tree`` instead."""
+
+    def __init__(self, cfg: HFTextConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.transformer = BertEncoder(cfg.bert)
+        if cfg.pooler_type == "cls_pooler":
+            self.pooler = nn.Module()
+            self.pooler.w, self.pooler.b = _p(h, h), _p(h)
+        if cfg.proj_type == "linear":
+            self.proj = nn.Module()
+            self.proj.w = _p(cfg.output_dim, h)
+        elif cfg.proj_type == "mlp":
+            mid = (h + cfg.output_dim) // 2
+            self.proj = nn.Module()
+            self.proj.w0, self.proj.w1 = _p(mid, h), _p(cfg.output_dim, mid)
 
 
 def hf_text_config(model_name: str, output_dim: int,

@@ -15,7 +15,7 @@ from typing import List, Union
 
 import numpy as np
 
-__all__ = ["WordPieceTokenizer"]
+__all__ = ["WordPieceTokenizer", "write_synthetic_vocab"]
 
 
 def _is_punct(ch: str) -> bool:
@@ -147,3 +147,15 @@ class WordPieceTokenizer:
             ids[i, : len(seq)] = seq
             mask[i, : len(seq)] = 1
         return {"input_ids": ids, "attention_mask": mask}
+
+
+def write_synthetic_vocab(path: str, size: int = 30522) -> str:
+    """A ``vocab.txt`` of ``size`` entries for runs on random weights, where
+    no vocabulary file is at hand: the special tokens, "a", "picture", "of",
+    then "w0", "w1", ... With bert-base-uncased's 30522 the tokenizer's
+    [DEC] and [ENC] take ids 30522 and 30523 (BLIP's 30524-token decoder)."""
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "picture", "of"]
+    words += [f"w{i}" for i in range(size - len(words))]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(words))
+    return path

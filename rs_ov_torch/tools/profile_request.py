@@ -3,7 +3,7 @@
     python3 -m rs_ov_torch.tools.profile_request [--requests 3] [--fused-attn]
         [--route default|fp32-channel-first|bf16-channel-first]
         [--clip-type CLIP] [--vit-type ViT-B/16] [--gem] [--upsampler NAME]
-        [--encode-image ARCH [--batch 64]]
+        [--encode-image ARCH [--batch 64]] [--generate blip-caption|coca]
         [--out work_dirs/profile_request.json]
 
 Builds ``SegmentorEx`` from ``configs/base_config.py`` (CLIP ViT-B/16 at full
@@ -28,7 +28,13 @@ alternate, ``resize_conv``, ``ifa``, ``carafe``, ``sapa``). With
 ``--encode-image ARCH`` it profiles ``create_model(ARCH)``'s
 ``encode_image`` on ``--batch`` random images at the arch's image size
 instead (a timm tower too, e.g. ``convnext_large_d``; one call a "request";
-the route's precision, bf16 unless ``fp32-channel-first``).
+the route's precision, bf16 unless ``fp32-channel-first``). With
+``--generate`` one "request" is one generate call on one image, in the
+route's precision: ``blip-caption`` BLIP base's caption decoder at 384²
+(beam 3, max_length 30, min_length 10, a synthetic 30522-entry vocabulary),
+``coca`` ``create_model("coca_ViT-L-14")`` at 224² (beam search, 6 beams,
+seq_len 30); random weights from seed 0. Its busy share is the decode
+loop's: each step ends with the logits copied to the host for the beam.
 """
 
 from __future__ import annotations
@@ -72,6 +78,32 @@ def _group(name: str) -> str:
     return "other"
 
 
+def _generate_run(which: str, dtype: torch.dtype):
+    """One generate call on one random image, on the card in ``dtype``."""
+    rng = np.random.RandomState(1)
+    if which == "coca":
+        from rs_ov_torch.factory import create_model
+
+        model = create_model("coca_ViT-L-14", precision="fp32" if dtype == torch.float32
+                             else "bf16")
+        image = rng.randn(1, 3, 224, 224).astype(np.float32)
+        return lambda: model.generate(image, generation_type="beam_search", num_beams=6,
+                                      seq_len=30)
+    import tempfile
+
+    from rs_ov_torch.nn.blip import BlipConfig
+    from rs_ov_torch.nn.blip_lm import generate_captions, init_blip_decoder_params
+    from rs_ov_torch.text.wordpiece import WordPieceTokenizer, write_synthetic_vocab
+
+    cfg = BlipConfig.base(384)
+    params = init_blip_decoder_params(torch.Generator().manual_seed(0), cfg).to("cuda", dtype)
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = WordPieceTokenizer(write_synthetic_vocab(f"{tmp}/vocab.txt"))
+    image = rng.randn(1, 3, 384, 384).astype(np.float32)
+    return lambda: generate_captions(params, image, cfg, tok, num_beams=3, max_length=30,
+                                     min_length=10)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
@@ -83,6 +115,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--upsampler", default=None)
     ap.add_argument("--encode-image", default=None, metavar="ARCH")
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--generate", choices=("blip-caption", "coca"), default=None)
     ap.add_argument("--out", default=os.path.join("work_dirs", "profile_request.json"))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,7 +131,10 @@ def main(argv=None) -> dict:
         os.environ["RS_OV_FUSED_ATTN"] = "1"
     if opts.route == "bf16-channel-first":
         os.environ["RS_OV_JBU_FUSED"] = "0"
-    if opts.encode_image:
+    dtype = torch.float32 if opts.route == "fp32-channel-first" else torch.bfloat16
+    if opts.generate:
+        run = _generate_run(opts.generate, dtype)
+    elif opts.encode_image:
         from rs_ov_torch.factory import create_model
 
         model = create_model(opts.encode_image, precision="fp32" if opts.route ==
@@ -153,7 +189,8 @@ def main(argv=None) -> dict:
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
     fused_range = os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
-    tower = (f"{opts.encode_image} encode_image, batch {opts.batch}" if opts.encode_image else
+    tower = (f"{opts.generate} generate, one image" if opts.generate else
+             f"{opts.encode_image} encode_image, batch {opts.batch}" if opts.encode_image else
              f"{opts.clip_type} {opts.vit_type}{' GEM' if opts.gem else ''}"
              f"{' ' + opts.upsampler if opts.upsampler else ''}")
     result = {"card": card, "requests": n, "route": opts.route, "fused_attn": opts.fused_attn,
@@ -165,7 +202,8 @@ def main(argv=None) -> dict:
               "kernels": dict(sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1]["ms_per_request"])[:40])}
     print(card)
-    what = "calls" if opts.encode_image else "requests of one 512x512 image (16 crops of 224²)"
+    what = "calls" if opts.encode_image or opts.generate else \
+        "requests of one 512x512 image (16 crops of 224²)"
     print(f"[profile] {tower}: {n} {what}, "
           f"route {opts.route}{', K6 on' if opts.fused_attn else ''}"
           f"{', RS_OV_JBU_FUSED_RANGE=1' if fused_range else ''}: wall "

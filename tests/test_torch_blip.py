@@ -198,10 +198,42 @@ def test_blip_params_from_state_dict_matches_jax():
 
 
 def test_nlvr_twin_checkpoint_is_refused():
-    sd = _state_dict(9, cross=False)
-    sd["text_encoder.encoder.layer.0.crossattention.self0.query.weight"] = np.zeros((16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        blip.bert_params_from_state_dict(sd, "text_encoder")
+    """The NLVR twin cross-attention (self0 / self1, dense0 / dense1,
+    merge_layer), no longer refused: the checkpoint's text tower loads into
+    the tree the JAX loader makes (layer 0 averaging, layer 1 merging)."""
+    sd = _state_dict(9, cross=True)
+    rng = np.random.RandomState(10)
+    for i in range(TEXT["num_layers"]):
+        pre = f"text_encoder.encoder.layer.{i}.crossattention"
+        for s in (0, 1):
+            for proj in ("query", "key", "value"):
+                for kind in ("weight", "bias"):
+                    sd[f"{pre}.self{s}.{proj}.{kind}"] = sd[f"{pre}.self.{proj}.{kind}"] + \
+                        rng.randn(*sd[f"{pre}.self.{proj}.{kind}"].shape).astype(np.float32)
+            for kind in ("weight", "bias"):
+                sd[f"{pre}.output.dense{s}.{kind}"] = sd[f"{pre}.output.dense.{kind}"]
+        if i:
+            sd[f"{pre}.output.merge_layer.weight"] = rng.randn(16, 32).astype(np.float32)
+            sd[f"{pre}.output.merge_layer.bias"] = rng.randn(16).astype(np.float32)
+        for name in [k for k in sd if k.startswith(f"{pre}.self.") or
+                     k.startswith(f"{pre}.output.dense.")]:
+            del sd[name]
+    ours = blip.bert_params_from_state_dict(sd, "text_encoder")
+    want = jax.tree_util.tree_map(np.asarray,
+                                  jax_blip.bert_params_from_state_dict(sd, "text_encoder"))
+    got = {k: v.numpy() for k, v in ours.state_dict().items()}
+    flat = {}
+    for k, v in want["embeddings"].items():
+        flat.update({f"embeddings.{k}.{kk}": vv for kk, vv in v.items()} if isinstance(v, dict)
+                    else {f"embeddings.{k}": v})
+    for i, layer in enumerate(want["layers"]):
+        for k, v in layer.items():
+            flat.update({f"layers.{i}.{k}.{kk}": vv for kk, vv in v.items()}
+                        if isinstance(v, dict) else {f"layers.{i}.{k}": v})
+    assert sorted(got) == sorted(flat)
+    for k in flat:
+        np.testing.assert_array_equal(got[k], flat[k], err_msg=k)
+    assert not hasattr(ours.layers[0], "merge_w") and hasattr(ours.layers[1], "merge_w")
 
 
 def test_blip_slice_matches_jax(weights):

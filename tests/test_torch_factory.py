@@ -119,15 +119,11 @@ def _assert_models_agree(tm, jm, images, ids):
 
 def test_registry_matches_jax():
     """list_models() is the JAX list; every CLIP name resolves to a config
-    equal field for field, '/' spellings included; CoCa names name item 9."""
+    equal field for field, '/' spellings included, CoCa's configs too."""
     assert config.list_models() == jax_config.list_models()
     for name in config.list_models() + ["ViT-B/16", "ViT-L/14-quickgelu"]:
-        if name in config.COCA_MODELS:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                config.get_model_config(name)
-        else:
-            assert dataclasses.asdict(config.get_model_config(name)) == \
-                dataclasses.asdict(jax_config.get_model_config(name)), name
+        assert dataclasses.asdict(config.get_model_config(name)) == \
+            dataclasses.asdict(jax_config.get_model_config(name)), name
     with pytest.raises(KeyError):
         config.get_model_config("ViT-Z-99")
 
@@ -178,16 +174,21 @@ def test_create_model_device_and_precision(tiny_registry, monkeypatch):
 
 
 def test_unported_names_and_losses_name_their_items(tiny_registry, tmp_path, monkeypatch):
-    """CoCa names item 9 and the losses item 10; the timm names of item 8e
-    build (here on the meta device: the random draw is replaced), and a
-    big_vision .npz goes to the SigLIP loader, which names what it misses."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        factory.create_model("coca_ViT-B-32", device="cpu")
-
+    """The losses name item 10; CoCa (item 9, ported) and the timm names of
+    item 8e build (here on the meta device: the random draw is replaced),
+    and a big_vision .npz goes to the SigLIP loader, which names what it
+    misses."""
     def meta_init(gen, cfg):
         with torch.device("meta"):
             return factory.CLIP(cfg)
 
+    def meta_coca(gen, cfg):
+        with torch.device("meta"):
+            return factory.CoCa(cfg)
+
+    monkeypatch.setattr(factory, "init_coca_params", meta_coca)
+    m = factory.create_model("coca_ViT-B-32", device="meta")
+    assert isinstance(m, factory.CoCaModel) and m.cfg == config.get_coca_config("coca_ViT-B-32")
     monkeypatch.setattr(factory, "init_clip_params", meta_init)
     for name in ("ViT-B-16-SigLIP", "convnext_base", "EVA02-B-16"):
         m = factory.create_model(name, device="meta")

@@ -134,12 +134,9 @@ def test_config_copy_matches_the_jax_package(name):
     from rs_ov_torch.core.config import COCA_MODELS, get_model_config, list_models
 
     assert dataclasses.asdict(get_model_config(name)) == dataclasses.asdict(jax_cfg(name))
-    for n in list_models():  # every entry the port lists has the JAX numbers
-        if n in COCA_MODELS:  # CoCa's configs are its module's (queue 1 item 9)
-            with pytest.raises(NotImplementedError, match="item 9"):
-                get_model_config(n)
-            continue
-        assert dataclasses.asdict(get_model_config(n)) == dataclasses.asdict(jax_cfg(n))
+    for n in list_models():  # every entry the port lists has the JAX numbers, CoCa's too
+        assert dataclasses.asdict(get_model_config(n)) == dataclasses.asdict(jax_cfg(n)), n
+    assert set(COCA_MODELS) <= set(list_models())
     ours = get_model_config(name)
     assert (ours.vision.heads, ours.vision.grid_size) == (jax_cfg(name).vision.heads,
                                                           jax_cfg(name).vision.grid_size)

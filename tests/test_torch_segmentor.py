@@ -132,16 +132,24 @@ ITEM_8D_OPTIONS = [
         CFG.text, embed_cls=True))),
 ])
 def test_options_outside_the_slice_raise(weights, option):
-    """What ROADMAP queue 1 item 9 holds: the HF text tower, CoCa's
-    attentional pool and text CLS; and a timm tower, which the segmentor
-    refuses on purpose (its hooks are the CLIP ViT's; ROADMAP queue 3).
+    """A timm tower, which the segmentor refuses on purpose (its hooks are
+    the CLIP ViT's; ROADMAP queue 3), raises. CoCa's fields (the HF text
+    tower, the attentional pool, the text CLS; item 9, ported into
+    ``nn.coca``) do not change the CLIP tree, which both packages build as
+    without them: the port's probabilities equal the JAX package's (2e-3).
     Item 8d's options build since it was ported: test_item_8d_options_build."""
     kw = _kwargs(weights, 2)
     kw.update(option)
-    timm = option["clip_config"].vision.timm_model_name
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 3" if timm else "ROADMAP queue 1 item 9"):
-        SegmentorEx(**kw, device="cpu")
+    if option["clip_config"].vision.timm_model_name:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+            SegmentorEx(**kw, device="cpu")
+        return
+    kw["apply_sim_feat_up"] = False
+    img = np.random.RandomState(5).randint(0, 256, (1, 64, 64, 3), np.uint8)
+    want = JaxSegmentorEx(**kw).predict_raw(img)[0]
+    got = SegmentorEx(**kw, device="cpu").predict_raw(img)[0]
+    np.testing.assert_allclose(got["seg_logits"].numpy(), np.asarray(want["seg_logits"]),
+                               atol=2e-3, rtol=0)
 
 
 @pytest.mark.parametrize("option", ITEM_8D_OPTIONS,

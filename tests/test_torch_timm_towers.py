@@ -314,18 +314,23 @@ def test_registry_towers_have_the_jax_shapes(name):
 
 
 def test_every_registry_name_builds_through_create_model(monkeypatch):
-    """All 56 CLIP names (all but the 4 CoCa ones) build through
-    create_model; the random draw is replaced by a meta-device build, so
-    EVA02-E-14's 4.4 B parameters take no memory."""
+    """All 60 names build through create_model: the 56 CLIP ones as CLIP
+    models, the 4 CoCa ones as CoCa models; the random draw is replaced by
+    a meta-device build, so EVA02-E-14's 4.4 B parameters take no memory."""
     def meta_init(gen, cfg):
         with torch.device("meta"):
             return CLIP(cfg)
 
+    def meta_coca(gen, cfg):
+        with torch.device("meta"):
+            return factory.CoCa(cfg)
+
     monkeypatch.setattr(factory, "init_clip_params", meta_init)
+    monkeypatch.setattr(factory, "init_coca_params", meta_coca)
     for name in config.list_models():
         if name in config.COCA_MODELS:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                factory.create_model(name, device="meta")
+            m = factory.create_model(name, device="meta")
+            assert isinstance(m, factory.CoCaModel) and m.cfg == config.get_model_config(name)
             continue
         m = factory.create_model(name, device="meta")
         assert hasattr(m.clip.visual, "trunk") == bool(m.cfg.vision.timm_model_name), name

@@ -200,18 +200,20 @@ def test_vit_m_16_alt_builds_and_matches_jax():
 
 
 def test_unported_towers_name_their_item():
-    """The HF text tower (CoCa's alone), CoCa's attentional pool and text CLS
-    name ROADMAP queue 1 item 9; the timm towers of item 8e build (on the
-    meta device here) since it was ported."""
+    """Item 9 is ported: the CLIP tree takes CoCa's fields (the HF text
+    tower, the attentional pool, the text CLS) as the JAX package's
+    init_clip_params does, ignoring them (CoCa itself is
+    ``core.params.CoCa``): the tree of the config without them; the timm
+    towers of item 8e build (on the meta device here) since it was ported."""
     base = get_model_config("ViT-B-16")
-    for cfg in (dataclasses.replace(base, text=dataclasses.replace(
-                    base.text, hf_model_name="roberta-base")),
-                dataclasses.replace(base, vision=dataclasses.replace(
-                    base.vision, attentional_pool=True)),
-                dataclasses.replace(base, text=dataclasses.replace(
-                    base.text, embed_cls=True))):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            CLIP(cfg)
     with torch.device("meta"):
+        plain = {k: tuple(v.shape) for k, v in CLIP(base).named_parameters()}
+        for cfg in (dataclasses.replace(base, text=dataclasses.replace(
+                        base.text, hf_model_name="roberta-base")),
+                    dataclasses.replace(base, vision=dataclasses.replace(
+                        base.vision, attentional_pool=True)),
+                    dataclasses.replace(base, text=dataclasses.replace(
+                        base.text, embed_cls=True))):
+            assert {k: tuple(v.shape) for k, v in CLIP(cfg).named_parameters()} == plain
         for name in ("ViT-B-16-SigLIP", "convnext_base", "EVA02-B-16"):
             assert hasattr(CLIP(get_model_config(name)).visual, "trunk"), name

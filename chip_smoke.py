@@ -167,6 +167,27 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 against fp32 (GEN_COS); the golden on the card. Prints
                 captions/s with each decode step's CUDA-event span and host
                 ms, VQA questions/s and ITM pairs/s. No kernel is launched.
+ 10. train    - training (rs_ov_torch.train) at full width on drawn weights:
+                CLIP ViT-B/16 (224², context 77), BLIP base (224², queue
+                57600), coca_ViT-B-32. Gates, each number printed beside its
+                limit: (a) one step at batch 8, remat on, card fp32 against
+                CPU fp32 (loss, per-leaf-group gradient max|d|/max|ref| <=
+                TRAIN_TOL); (b) remat on against off (REMAT_TOL); (c)
+                accum_steps 4 against 1 on one batch of 32 (ACCUM_TOL); (d)
+                bf16 against fp32 (per-group gradient cosine >= TRAIN_COS,
+                loss within TRAIN_LOSS_REL); (e) one bf16 step each of SigLIP,
+                CoCa, BLIP retrieval and pretrain (ptr advanced by B, the EMA
+                equal to its formula, the queue's new columns equal to the
+                momentum features), caption, VQA and NLVR, and BLIP retrieval
+                at batch 2 card fp32 against CPU fp32; (f) a single-rank NCCL
+                group (file:// store): the data-parallel step against the
+                plain one. Planted faults, each failing its gate: the scale
+                path live at every micro-step (c), matmul32's backward with
+                the right operand's gradient zeroed (d), the EMA after the
+                momentum forward (e). Rates (no gate): pairs/s and peak memory
+                of the ViT-B/16 step in bf16 and fp32 at batch 256, its model
+                FLOPs against the bf16 / fp32 peaks, BLIP retrieval
+                examples/s at batch 32. No kernel is launched.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2962,6 +2983,470 @@ def phase_generate():
     print(f"[generate] phase 9 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training (ROADMAP queue 1 item 10a)
+# ---------------------------------------------------------------------------
+# Gates, each on a leaf group's gradient (visual / text blocks, the rest of
+# each tower, logit_scale; BLIP: its top-level modules):
+# (a) one ViT-B/16 step, card fp32 against CPU fp32, batch 8, remat on:
+#     loss and per-group max|d|/max|ref| <= TRAIN_TOL;
+# (b) remat on against off on the card: <= REMAT_TOL;
+# (c) accum_steps 4 against 1 on one batch of 32: <= ACCUM_TOL; planted
+#     fault: the scale path live at every micro-step;
+# (d) bf16 against fp32 on the card: per-group cosine >= TRAIN_COS, the loss
+#     within TRAIN_LOSS_REL; planted fault: matmul32's backward with the
+#     right operand's gradient zeroed;
+# (e) SigLIP, CoCa, BLIP retrieval / pretrain, caption / VQA / NLVR: one step
+#     each at full width in bf16, finite; BLIP retrieval and pretrain: ptr
+#     advanced by B, the EMA equal to its formula (<= EMA_TOL), the queue's
+#     new columns equal to the new momentum copies' features (<= QUEUE_TOL);
+#     planted fault: the EMA after the momentum forward; BLIP retrieval at
+#     batch 2 card fp32 against CPU fp32 (argmax negatives) <= TRAIN_TOL;
+# (f) a single-rank NCCL group (file:// store): the data-parallel step
+#     against the plain one on the card, <= DP_TOL.
+TRAIN_TOL, REMAT_TOL, ACCUM_TOL, DP_TOL = 1e-4, 1e-6, 1e-4, 1e-6
+TRAIN_COS, TRAIN_LOSS_REL, EMA_TOL, QUEUE_TOL = 0.99, 1e-2, 1e-6, 1e-5
+TRAIN_BATCH, ACCUM_BATCH, RATE_BATCH, BLIP_RATE_BATCH = 8, 32, 256, 32
+TRAIN_QUEUE, RATE_STEPS = 57600, 3
+
+
+def _train_clip_cfg():
+    from rs_ov_torch.core.config import get_model_config
+
+    return get_model_config("ViT-B-16")
+
+
+def _train_coca_cfg():
+    from rs_ov_torch.core.config import get_coca_config
+
+    return get_coca_config("coca_ViT-B-32")
+
+
+def _train_blip_cfg():
+    from rs_ov_torch.nn.blip import BlipConfig
+
+    return BlipConfig.base(224)
+
+
+def _clip_batch(cfg, b, seed):
+    """Seeded images and token ids, each row's eot the highest id."""
+    rng = np.random.RandomState(seed)
+    s, ctx, vocab = cfg.vision.image_size, cfg.text.context_length, cfg.text.vocab_size
+    images = rng.randn(b, 3, s, s).astype(np.float32)
+    texts = rng.randint(1, vocab - 1, size=(b, ctx)).astype(np.int64)
+    ends = rng.randint(4, ctx, size=b)
+    texts[np.arange(b), ends] = vocab - 1
+    texts[np.arange(ctx)[None] > ends[:, None]] = 0
+    return images, texts
+
+
+def _group(name):
+    head = name.split(".")[0]
+    return f"{head}.blocks" if ".blocks." in name or ".layers." in name else head
+
+
+def _grad_groups(module):
+    out = {}
+    for n, p in module.named_parameters():
+        if p.requires_grad:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            out.setdefault(_group(n), []).append(g.detach().float().reshape(-1).cpu())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def _errs(got, ref):
+    return {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
+            for k in ref}
+
+
+def _coss(got, ref):
+    """Cosines summed in float64 (fp32 sums over ~1e8 products drift past 1)."""
+    return {k: float(torch.nn.functional.cosine_similarity(got[k].double(), ref[k].double(),
+                                                           dim=0)) for k in ref}
+
+
+def _fmt(d):
+    return ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+
+
+def _clip_params(cfg, seed, bias=False):
+    """CPU fp32 trainable CLIP with every leaf drawn anew (``_redraw_module``)."""
+    from rs_ov_torch.core.params import init_clip_params
+
+    m = init_clip_params(torch.Generator().manual_seed(seed), cfg)
+    if bias:
+        m.logit_bias = torch.nn.Parameter(torch.tensor(-10.0), requires_grad=False)
+    return _redraw_module(m, seed).requires_grad_()
+
+
+def _clip_grads(params, cfg, images, texts, **kw):
+    from rs_ov_torch.train import step
+
+    fn, _ = step.make_clip_train_step(cfg, **kw)
+    for p in params.parameters():
+        p.grad = None
+    loss = float(fn.backward(params, images, texts))
+    return loss, _grad_groups(params)
+
+
+def _gate(label, value, limit, above=False):
+    ok = value >= limit if above else value <= limit
+    print(f"[train] {label}: {value:.6e} (limit {'>=' if above else '<='} {limit})")
+    assert ok, (label, value, limit)
+
+
+def _fault(label, value, limit, above=False):
+    failed = value < limit if above else value > limit
+    print(f"[train] planted fault, {label}: {value:.6e} (must fail the limit "
+          f"{'>=' if above else '<='} {limit}: {'fails' if failed else 'PASSES'})")
+    assert failed, (label, "the gate does not see the fault", value)
+
+
+def _clip_gates():
+    """Gates (a)-(d) and (f) on ViT-B/16; returns the card fp32 grads of (a)."""
+    import copy
+
+    from rs_ov_torch.nn import layers
+    from rs_ov_torch.train import step
+
+    cfg = _train_clip_cfg()
+    cpu = _clip_params(cfg, 21)
+    card = copy.deepcopy(cpu).to(DEV)
+    images, texts = _clip_batch(cfg, TRAIN_BATCH, 22)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = _clip_grads(cpu, cfg, images, texts)
+    cpu_s = time.perf_counter() - t0
+    l32, g32 = _clip_grads(card, cfg, images, texts)
+    _gate(f"(a) card fp32 vs CPU fp32 loss ({l32:.6f} / {l_cpu:.6f}), relative",
+          abs(l32 - l_cpu) / abs(l_cpu), TRAIN_TOL)
+    errs = _errs(g32, g_cpu)
+    print(f"[train] (a) per-group max|d|/max|ref|: {_fmt(errs)} (CPU step {cpu_s:.1f} s)")
+    _gate("(a) worst group", max(errs.values()), TRAIN_TOL)
+    _, g_off = _clip_grads(card, cfg, images, texts, remat=False)
+    errs = _errs(g_off, g32)
+    print(f"[train] (b) remat off vs on: {_fmt(errs)}")
+    _gate("(b) worst group", max(errs.values()), REMAT_TOL)
+
+    big_i, big_t = _clip_batch(cfg, ACCUM_BATCH, 23)
+    l1, g1 = _clip_grads(card, cfg, big_i, big_t)
+    l4, g4 = _clip_grads(card, cfg, big_i, big_t, accum_steps=4)
+    errs = _errs(g4, g1)
+    print(f"[train] (c) accum 4 vs 1 at batch {ACCUM_BATCH} (losses {l4:.6f} / {l1:.6f}): "
+          f"{_fmt(errs)}")
+    _gate("(c) loss, relative", abs(l4 - l1) / abs(l1), ACCUM_TOL)
+    _gate("(c) worst group", max(errs.values()), ACCUM_TOL)
+    with _patched(step, "_scale_live", lambda i: True):
+        _, gf = _clip_grads(card, cfg, big_i, big_t, accum_steps=4)
+    _fault("(c) the scale path live at every micro-step, worst group",
+           max(_errs(gf, g1).values()), ACCUM_TOL)
+
+    l16, g16 = _clip_grads(card, cfg, images, texts, compute_dtype=torch.bfloat16)
+    coss = _coss(g16, g32)
+    print(f"[train] (d) bf16 vs fp32 on the card, per-group cosine: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in coss.items())
+          + " (the backward's products: bf16 cotangent x bf16 operand on the tensor cores, "
+            "fp32 sums, cast to the operand's dtype)")
+    _gate(f"(d) loss ({l16:.6f} / {l32:.6f}), relative", abs(l16 - l32) / abs(l32),
+          TRAIN_LOSS_REL)
+    _gate("(d) least group cosine", min(coss.values()), TRAIN_COS, above=True)
+
+    def right_zeroed(a, b, g, need_a, need_b):
+        ga, gb = real(a, b, g, need_a, need_b)
+        return ga, None if gb is None else torch.zeros_like(gb)
+
+    real = layers._matmul32_grads
+    with _patched(layers, "_matmul32_grads", right_zeroed):
+        _, gf = _clip_grads(card, cfg, images, texts, compute_dtype=torch.bfloat16)
+    _fault("(d) matmul32's right-operand gradient zeroed, least group cosine",
+           min(_coss(gf, g32).values()), TRAIN_COS, above=True)
+
+    from rs_ov_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", world_size=1, rank=0, device=DEV)
+        try:
+            mesh = make_mesh(1, 1, device_type=DEV.type)
+            ld, gd = _clip_grads(card, cfg, images, texts, mesh=mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    errs = _errs(gd, g32)
+    print(f"[train] (f) one-rank {'NCCL' if DEV.type == 'cuda' else 'gloo'} data-parallel "
+          f"step vs plain: loss {ld:.6f} / {l32:.6f}, {_fmt(errs)}")
+    _gate("(f) worst group", max(errs.values()), DP_TOL)
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def _finite(label, losses, module):
+    vals = [float(x) for x in (losses if isinstance(losses, (tuple, list)) else [losses])]
+    grads = all(bool(torch.isfinite(p).all()) for p in module.parameters())
+    print(f"[train] (e) {label}: losses {', '.join(f'{v:.4f}' for v in vals)}; leaves finite "
+          f"after the update {grads}")
+    assert all(np.isfinite(vals)) and grads, label
+
+
+def _other_clip_steps():
+    """(e): SigLIP on ViT-B/16 and the CoCa step, one bf16 step each."""
+    from rs_ov_torch.core.params import init_coca_params
+    from rs_ov_torch.train import step
+
+    cfg = _train_clip_cfg()
+    params = _clip_params(cfg, 24, bias=True).to(DEV)
+    fn, init = step.make_clip_train_step(cfg, compute_dtype=torch.bfloat16, loss="siglip")
+    images, texts = _clip_batch(cfg, TRAIN_BATCH, 25)
+    _, _, loss = fn(params, init(params), images, texts)
+    _finite("SigLIP ViT-B/16 step", loss, params)
+    del params
+    ccfg = _train_coca_cfg()
+    coca = _redraw_module(init_coca_params(torch.Generator().manual_seed(26), ccfg),
+                          26).requires_grad_().to(DEV)
+    fn, init = step.make_coca_train_step(ccfg, compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(27)
+    images = rng.randn(TRAIN_BATCH, 3, ccfg.vision.image_size,
+                       ccfg.vision.image_size).astype(np.float32)
+    texts = rng.randint(1, ccfg.text.vocab_size, (TRAIN_BATCH, ccfg.text.context_length))
+    _, _, parts = fn(coca, init(coca), images, texts)
+    _finite("CoCa coca_ViT-B-32 step (contrastive, caption)", parts, coca)
+    del coca
+    torch.cuda.empty_cache()
+
+
+def _blip_batch(cfg, b, seed, ln=30):
+    rng = np.random.RandomState(seed)
+    s = cfg.vision.image_size
+    ids = rng.randint(4, cfg.text.vocab_size - 2, size=(b, ln)).astype(np.int64)
+    mask = np.ones((b, ln), np.int64)
+    mask[0, ln // 2:] = 0
+    ids[0, ln // 2:] = 0
+    return (rng.randn(b, 3, s, s).astype(np.float32), ids, mask,
+            np.arange(b, dtype=np.int64) // 2)  # pairs of one image id
+
+
+def _blip_tokens(cfg, pretrain):
+    """[ENC] and [DEC]: the vocabulary's last two ids (30523, 30522 in BLIP's)."""
+    v = cfg.text.vocab_size
+    return {"enc_token_id": v - 1, **({"bos_token_id": v - 2} if pretrain else {})}
+
+
+def _blip_state(pretrain, seed, queue=None):
+    from rs_ov_torch.train import blip_pretrain, blip_retrieval
+
+    cfg = _train_blip_cfg()
+    init = (blip_pretrain.init_blip_pretrain_state if pretrain
+            else blip_retrieval.init_blip_retrieval_state)
+    state = init(torch.Generator().manual_seed(seed), cfg, queue_size=queue or TRAIN_QUEUE)
+    _redraw_module(state["params"], seed)
+    _redraw_module(state["params_m"], seed + 1)  # apart from params, so the EMA moves it
+    return cfg, state
+
+
+def _state_to(state, dev):
+    state["params"].to(dev)
+    state["params_m"].to(dev)
+    state["queue"] = {k: v.to(dev) for k, v in state["queue"].items()}
+    return state
+
+
+def _blip_step_checks(label, pretrain, ema_late=False):
+    """One bf16 step: ptr advanced by B, the EMA equal to its formula, the
+    new queue columns equal to the new momentum copies' features. With
+    ``ema_late`` the step runs with the EMA applied after it (the fault)."""
+    from rs_ov_torch.core.params import cast_floating
+    from rs_ov_torch.train import blip_pretrain, blip_retrieval
+
+    cfg, state = _blip_state(pretrain, 31)
+    state = _state_to(state, DEV)
+    make = (blip_pretrain.make_blip_pretrain_train_step if pretrain
+            else blip_retrieval.make_blip_retrieval_train_step)
+    fn, init = make(cfg, compute_dtype=torch.bfloat16, **_blip_tokens(cfg, pretrain))
+    opt = init(state["params"])
+    images, ids, mask, idx = _blip_batch(cfg, TRAIN_BATCH, 32)
+    live = dict(state["params"].named_parameters())
+    pairs = [(pm, live[n]) for n, pm in state["params_m"].named_parameters()]
+    with torch.no_grad():
+        want = [(pm.float() * 0.995 + p.float() * 0.005).to(pm.dtype) for pm, p in pairs]
+    ptr0 = int(state["queue"]["ptr"])
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    if ema_late:
+        with _patched(blip_retrieval, "_ema_update", lambda pairs, m: None):
+            _, _, losses = fn(state, opt, images, ids, mask, idx, 0.4, gen)
+        with torch.no_grad():
+            for (pm, _), w in zip(pairs, want):
+                pm.copy_(w)
+    else:
+        _, _, losses = fn(state, opt, images, ids, mask, idx, 0.4, gen)
+    ema = max(float((pm - w).abs().max()) for (pm, _), w in zip(pairs, want))
+    with torch.no_grad():
+        x = torch.as_tensor(images).to(DEV, torch.bfloat16)
+        _, fm, tm = blip_retrieval._encode(cast_floating(state["params_m"], torch.bfloat16), x,
+                                           torch.as_tensor(ids).to(DEV),
+                                           torch.as_tensor(mask).to(DEV), cfg)
+    cols = slice(ptr0, ptr0 + TRAIN_BATCH)
+    queue = max(float((state["queue"]["image"][:, cols] - fm.t()).abs().max()),
+                float((state["queue"]["text"][:, cols] - tm.t()).abs().max()))
+    ptr = int(state["queue"]["ptr"])
+    if not ema_late:
+        _finite(label, losses, state["params"])
+        print(f"[train] (e) {label}: ptr {ptr0} -> {ptr} (B {TRAIN_BATCH})")
+        assert ptr == (ptr0 + TRAIN_BATCH) % TRAIN_QUEUE
+        _gate(f"(e) {label} EMA against its formula, max|d|", ema, EMA_TOL)
+        _gate(f"(e) {label} queue columns against the momentum features, max|d|", queue,
+              QUEUE_TOL)
+    else:
+        _fault(f"(e) {label} with the EMA after the momentum forward, queue columns max|d|",
+               queue, QUEUE_TOL)
+    del state, opt
+    torch.cuda.empty_cache()
+
+
+def _blip_card_vs_cpu():
+    """(e): BLIP retrieval at batch 2, card fp32 against CPU fp32, argmax negatives."""
+    import copy
+
+    from rs_ov_torch.train import blip_retrieval
+
+    cfg, cpu = _blip_state(False, 41)
+    card = _state_to({"params": copy.deepcopy(cpu["params"]),
+                      "params_m": copy.deepcopy(cpu["params_m"]),
+                      "queue": {k: v.clone() for k, v in cpu["queue"].items()}}, DEV)
+    batch = _blip_batch(cfg, 2, 42)
+    batch = (batch[0], batch[1], batch[2], np.asarray([0, 1]))
+    out = {}
+    with _patched(blip_retrieval, "_sample_negatives", lambda logits, gen: logits.argmax(1)):
+        for name, state in (("cpu", cpu), ("card", card)):
+            fn, _ = blip_retrieval.make_blip_retrieval_train_step(cfg,
+                                                                  **_blip_tokens(cfg, False))
+            losses = fn.backward(state, *batch, 0.4, None)
+            out[name] = ([float(x) for x in losses], _grad_groups(state["params"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["card"][0], out["cpu"][0]))
+    errs = _errs(out["card"][1], out["cpu"][1])
+    print(f"[train] (e) BLIP retrieval batch 2, card fp32 vs CPU fp32: losses {out['card'][0]} / "
+          f"{out['cpu'][0]}; {_fmt(errs)}")
+    _gate("(e) BLIP card vs CPU loss, relative", rel, TRAIN_TOL)
+    _gate("(e) BLIP card vs CPU worst group", max(errs.values()), TRAIN_TOL)
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def _blip_lm_steps():
+    """(e): the caption / VQA / NLVR losses, one bf16 step each at full width."""
+    from rs_ov_torch.core.params import cast_floating
+    from rs_ov_torch.nn import blip_lm
+    from rs_ov_torch.train import optim
+
+    cfg = _train_blip_cfg()
+    images, ids, mask, _ = _blip_batch(cfg, TRAIN_BATCH, 51)
+    rng = np.random.RandomState(52)
+    runs = {
+        "caption": (blip_lm.init_blip_decoder_params, lambda p: blip_lm.blip_caption_loss(
+            p, images, ids, mask, cfg)),
+        "VQA": (blip_lm.init_blip_vqa_params, lambda p: blip_lm.blip_vqa_loss(
+            p, images, ids, mask, ids[:, :8], mask[:, :8], np.arange(TRAIN_BATCH),
+            np.ones(TRAIN_BATCH, np.float32), cfg)),
+        "NLVR": (blip_lm.init_blip_nlvr_params, lambda p: blip_lm.blip_nlvr_forward(
+            p, np.concatenate([images, images[::-1]]), ids, mask, cfg,
+            targets=rng.randint(0, 2, TRAIN_BATCH))),
+    }
+    for label, (init, loss_fn) in runs.items():
+        params = _redraw_module(init(torch.Generator().manual_seed(53), cfg),
+                                53).requires_grad_().to(DEV)
+        opt = optim.adamw(1e-5).init(params)
+        loss = loss_fn(cast_floating(params, torch.bfloat16))
+        loss.backward()
+        opt.step()
+        _finite(f"BLIP {label} loss step", loss.detach(), params)
+        del params, opt
+        torch.cuda.empty_cache()
+
+
+def _clip_step_flops(cfg, b):
+    """Model FLOPs of one CLIP step (forward + backward = 3 forwards; the
+    remat recompute not counted): 2 per multiply-add of every product."""
+    def tower(tokens, width, layers, mlp_ratio=4.0):
+        per_token = 2 * (4 * width * width + 2 * mlp_ratio * width * width) + 4 * tokens * width
+        return tokens * layers * per_token
+
+    v, t = cfg.vision, cfg.text
+    n = (v.image_size // v.patch_size) ** 2
+    fwd = (tower(n + 1, v.width, v.layers, v.mlp_ratio) + 2 * n * 3 * v.patch_size ** 2 * v.width
+           + 2 * v.width * cfg.embed_dim
+           + tower(t.context_length, t.width, t.layers, t.mlp_ratio) + 2 * t.width * cfg.embed_dim)
+    return 3 * b * fwd
+
+
+def _train_rates():
+    """pairs/s and peak memory of the ViT-B/16 step (remat on) in bf16 and
+    fp32 at batch RATE_BATCH, its model FLOPs against the card's peaks;
+    BLIP retrieval examples/s at batch BLIP_RATE_BATCH."""
+    from rs_ov_torch.train import blip_retrieval, step
+
+    cfg = _train_clip_cfg()
+    images, texts = _clip_batch(cfg, RATE_BATCH, 61)
+    images, texts = torch.from_numpy(images).to(DEV), torch.from_numpy(texts).to(DEV)
+    flops = _clip_step_flops(cfg, RATE_BATCH)
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (None, FP32_FLOPS)):
+        params = _clip_params(cfg, 62).to(DEV)
+        fn, init = step.make_clip_train_step(cfg, compute_dtype=dtype)
+        opt = init(params)
+        fn(params, opt, images, texts)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(RATE_STEPS):
+            fn(params, opt, images, texts)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / RATE_STEPS
+        name = "bf16" if dtype else "fp32"
+        print(f"[train] rate: ViT-B/16 CLIP step, {name}, batch {RATE_BATCH}, remat on: "
+              f"{RATE_BATCH / dt:.2f} pairs/s ({dt * 1e3:.1f} ms a step, host clock over "
+              f"{RATE_STEPS} steps after a warm-up), max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, model FLOPs "
+              f"{flops / 1e12:.3f} T a step: {flops / dt / 1e12:.1f} TFLOP/s, "
+              f"{flops / dt / peak:.4f} of the {peak / 1e12:.0f} TFLOP/s {name} peak, "
+              f"on {CARD['smi']}")
+        del params, opt
+        torch.cuda.empty_cache()
+    del images, texts
+    bcfg, state = _blip_state(False, 63)
+    state = _state_to(state, DEV)
+    fn, init = blip_retrieval.make_blip_retrieval_train_step(bcfg, compute_dtype=torch.bfloat16,
+                                                             **_blip_tokens(bcfg, False))
+    opt = init(state["params"])
+    batch = [torch.as_tensor(x).to(DEV) for x in _blip_batch(bcfg, BLIP_RATE_BATCH, 64)]
+    gen = torch.Generator(device=DEV).manual_seed(65)
+    fn(state, opt, *batch, 0.4, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(RATE_STEPS):
+        fn(state, opt, *batch, 0.4, gen)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / RATE_STEPS
+    print(f"[train] rate: BLIP base retrieval step, bf16, batch {BLIP_RATE_BATCH}, queue "
+          f"{TRAIN_QUEUE}: {BLIP_RATE_BATCH / dt:.2f} examples/s ({dt * 1e3:.1f} ms a step), "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on "
+          f"{CARD['smi']}")
+    del state, opt
+    torch.cuda.empty_cache()
+
+
+def phase_train():
+    """Training at full width on drawn weights: gates (a)-(f) with their
+    planted faults, then the rates. No kernel is launched."""
+    t0 = time.perf_counter()
+    before = dict(_launches())
+    _clip_gates()
+    _other_clip_steps()
+    _blip_step_checks("BLIP retrieval step", pretrain=False)
+    _blip_step_checks("BLIP retrieval step", pretrain=False, ema_late=True)
+    _blip_step_checks("BLIP pretrain step", pretrain=True)
+    _blip_card_vs_cpu()
+    _blip_lm_steps()
+    _train_rates()
+    assert dict(_launches()) == before, "a kernel launched in the training phase"
+    print(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     phase_device()
     phase_build()
@@ -2971,6 +3456,8 @@ def main():
     phase_entry(rows)
     phase_timm()
     phase_generate()
+    torch.cuda.empty_cache()
+    phase_train()
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,10 @@
 """Reference-named checkpoints -> the port's modules (rs_ov/core/checkpoint.py,
 the open_clip, timm-named ViT and SimFeatUp loaders).
 
+Trees (``save_pytree`` / ``load_pytree``, rs_ov/core/checkpoint.py:36-77)
+are ``.npz`` files with the JAX package's layout: '/'-joined paths, '#i'
+for list indices, so either package reads what the other writes.
+
 The way from a state dict in the reference's names to the port is a pure
 renaming into the JAX package's pytree layout (numpy leaves, torch's (out,
 in) orientation kept), then the strict bridge ``clip_params_from_numpy`` /
@@ -24,12 +28,69 @@ from rs_ov_torch.core.params import (CLIP, JBUOne, JBUStack, clip_params_from_nu
                                      load_numpy_tree)
 from rs_ov_torch.nn.timm_tower import timm_arch
 
-__all__ = ["load_torch_state_dict", "vision_params_from_state_dict",
+__all__ = ["save_pytree", "load_pytree", "tree_to_numpy", "load_torch_state_dict", "vision_params_from_state_dict",
            "text_params_from_state_dict", "clip_params_from_state_dict",
            "infer_clip_config_from_state_dict", "jbu_params_from_state_dict",
            "detect_timm_vision_prefix", "vision_params_from_timm_state_dict",
            "timm_tower_params_from_state_dict", "vision_params_from_big_vision_npz",
            "siglip_params_from_big_vision_npz", "coca_params_from_state_dict"]
+
+
+def tree_to_numpy(tree):
+    """A tree of modules (``ModuleList``s as lists), dicts, lists, tensors
+    and arrays as nested dicts and lists of numpy arrays, on the host; bf16
+    leaves as fp32."""
+    if isinstance(tree, torch.nn.ModuleList):
+        return [tree_to_numpy(m) for m in tree]
+    if isinstance(tree, torch.nn.Module):
+        tree = {**tree._parameters, **tree._buffers, **tree._modules}
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(v) for k, v in tree.items() if v is not None}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(tree)
+
+
+def save_pytree(tree, path: str) -> None:
+    """Save a tree (modules, dicts, lists, tensors, arrays) to ``.npz``."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(f"{prefix}/#{i}", v)
+        else:
+            flat[prefix] = node
+
+    walk("", tree_to_numpy(tree))
+    np.savez(path, **flat)
+
+
+def load_pytree(path: str) -> dict:
+    """Inverse of ``save_pytree``: nested dicts and lists of numpy arrays."""
+    root: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split("/")
+            node = root
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[key]
+
+    def listify(node):
+        if isinstance(node, dict):
+            if node and all(k.startswith("#") for k in node):
+                return [listify(node[f"#{i}"]) for i in range(len(node))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return listify(root)
 
 
 def _np(x) -> np.ndarray:

@@ -8,12 +8,16 @@ pytree is a flatten plus a strict ``load_state_dict``, and the forward code
 reads parameters by the same names as the JAX forward code.
 
 Linear weights keep torch's (out, in) orientation, as in the JAX package.
-Random init draws from an explicit CPU ``torch.Generator`` with the JAX
-package's shapes and scales (rs_ov/core/params.py:53-134); the numbers differ
-from ``jax.random``'s, so tests carry weights across with the bridge.
+The leaves are built frozen, for inference; training switches them on with
+``module.requires_grad_()``. Random init draws from an explicit CPU
+``torch.Generator`` with the JAX package's shapes and scales
+(rs_ov/core/params.py:53-134); the numbers differ from ``jax.random``'s, so
+tests carry weights across with the bridge.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -30,7 +34,9 @@ __all__ = ["LayerNorm", "ResBlock", "VisionTower", "TextTower", "TimmTower", "CL
            "clip_params_from_numpy", "blip_params_from_numpy",
            "blip_decoder_params_from_numpy", "blip_vqa_params_from_numpy",
            "blip_nlvr_params_from_numpy", "coca_params_from_numpy", "jbu_params_from_numpy",
-           "load_numpy_tree", "module_from_tree"]
+           "load_numpy_tree", "module_from_tree", "LeafView", "leaf_view",
+           "cast_floating", "momentum_copy", "blip_retrieval_state_from_numpy",
+           "blip_pretrain_state_from_numpy"]
 
 
 def _p(*shape) -> nn.Parameter:
@@ -688,6 +694,40 @@ def module_from_tree(tree) -> nn.Module:
     return m
 
 
+class LeafView:
+    """An attribute tree of tensors with a module's names: what the
+    functional forwards read (``p.visual.blocks[3].attn.in_proj_w``)."""
+
+    def __repr__(self) -> str:
+        return f"LeafView({', '.join(vars(self))})"
+
+
+def leaf_view(tree, fn=None):
+    """``tree`` (a module, ``ModuleList``, list or ``LeafView``) as a new
+    ``LeafView`` whose every leaf is ``fn(leaf)`` (the leaf itself without
+    ``fn``); lists stay lists. Differentiable: gradients of the view's
+    leaves flow back into the tree's."""
+    if isinstance(tree, (nn.ModuleList, list, tuple)):
+        return [leaf_view(m, fn) for m in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree if fn is None else fn(tree)
+    items = (vars(tree).items() if isinstance(tree, LeafView) else
+             [*tree._parameters.items(), *tree._buffers.items(), *tree._modules.items()])
+    view = LeafView()
+    for name, v in items:
+        if v is not None:
+            setattr(view, name, leaf_view(v, fn))
+    return view
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """rs_ov/core/params.py:137: a compute copy of ``tree`` with every
+    floating leaf cast to ``dtype``, as a ``LeafView``. The cast is a graph
+    op, so the copy's gradients come back into the fp32 masters in their
+    dtype, as through JAX's ``astype``."""
+    return leaf_view(tree, lambda p: p.to(dtype) if p.is_floating_point() else p)
+
+
 def clip_params_from_numpy(tree, cfg: CLIPConfig) -> CLIP:
     """The JAX ``init_clip_params`` pytree (numpy leaves) as a CPU fp32 CLIP:
     LayerScale gammas and the text projection bias where the config has
@@ -756,3 +796,45 @@ def jbu_params_from_numpy(tree, feat_dim: int, guidance_dim: int = 3,
     (``ups``) pytree (numpy leaves) as a CPU fp32 JBUOne / JBUStack."""
     cls = JBUStack if "ups" in tree else JBUOne
     return load_numpy_tree(cls(feat_dim, guidance_dim, key_dim), tree)
+
+
+def momentum_copy(params: nn.Module) -> nn.Module:
+    """Frozen copies (not aliases) of BLIP's four momentum pairs: visual,
+    vision_proj, text and text_proj."""
+    m = nn.Module()
+    for k in ("visual", "vision_proj", "text", "text_proj"):
+        m.add_module(k, copy.deepcopy(getattr(params, k)))
+    return m.requires_grad_(False)
+
+
+def _blip_state(params: nn.Module, tree) -> dict:
+    params_m = load_numpy_tree(momentum_copy(params), tree["params_m"])
+    q = tree["queue"]
+    return {"params": params.requires_grad_(), "params_m": params_m,
+            "queue": {"image": torch.tensor(q["image"], dtype=torch.float32),
+                      "text": torch.tensor(q["text"], dtype=torch.float32),
+                      "idx": torch.tensor(q["idx"], dtype=torch.long),
+                      "ptr": torch.tensor(q["ptr"], dtype=torch.long).reshape(())}}
+
+
+def blip_retrieval_state_from_numpy(tree) -> dict:
+    """The JAX ``init_blip_retrieval_state`` tree (``params``, ``params_m``,
+    ``queue`` with ``ptr``; numpy leaves) as the port's state: CPU fp32
+    modules, the live ones trainable, the queue as CPU tensors."""
+    from rs_ov_torch.nn.blip import blip_from_tree  # nn.blip builds on this module
+
+    return _blip_state(blip_from_tree(tree["params"]), tree)
+
+
+def blip_pretrain_state_from_numpy(tree) -> dict:
+    """The JAX ``init_blip_pretrain_state`` tree: the retrieval state with
+    the decoder's ``dec_self_attn`` layers and ``lm_head`` in ``params``."""
+    from rs_ov_torch.nn.blip import blip_from_tree
+    from rs_ov_torch.nn.blip_lm import add_pretrain_decoder
+
+    p = tree["params"]
+    params = blip_from_tree({k: v for k, v in p.items() if k not in ("dec_self_attn", "lm_head")})
+    word = p["text"]["embeddings"]["word"]
+    load_numpy_tree(add_pretrain_decoder(params, word.shape[1], word.shape[0],
+                                         len(p["dec_self_attn"])), p)
+    return _blip_state(params, tree)

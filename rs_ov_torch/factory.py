@@ -17,7 +17,7 @@ SigLIP, EVA / EVA02, ``nn.timm_tower``) build from random weights, a
 ``visual.trunk.*`` export or, for SigLIP, a big_vision ``.npz``. A CoCa
 name gives a ``CoCaModel`` (``encode_image``, ``encode_text``, ``forward``,
 ``generate``; ``nn.coca``) from random weights or an open_clip CoCa
-checkpoint. The training losses are ROADMAP queue 1 item 10.
+checkpoint. ``create_loss`` picks a loss of ``train.losses``.
 """
 
 from __future__ import annotations
@@ -413,9 +413,20 @@ def create_model_from_pretrained(model_name: str, pretrained=None, precision: st
 
 
 def create_loss(args):
-    """The training losses are not ported yet (ROADMAP queue 1 item 10)."""
-    raise NotImplementedError("the training losses are not ported yet "
-                              "(ROADMAP queue 1 item 10)")
+    """The loss for a training run, by the reference's rules
+    (rs_ov/factory.py:416-430): ``args.distill`` the distillation loss, a
+    'coca' model the CoCa loss, ``args.siglip`` SigLIP, else CLIP's. The
+    functions of ``train.losses`` (a process group in place of rank /
+    world-size plumbing)."""
+    from rs_ov_torch.train import losses
+
+    if getattr(args, "distill", False):
+        return losses.distill_clip_loss
+    if "coca" in getattr(args, "model", "").lower():
+        return losses.coca_loss
+    if getattr(args, "siglip", False):
+        return losses.siglip_loss
+    return losses.clip_loss
 
 
 def get_tokenizer(model_name: str = "", context_length: int | None = None,

@@ -17,8 +17,9 @@ Decoding runs on the KV-cached step (``make_cached_decoder``): per-layer self
 K/V buffers [B, heads, max_length, dh], the cross K/V projected once, a
 ``parent`` gather of every cache row before each step (beam reordering).
 ``use_cache=False`` re-runs the full padded prefix (``make_caption_step``),
-the parity oracle. The training losses are ROADMAP queue 1 item 10; the
-rank path's per-sequence LM score is ``_lm_loss``.
+the parity oracle. The training losses: ``lm_loss`` (the rank path's
+per-sequence score is its ``'none'`` reduction), ``blip_caption_loss``,
+``blip_vqa_loss`` and ``blip_nlvr_forward`` with ``targets``.
 
 The parameters are ``nn.Module``s with the JAX pytree's names
 (``BlipDecoder``: ``visual``, ``text_decoder``, ``lm_head``; ``BlipVQA``
@@ -44,13 +45,14 @@ from rs_ov_torch.nn.blip_vit import BlipVisionTower, blip_vit_forward
 from rs_ov_torch.nn.layers import gelu, layer_norm, linear
 
 __all__ = [
-    "LMHead", "BlipDecoder", "BlipVQA", "BlipNLVR",
+    "LMHead", "DecSelfAttn", "add_pretrain_decoder", "BlipDecoder", "BlipVQA", "BlipNLVR",
     "init_lm_head", "lm_head_from_state_dict", "lm_logits", "add_cross_attention_params",
     "init_blip_decoder_params", "blip_decoder_params_from_state_dict",
     "init_blip_vqa_params", "blip_vqa_params_from_state_dict", "init_blip_itm_params",
     "init_blip_nlvr_params", "blip_nlvr_params_from_state_dict",
     "make_caption_step", "make_cached_decoder", "generate_captions",
     "vqa_rank_answers", "vqa_generate_answers", "nlvr_encode", "blip_nlvr_forward",
+    "IGNORE_INDEX", "lm_loss", "caption_targets", "blip_caption_loss", "blip_vqa_loss",
 ]
 
 IGNORE_INDEX = -100
@@ -68,6 +70,26 @@ class LMHead(nn.Module):
         self.t_ln = LayerNorm(hidden)
         self.dec_w = _p(vocab, hidden)
         self.dec_b = _p(vocab)
+
+
+class DecSelfAttn(nn.Module):
+    """One pretraining decoder layer's own (untied) self-attention."""
+
+    def __init__(self, hidden: int):
+        super().__init__()
+        for name in ("q", "k", "v", "attn_out"):
+            setattr(self, f"{name}_w", _p(hidden, hidden))
+            setattr(self, f"{name}_b", _p(hidden))
+        self.attn_ln = LayerNorm(hidden)
+
+
+def add_pretrain_decoder(params: nn.Module, hidden: int, vocab: int, layers: int) -> nn.Module:
+    """BLIP pretraining's own decoder leaves on a retrieval ``Blip``: each
+    layer's self-attention (``dec_self_attn``) and the LM head; every other
+    decoder leaf is the text encoder's (rs_ov/train/blip_pretrain.py)."""
+    params.dec_self_attn = nn.ModuleList(DecSelfAttn(hidden) for _ in range(layers))
+    params.lm_head = LMHead(hidden, vocab)
+    return params
 
 
 class BlipDecoder(nn.Module):
@@ -269,19 +291,45 @@ def lm_logits(head: LMHead, hidden: torch.Tensor, eps: float = 1e-12) -> torch.T
     return linear(x, head.dec_w, head.dec_b)
 
 
-def _lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-             label_smoothing: float = 0.1) -> torch.Tensor:
-    """The per-sequence shifted, label-smoothed next-token CE with -100
-    ignored (rs_ov/nn/blip_lm.py:108-125, reduction 'none'): the score the
-    VQA rank path takes for each candidate."""
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, reduction: str = "mean",
+            label_smoothing: float = 0.1) -> torch.Tensor:
+    """Shift-by-one, label-smoothed next-token CE with -100 ignored
+    (rs_ov/nn/blip_lm.py:108-125): (1 - eps) nll + eps mean_c(-log p_c);
+    'mean' averages over the kept tokens, 'none' sums per sequence (the
+    score the VQA rank path takes for each candidate)."""
     logits = logits[:, :-1].float()
     labels = labels[:, 1:]
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    per_tok = (1.0 - label_smoothing) * nll + label_smoothing * (-logp).mean(-1)
-    return (per_tok * valid).sum(-1)
+    per_tok = ((1.0 - label_smoothing) * nll + label_smoothing * (-logp).mean(-1)) * valid
+    if reduction == "none":
+        return per_tok.sum(-1)
+    return per_tok.sum() / valid.sum().clamp_min(1)
+
+
+def caption_targets(input_ids: torch.Tensor, pad_token_id: int,
+                    prompt_length: int) -> torch.Tensor:
+    """Decoder targets: pad tokens and the prompt prefix -> -100
+    (rs_ov/nn/blip_lm.py:185-191)."""
+    t = torch.where(input_ids == pad_token_id, IGNORE_INDEX, input_ids)
+    pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+    return torch.where(pos < prompt_length, IGNORE_INDEX, t)
+
+
+def blip_caption_loss(params: BlipDecoder, images, input_ids, attention_mask,
+                      cfg: BlipConfig, pad_token_id: int = 0, prompt_length: int = 4,
+                      reduction: str = "mean") -> torch.Tensor:
+    """The image-conditioned LM loss (rs_ov/nn/blip_lm.py:194-207);
+    input_ids[:, 0] must already be the [DEC] bos token."""
+    input_ids = _as(input_ids, params)
+    image_embeds = blip_vit_forward(params.visual, _as(images, params), cfg.vision)
+    hidden = bert_encode(params.text_decoder, input_ids, _as(attention_mask, params), cfg.text,
+                         encoder_hidden_states=image_embeds, causal=True)
+    logits = lm_logits(params.lm_head, hidden)
+    return lm_loss(logits, caption_targets(input_ids, pad_token_id, prompt_length),
+                   reduction=reduction)
 
 
 # ---------------------------------------------------------------------------
@@ -523,6 +571,25 @@ def _question_states(params: BlipVQA, images, q_ids, q_mask, cfg: BlipConfig):
                        encoder_hidden_states=image_embeds)
 
 
+def blip_vqa_loss(params: BlipVQA, images, q_ids, q_mask, a_ids, a_mask, answer_to_question,
+                  weights, cfg: BlipConfig, pad_token_id: int = 0) -> torch.Tensor:
+    """The VQA training loss (rs_ov/nn/blip_lm.py:506-528): question b's
+    states gathered for each of its answers by ``answer_to_question`` [Na],
+    the per-answer LM loss weighted by ``weights`` [Na], summed over the
+    answers and divided by the number of images. q_ids[:, 0] must be [ENC],
+    a_ids[:, 0] the bos token."""
+    q_mask = _as(q_mask, params)
+    a_ids, a2q = _as(a_ids, params), _as(answer_to_question, params)
+    q_states = _question_states(params, images, q_ids, q_mask, cfg)
+    hidden = bert_encode(params.text_decoder, a_ids, _as(a_mask, params), cfg.text,
+                         encoder_hidden_states=q_states[a2q], encoder_attention_mask=q_mask[a2q],
+                         causal=True)
+    logits = lm_logits(params.lm_head, hidden)
+    targets = torch.where(a_ids == pad_token_id, IGNORE_INDEX, a_ids)
+    per_answer = lm_loss(logits, targets, reduction="none")
+    return (_as(weights, params, torch.float32) * per_answer).sum() / q_states.shape[0]
+
+
 @torch.no_grad()
 def vqa_rank_answers(params: BlipVQA, images, q_ids, q_mask, answer_ids, answer_mask,
                      cfg: BlipConfig, k: int = 128, pad_token_id: int = 0) -> torch.Tensor:
@@ -548,7 +615,7 @@ def vqa_rank_answers(params: BlipVQA, images, q_ids, q_mask, answer_ids, answer_
                          encoder_attention_mask=q_mask.repeat_interleave(k, 0), causal=True)
     logits = lm_logits(params.lm_head, hidden)
     targets = torch.where(cand_ids == pad_token_id, IGNORE_INDEX, cand_ids)
-    logp = -_lm_loss(logits, targets).reshape(nq, k)
+    logp = -lm_loss(logits, targets, reduction="none").reshape(nq, k)
     return torch.gather(topk_ids, 1, logp.argmax(1, keepdim=True))[:, 0]
 
 
@@ -622,16 +689,21 @@ def nlvr_encode(p: BertEncoder, input_ids, attention_mask, emb0: torch.Tensor,
     return x
 
 
-@torch.no_grad()
 def blip_nlvr_forward(params: BlipNLVR, images, input_ids, attention_mask,
-                      cfg: BlipConfig) -> torch.Tensor:
+                      cfg: BlipConfig, targets=None) -> torch.Tensor:
     """images [2B, 3, S, S] (the two scenes stacked), text [B, L] with
-    input_ids[:, 0] = [ENC] -> [B, 2] logits. The training loss is ROADMAP
-    queue 1 item 10."""
-    image_embeds = blip_vit_forward(params.visual, _as(images, params), cfg.vision)
-    input_ids = _as(input_ids, params)
-    b = input_ids.shape[0]
-    hidden = nlvr_encode(params.text_encoder, input_ids, _as(attention_mask, params),
-                         image_embeds[:b], image_embeds[b:], cfg.text)
-    ch = params.cls_head
-    return linear(torch.relu(linear(hidden[:, 0], ch.w1, ch.b1)), ch.w2, ch.b2)
+    input_ids[:, 0] = [ENC] -> [B, 2] logits under ``no_grad``; with
+    ``targets`` [B] the mean cross-entropy, with gradient
+    (rs_ov/nn/blip_lm.py:706-725)."""
+    with torch.set_grad_enabled(targets is not None and torch.is_grad_enabled()):
+        image_embeds = blip_vit_forward(params.visual, _as(images, params), cfg.vision)
+        input_ids = _as(input_ids, params)
+        b = input_ids.shape[0]
+        hidden = nlvr_encode(params.text_encoder, input_ids, _as(attention_mask, params),
+                             image_embeds[:b], image_embeds[b:], cfg.text)
+        ch = params.cls_head
+        logits = linear(torch.relu(linear(hidden[:, 0], ch.w1, ch.b1)), ch.w2, ch.b2)
+        if targets is None:
+            return logits
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, 1, _as(targets, params)[:, None]).mean()

@@ -13,14 +13,8 @@ import torch.nn.functional as F
 __all__ = ["layer_norm", "linear", "matmul32", "gelu", "quick_gelu", "mlp"]
 
 
-def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b (torch.matmul's broadcasting) with fp32 sums and an fp32 result,
-    as the JAX package's ``preferred_element_type=jnp.float32`` products.
-    CUDA bf16 operands go to the tensor cores as they are (``torch.mm`` /
-    ``torch.bmm`` with ``out_dtype=torch.float32``): the products of bf16
-    values are exact in fp32. Other operands are upcast to fp32 first, the
-    only form on the CPU, which has no kernel for ``out_dtype``; fp32
-    products run in full fp32 (TF32 stays off, pipeline/segmentor.py)."""
+def _matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``matmul32``'s product, with no gradient of its own."""
     if a.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"matmul32: no route for {a.device}")
     if not (a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16
@@ -35,6 +29,61 @@ def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                   b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:]),
                   out_dtype=torch.float32)
     return y.reshape(*batch, m, n)
+
+
+def _unbroadcast(g: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """Sum a broadcast gradient back to an operand's ``shape``."""
+    lead = g.dim() - len(shape)
+    if lead:
+        g = g.sum(tuple(range(lead)))
+    dims = tuple(i for i, s in enumerate(shape) if s == 1 and g.shape[i] != 1)
+    return g.sum(dims, keepdim=True) if dims else g
+
+
+def _matmul32_grads(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, need_a: bool,
+                    need_b: bool):
+    """JAX's transpose rule for a dot with ``preferred_element_type=float32``:
+    each operand's gradient is a product of the fp32 cotangent with the other
+    operand, with fp32 sums, summed over broadcast axes and cast to the
+    operand's dtype. On the card's bf16 route the cotangent is rounded to
+    bf16 so that both products run on the bf16 tensor cores (fp32 sums)."""
+    if a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16:
+        g = g.to(torch.bfloat16)
+    ga = gb = None
+    if need_a:
+        ga = _unbroadcast(_matmul32(g, b.transpose(-1, -2)), a.shape).to(a.dtype)
+    if need_b and b.dim() == 2:  # one product over a's leading axes, as the forward
+        gb = _matmul32(a.reshape(-1, a.shape[-1]).t(), g.reshape(-1, g.shape[-1])).to(b.dtype)
+    elif need_b:
+        gb = _unbroadcast(_matmul32(a.transpose(-1, -2), g), b.shape).to(b.dtype)
+    return ga, gb
+
+
+class _Matmul32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _matmul32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return _matmul32_grads(a, b, g, *ctx.needs_input_grad)
+
+
+def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (torch.matmul's broadcasting) with fp32 sums and an fp32 result,
+    as the JAX package's ``preferred_element_type=jnp.float32`` products.
+    CUDA bf16 operands go to the tensor cores as they are (``torch.mm`` /
+    ``torch.bmm`` with ``out_dtype=torch.float32``): the products of bf16
+    values are exact in fp32. Other operands are upcast to fp32 first, the
+    only form on the CPU, which has no kernel for ``out_dtype``; fp32
+    products run in full fp32 (TF32 stays off, pipeline/segmentor.py).
+    Where an operand needs a gradient the product is ``_Matmul32``, whose
+    backward is ``_matmul32_grads`` (2-D operands or more)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Matmul32.apply(a, b)
+    return _matmul32(a, b)
 
 
 def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:

@@ -4,6 +4,7 @@
         [--route default|fp32-channel-first|bf16-channel-first]
         [--clip-type CLIP] [--vit-type ViT-B/16] [--gem] [--upsampler NAME]
         [--encode-image ARCH [--batch 64]] [--generate blip-caption|coca]
+        [--train clip|blip-retrieval [--batch N]]
         [--out work_dirs/profile_request.json]
 
 Builds ``SegmentorEx`` from ``configs/base_config.py`` (CLIP ViT-B/16 at full
@@ -35,6 +36,11 @@ route's precision: ``blip-caption`` BLIP base's caption decoder at 384²
 ``coca`` ``create_model("coca_ViT-L-14")`` at 224² (beam search, 6 beams,
 seq_len 30); random weights from seed 0. Its busy share is the decode
 loop's: each step ends with the logits copied to the host for the beam.
+With ``--train`` one "request" is one training step at ``--batch`` in the
+route's precision (bf16 compute over fp32 masters unless
+``fp32-channel-first``): ``clip`` the ViT-B/16 CLIP step (remat on, AdamW),
+``blip-retrieval`` BLIP base's retrieval step at 224² with its 57600-slot
+queue; random weights from seed 0, random batches.
 """
 
 from __future__ import annotations
@@ -104,6 +110,43 @@ def _generate_run(which: str, dtype: torch.dtype):
                                      min_length=10)
 
 
+def _train_run(which: str, dtype: torch.dtype, batch: int):
+    """One training step at ``batch`` on random data, on the card."""
+    rng = np.random.RandomState(1)
+    gen = torch.Generator().manual_seed(0)
+    compute = None if dtype == torch.float32 else dtype
+    if which == "clip":
+        from rs_ov_torch.core.config import get_model_config
+        from rs_ov_torch.core.params import init_clip_params
+        from rs_ov_torch.train.step import make_clip_train_step
+
+        cfg = get_model_config("ViT-B-16")
+        params = init_clip_params(gen, cfg).requires_grad_().to("cuda")
+        fn, init = make_clip_train_step(cfg, compute_dtype=compute)
+        opt = init(params)
+        size = cfg.vision.image_size
+        images = torch.randn(batch, 3, size, size, generator=gen).to("cuda")
+        texts = torch.from_numpy(rng.randint(1, cfg.text.vocab_size,
+                                             (batch, cfg.text.context_length))).to("cuda")
+        return lambda: fn(params, opt, images, texts)
+    from rs_ov_torch.nn.blip import BlipConfig
+    from rs_ov_torch.train.blip_retrieval import (init_blip_retrieval_state,
+                                                  make_blip_retrieval_train_step)
+
+    cfg = BlipConfig.base(224)
+    state = init_blip_retrieval_state(gen, cfg)
+    state["params"].to("cuda")
+    state["params_m"].to("cuda")
+    state["queue"] = {k: v.to("cuda") for k, v in state["queue"].items()}
+    fn, init = make_blip_retrieval_train_step(cfg, compute_dtype=compute)
+    opt = init(state["params"])
+    images = torch.randn(batch, 3, 224, 224, generator=gen).to("cuda")
+    ids = torch.from_numpy(rng.randint(4, cfg.text.vocab_size - 2, (batch, 30))).to("cuda")
+    idx = torch.arange(batch, device="cuda")
+    sampler = torch.Generator(device="cuda").manual_seed(2)
+    return lambda: fn(state, opt, images, ids, torch.ones_like(ids), idx, 0.4, sampler)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
@@ -116,6 +159,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--encode-image", default=None, metavar="ARCH")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--generate", choices=("blip-caption", "coca"), default=None)
+    ap.add_argument("--train", choices=("clip", "blip-retrieval"), default=None)
     ap.add_argument("--out", default=os.path.join("work_dirs", "profile_request.json"))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -132,7 +176,9 @@ def main(argv=None) -> dict:
     if opts.route == "bf16-channel-first":
         os.environ["RS_OV_JBU_FUSED"] = "0"
     dtype = torch.float32 if opts.route == "fp32-channel-first" else torch.bfloat16
-    if opts.generate:
+    if opts.train:
+        run = _train_run(opts.train, dtype, opts.batch)
+    elif opts.generate:
         run = _generate_run(opts.generate, dtype)
     elif opts.encode_image:
         from rs_ov_torch.factory import create_model
@@ -181,7 +227,8 @@ def main(argv=None) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if not us or evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (not us or evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):  # a span, not a kernel
             continue
         ms = us / 1e3 / n
         per_kernel[evt.key] = {"ms_per_request": ms, "calls_per_request": evt.count / n}
@@ -189,7 +236,8 @@ def main(argv=None) -> dict:
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
     fused_range = os.environ.get("RS_OV_JBU_FUSED_RANGE", "0") == "1"
-    tower = (f"{opts.generate} generate, one image" if opts.generate else
+    tower = (f"{opts.train} train step, batch {opts.batch}" if opts.train else
+             f"{opts.generate} generate, one image" if opts.generate else
              f"{opts.encode_image} encode_image, batch {opts.batch}" if opts.encode_image else
              f"{opts.clip_type} {opts.vit_type}{' GEM' if opts.gem else ''}"
              f"{' ' + opts.upsampler if opts.upsampler else ''}")
@@ -202,7 +250,7 @@ def main(argv=None) -> dict:
               "kernels": dict(sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1]["ms_per_request"])[:40])}
     print(card)
-    what = "calls" if opts.encode_image or opts.generate else \
+    what = "calls" if opts.encode_image or opts.generate or opts.train else \
         "requests of one 512x512 image (16 crops of 224²)"
     print(f"[profile] {tower}: {n} {what}, "
           f"route {opts.route}{', K6 on' if opts.fused_attn else ''}"

@@ -174,7 +174,7 @@ def test_create_model_device_and_precision(tiny_registry, monkeypatch):
 
 
 def test_unported_names_and_losses_name_their_items(tiny_registry, tmp_path, monkeypatch):
-    """The losses name item 10; CoCa (item 9, ported) and the timm names of
+    """The losses dispatch as the JAX factory's; CoCa (item 9, ported) and the timm names of
     item 8e build (here on the meta device: the random draw is replaced),
     and a big_vision .npz goes to the SigLIP loader, which names what it
     misses."""
@@ -197,8 +197,14 @@ def test_unported_names_and_losses_name_their_items(tiny_registry, tmp_path, mon
     np.savez(npz, x=np.zeros(1))
     with pytest.raises(KeyError, match="img/embedding/kernel"):
         factory.create_model("ViT-B-16-SigLIP", str(npz), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        factory.create_loss(None)
+    from types import SimpleNamespace
+
+    from rs_ov_torch.train import losses
+
+    assert factory.create_loss(None) is losses.clip_loss
+    assert factory.create_loss(SimpleNamespace(distill=True)) is losses.distill_clip_loss
+    assert factory.create_loss(SimpleNamespace(model="coca_ViT-B-32")) is losses.coca_loss
+    assert factory.create_loss(SimpleNamespace(siglip=True, model="ViT-B-16")) is losses.siglip_loss
 
 
 def test_registry_tag_resolves_through_the_staged_cache_only(tiny_registry, tmp_path,

@@ -188,6 +188,24 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 of the ViT-B/16 step in bf16 and fp32 at batch 256, its model
                 FLOPs against the bf16 / fp32 peaks, BLIP retrieval
                 examples/s at batch 32. No kernel is launched.
+ 11. serve    - the serving export (rs_ov_torch.pipeline.export) of the base
+                config at 512² (ViT-B/16, Potsdam Q=8, weights drawn from
+                seed 0): export_predict and load_predict on the bf16
+                channel-last route and the fp32 channel-first one (export
+                and load seconds, bytes, nodes); the served program against
+                live predict_raw (probabilities within SERVE_TOL, every
+                label the live run decides equal, K1 / K2 / K3 or K1 / K4b
+                launched as often as live); the artifact loaded in a fresh
+                interpreter that imports only the loader; an artifact
+                exported after one drawn weight was changed must fail that
+                gate; served and live 512² tiles/s in turns. Then
+                SegmentorEx(mesh=make_mesh(1, 1)) on a one-rank NCCL group
+                against the meshless segmentor (predict_raw and
+                predict_batch_raw, MESH_TOL, the same launches; one card
+                holds one rank), and utils.profiling.trace of one live and
+                one served request: each trace names its span, K1's
+                operator and the kernels K1-K3; kernel launches, device ms
+                and host span printed.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -3447,6 +3465,238 @@ def phase_train():
     print(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 11: the serving export, the mesh on one card, the profiler.
+SERVE_TOL = 1e-3  # served probabilities against live (expected 0: the same kernels)
+MESH_TOL = 1e-5   # a one-rank mesh against the meshless segmentor
+# the served program in a fresh interpreter that imports rs_ov_torch's loader
+# alone: its output and launches, and whether the segmentor, jax or rs_ov
+# came in with it
+SERVE_CHILD = """
+import json, sys
+import numpy as np
+from rs_ov_torch.pipeline.export import load_predict
+from rs_ov_torch.kernels import jbu_epilogue as epi
+from rs_ov_torch.kernels.range_logits import range_logits
+path, image, out, device = sys.argv[1:5]
+fn = load_predict(path, device=device)
+res = fn(np.load(image))
+np.savez(out, probs=res["probs"].float().cpu().numpy(), pred=res["pred_sem_seg"].cpu().numpy())
+mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rs_ov")
+              or m == "rs_ov_torch.pipeline.segmentor")
+print(json.dumps({"launches": [range_logits.launches, epi.jbu_epilogue.launches,
+                               epi.jbu_epilogue_classify.launches], "modules": mods}))
+"""
+
+
+def _serve_gate(label, probs, pred, live):
+    """(max|probs - live|, decided agreement, decided share) of a served
+    output against the live one; the gate: the probabilities within
+    SERVE_TOL and every pixel the live run decides (margin >= TAU) given
+    its label."""
+    err = (probs.float() - live["seg_logits"].float()).abs().max().item()
+    _, agree, share = decided_agreement(pred, live["pred_sem_seg"], live["seg_logits"], TAU)
+    ok = err <= SERVE_TOL and agree == 1.0
+    print(f"[serve] {label}: max|probs - live| {err:.3e} (limit {SERVE_TOL}), labels equal on "
+          f"{agree:.6f} of the decided pixels (share {share:.4f}; limit 1.0): "
+          f"{'passes' if ok else 'FAILS'}")
+    return ok
+
+
+def _export_timed(seg, path):
+    from rs_ov_torch.pipeline.export import export_predict, load_predict
+
+    t0 = time.perf_counter()
+    export_predict(seg, (512, 512), path)
+    t1 = time.perf_counter()
+    fn = load_predict(path, device=DEV)
+    t2 = time.perf_counter()
+    return fn, t1 - t0, t2 - t1
+
+
+def _live_and_served(seg, fn, image):
+    """(live result, its launches, served result, its launches), each with
+    every counter at 0 before it."""
+    _reset_launches()
+    live = seg.predict_raw(image[None])[0]
+    torch.cuda.synchronize()
+    live_n = _launches()
+    _reset_launches()
+    served = fn(image)
+    torch.cuda.synchronize()
+    return live, live_n, served, _launches()
+
+
+def _serve_route(label, seg, images, want, tmp, rows):
+    """Export and load ``seg``'s 512² program, then each image live and
+    served: the gate, equal launch counts (``want`` per request), and the
+    tiles/s of both in turns. Returns the loaded program."""
+    path = os.path.join(tmp, label.split()[0] + ".rsovt")
+    fn, export_s, load_s = _export_timed(seg, path)
+    nodes = [str(n.target) for n in fn.program.graph.nodes if n.op == "call_function"]
+    print(f"[serve] {label}: exported in {export_s:.2f} s ({len(nodes)} nodes: "
+          f"{sum(t.startswith('rs_ov.') for t in nodes)} kernel operators, "
+          f"{nodes.count('aten._assert_tensor_metadata.default')} metadata asserts, "
+          f"{sum(t.startswith('aten.to.') for t in nodes)} casts), "
+          f"{os.path.getsize(path)} bytes, loaded in {load_s:.2f} s")
+    want = {k: want.get(k, 0) for k in KERNELS}
+    for i, img in enumerate(images):
+        live, live_n, served, served_n = _live_and_served(seg, fn, img)
+        print(f"[serve] {label} image {i}: launches live {live_n}, served {served_n}")
+        assert live_n == served_n == want, (label, live_n, served_n, want)
+        assert _serve_gate(f"{label} image {i}", served["probs"], served["pred_sem_seg"], live)
+    for k in KERNELS:
+        if want[k]:
+            rows[k].setdefault("launches_by_path", {})[f"served {label}"] = served_n[k]
+    secs = {"live": [], "served": []}
+    for turn in ("live", "served", "served", "live", "live", "served"):
+        t0 = time.perf_counter()
+        (seg.predict_raw(images[0][None]) if turn == "live" else fn(images[0]))
+        torch.cuda.synchronize()
+        secs[turn].append(time.perf_counter() - t0)
+    live_s, served_s = (float(np.median(secs[k])) for k in ("live", "served"))
+    print(f"[serve] {label}: 512² tiles/s live {1 / live_s:.3f}, served {1 / served_s:.3f} "
+          f"(seconds in turns: live {[round(x, 4) for x in secs['live']]}, served "
+          f"{[round(x, 4) for x in secs['served']]}) on {CARD['smi']}")
+    return fn, path
+
+
+def _served_in_a_fresh_process(path, image, live, tmp):
+    """load_predict in a new interpreter: its output against the live one,
+    K1 / K2 / K3 launched as in this process, no segmentor module loaded."""
+    img_path, out = os.path.join(tmp, "image.npy"), os.path.join(tmp, "child.npz")
+    np.save(img_path, image)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", SERVE_CHILD, path, img_path, out, DEV.type],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    info = json.loads(run.stdout.strip().splitlines()[-1])
+    with np.load(out) as f:
+        probs, pred = torch.from_numpy(f["probs"]), torch.from_numpy(f["pred"])
+    print(f"[serve] fresh process: {time.perf_counter() - t0:.2f} s, launches K1 K2 K3 "
+          f"{info['launches']}, modules of the segmentor / jax / rs_ov loaded: "
+          f"{info['modules']}")
+    assert info["modules"] == [] and info["launches"] == [2 * CHUNKS, CHUNKS, CHUNKS], info
+    assert _serve_gate("fresh process", probs, pred, {k: v.cpu() for k, v in live.items()})
+
+
+def _mesh_on_one_card(seg, images):
+    """SegmentorEx(mesh=make_mesh(1, 1)) on a one-rank NCCL group against the
+    meshless segmentor: predict_raw and predict_batch_raw, labels equal,
+    probabilities within MESH_TOL, the same launches."""
+    from rs_ov_torch.parallel.mesh import initialize_distributed, make_mesh
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    batch = np.stack(images)
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", world_size=1, rank=0, device=DEV)
+        try:
+            meshed = SegmentorEx(**_base_model_cfg(), device=DEV, mesh=make_mesh(
+                1, 1, device_type=DEV.type), query_features=seg.query_features.cpu().numpy())
+            for entry in ("predict_raw", "predict_batch_raw"):
+                counts, outs = [], []
+                for s in (seg, meshed):
+                    _reset_launches()
+                    outs.append(getattr(s, entry)(batch[:1] if entry == "predict_raw"
+                                                  else batch))
+                    torch.cuda.synchronize()
+                    counts.append(_launches())
+                err = max((a["seg_logits"].float() - b["seg_logits"].float()).abs().max().item()
+                          for a, b in zip(*outs))
+                same = all(torch.equal(a["pred_sem_seg"], b["pred_sem_seg"])
+                           for a, b in zip(*outs))
+                print(f"[serve] mesh (1, 1) on one NCCL rank, {entry} of {len(outs[0])} "
+                      f"image(s): max|probs - meshless| {err:.3e} (limit {MESH_TOL}), labels "
+                      f"equal {same}, launches {counts[1]} (meshless {counts[0]})")
+                assert err <= MESH_TOL and same and counts[0] == counts[1], entry
+        finally:
+            torch.distributed.destroy_process_group()
+    print("[serve] one card holds one NCCL rank: several ranks are shown by the CPU tests "
+          "(tests/test_torch_segmentor_mesh.py, 2 gloo ranks)")
+
+
+def _profiled_request(seg, fn, image, tmp):
+    """utils.profiling.trace around one annotated live request and one
+    served: each trace file names its span, K1's operator and the kernels
+    K1, K2 and K3; prints each one's kernel launches, their device ms and
+    the span's host ms."""
+    import glob
+
+    from rs_ov_torch.utils.profiling import annotate, trace
+
+    for label, call in (("live", lambda: seg.predict_raw(image[None])),
+                        ("served", lambda: fn(image))):
+        span = f"rs_ov_serve_{label}"
+        logdir = os.path.join(tmp, f"trace_{label}")
+        with trace(logdir):
+            annotate(span)(call)()
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        found = {k: any(k in n for n in names) for k in
+                 (span, "rs_ov::range_logits", "range_logits_kernel", "jbu_epilogue_kernel",
+                  "jbu_classify_kernel")}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        host_ms = max(e.get("dur", 0) for e in events if e.get("name") == span) / 1e3
+        print(f"[serve] trace of one {label} request ({os.path.basename(files[0])}): "
+              f"{len(kernels)} kernel launches, {sum(e['dur'] for e in kernels) / 1e3:.3f} "
+              f"device ms, span {host_ms:.3f} host ms; found {found}")
+        assert all(found.values()), (label, found)
+
+
+@contextlib.contextmanager
+def _one_weight_changed(seg, seed=5):
+    """One drawn weight of the tower (the first block's MLP output
+    projection, which every later block reads) moved by 0.05 x N(0, 1),
+    restored afterwards."""
+    w = seg.clip.visual.blocks[0].mlp.c_proj_w
+    saved = w.detach().clone()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        w += (0.05 * torch.randn(w.shape, generator=g)).to(w.device, w.dtype)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            w.copy_(saved)
+
+
+def phase_serve(rows):
+    """(a) the export on the default and the fp32 channel-first route, a
+    fresh process, a planted fault; (b) a one-rank mesh; (c) a profiled
+    live and served request."""
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    t0 = time.perf_counter()
+    seg = SegmentorEx(**_base_model_cfg(), device=DEV)
+    seg32 = SegmentorEx(**_base_model_cfg(), param_dtype=torch.float32, device=DEV,
+                        query_features=seg.query_features.cpu().numpy())
+    rng = np.random.RandomState(11)
+    images = [rng.randint(0, 256, (512, 512, 3), np.uint8) for _ in range(3)]
+    s = seg.jbu_stages
+    with tempfile.TemporaryDirectory() as tmp:
+        served, path = _serve_route("bf16 channel-last (K1 K2 K3)", seg, images[:2], {
+            "range_logits": s * CHUNKS, "jbu_epilogue": (s - 1) * CHUNKS,
+            "jbu_epilogue_classify": CHUNKS}, tmp, rows)
+        live = seg.predict_raw(images[0][None])[0]
+        _served_in_a_fresh_process(path, images[0], live, tmp)
+        _serve_route("fp32 channel-first (K1 K4b)", seg32, images[:1], {
+            "range_logits": s * CHUNKS, "adaptive_conv_f32": s * CHUNKS}, tmp, rows)
+        del seg32
+        torch.cuda.empty_cache()
+        with _one_weight_changed(seg):
+            fault, _, _ = _export_timed(seg, os.path.join(tmp, "fault.rsovt"))
+        out = fault(images[0])
+        failed = not _serve_gate("planted fault (an artifact exported after one drawn weight "
+                                 "was changed)", out["probs"], out["pred_sem_seg"], live)
+        assert failed, "the served gate does not see the changed weight"
+        del fault
+        _mesh_on_one_card(seg, images)
+        _profiled_request(seg, served, images[0], tmp)
+    print(f"[serve] phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     phase_device()
     phase_build()
@@ -3458,6 +3708,8 @@ def main():
     phase_generate()
     torch.cuda.empty_cache()
     phase_train()
+    torch.cuda.empty_cache()
+    phase_serve(rows)
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

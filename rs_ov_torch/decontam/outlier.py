@@ -12,9 +12,9 @@ everything.
 
 from __future__ import annotations
 
-import functools
-
 import torch
+
+from rs_ov_torch.utils.device_cache import device_cache
 
 __all__ = ["detect_outliers_by_attention", "outlier_suppress"]
 
@@ -22,7 +22,7 @@ __all__ = ["detect_outliers_by_attention", "outlier_suppress"]
 _OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _offsets(device: torch.device) -> torch.Tensor:
     return torch.tensor(_OFFSETS, device=device)
 

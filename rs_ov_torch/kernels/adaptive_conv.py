@@ -35,6 +35,9 @@ kernel with its rounded product (bf16 operands on m16n8k16, fp32 operands
 rounded as they are staged; entries in ``rs_ov_torch/csrc/adaptive_conv.cu``),
 where K4f's chunk is only a tiling; their plain version is
 ``adaptive_conv_bf16_plain``.
+
+Each entry point is the operator ``rs_ov::<its name>`` (``build.register_op``):
+the plain version on CPU tensors, the kernel on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import functools
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library, register_op
 
 __all__ = ["adaptive_conv_tapmajor", "adaptive_conv_tapmajor_plain", "adaptive_conv_planes",
            "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4",
@@ -147,6 +150,20 @@ def _sms(device: torch.device) -> int:
     return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
+def _refuse_other_devices(inp: torch.Tensor, name: str) -> None:
+    if inp.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"{name}: no route for {inp.device}")
+
+
+def _conv_fake(inp, filt_t, diameter):
+    """[B, C, H, W] in inp's dtype, the grid from the taps."""
+    return inp.new_empty((inp.shape[0], inp.shape[1], *filt_t.shape[2:]))
+
+
+_SCHEMA = "(Tensor inp, Tensor filt_t, int diameter) -> Tensor"
+_OPS = {}  # the operators rs_ov::<entry point>, registered below each CUDA wrapper
+
+
 def adaptive_conv_tapmajor_plain(inp: torch.Tensor, filt_t: torch.Tensor,
                                  diameter: int) -> torch.Tensor:
     """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] -> [B, C, H, W] in
@@ -209,16 +226,18 @@ def _adaptive_conv_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
     return out
 
 
+_OPS["adaptive_conv_tapmajor"] = register_op("adaptive_conv_tapmajor", _SCHEMA,
+                                            adaptive_conv_tapmajor_plain, _adaptive_conv_cuda,
+                                            _conv_fake)
+
+
 def adaptive_conv_tapmajor(inp: torch.Tensor, filt_t: torch.Tensor,
                            diameter: int) -> torch.Tensor:
     """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major ->
     [B, C, H, W] in inp's dtype. CPU tensors take the plain version, CUDA
     tensors the kernel (bf16: K4a, fp32: K4b)."""
-    if inp.device.type == "cpu":
-        return adaptive_conv_tapmajor_plain(inp, filt_t, diameter)
-    if inp.device.type != "cuda":
-        raise NotImplementedError(f"adaptive_conv: no route for {inp.device}")
-    return _adaptive_conv_cuda(inp, filt_t, diameter)
+    _refuse_other_devices(inp, "adaptive_conv")
+    return _OPS["adaptive_conv_tapmajor"](inp, filt_t, diameter)
 
 
 # CUDA kernel launches per TPU kernel (bf16: K4a, fp32: K4b), for the chip smoke run
@@ -281,10 +300,11 @@ def _adaptive_conv_cl_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
     return out
 
 
-def _on_cpu(inp: torch.Tensor, name: str) -> bool:
-    if inp.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"{name}: no route for {inp.device}")
-    return inp.device.type == "cpu"
+_OPS["adaptive_conv_planes"] = register_op("adaptive_conv_planes", _SCHEMA,
+                                          adaptive_conv_tapmajor_plain,
+                                          _adaptive_conv_planes_cuda, _conv_fake)
+_OPS["adaptive_conv_cl"] = register_op("adaptive_conv_cl", _SCHEMA, adaptive_conv_tapmajor_plain,
+                                      _adaptive_conv_cl_cuda, _conv_fake)
 
 
 def adaptive_conv_planes(inp: torch.Tensor, filt_t: torch.Tensor,
@@ -293,9 +313,8 @@ def adaptive_conv_planes(inp: torch.Tensor, filt_t: torch.Tensor,
     or fp32 -> [B, C, H, W] in inp's dtype, fp32 products and sums (in tap
     order on the CPU). CPU tensors take the plain version, CUDA tensors
     kernel K4c (d <= 25, any C)."""
-    if _on_cpu(inp, "adaptive_conv_planes"):
-        return adaptive_conv_tapmajor_plain(inp, filt_t, diameter)
-    return _adaptive_conv_planes_cuda(inp, filt_t, diameter)
+    _refuse_other_devices(inp, "adaptive_conv_planes")
+    return _OPS["adaptive_conv_planes"](inp, filt_t, diameter)
 
 
 def adaptive_conv_cl(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
@@ -305,9 +324,8 @@ def adaptive_conv_cl(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> 
     K4d takes any even C (the JAX kernel hands C % 128 != 0 to the planes
     kernel, a TPU lane rule) and d <= 25. CPU tensors take the plain
     version."""
-    if _on_cpu(inp, "adaptive_conv_cl"):
-        return adaptive_conv_tapmajor_plain(inp, filt_t, diameter)
-    return _adaptive_conv_cl_cuda(inp, filt_t, diameter)
+    _refuse_other_devices(inp, "adaptive_conv_cl")
+    return _OPS["adaptive_conv_cl"](inp, filt_t, diameter)
 
 
 adaptive_conv_planes.launches = 0  # CUDA kernel launches (K4c), for the chip smoke run
@@ -374,16 +392,33 @@ def _rounded_cuda(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
     return out
 
 
+def _adaptive_conv_v3_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
+                           diameter: int) -> torch.Tensor:
+    out = _rounded_cuda(inp, filt_t, diameter, False)
+    adaptive_conv_v3.launches += 1
+    return out
+
+
+def _adaptive_conv_v4_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
+                           diameter: int) -> torch.Tensor:
+    out = _rounded_cuda(inp, filt_t, diameter, True)
+    adaptive_conv_v4.launches += 1
+    return out
+
+
+_OPS["adaptive_conv_v3"] = register_op("adaptive_conv_v3", _SCHEMA, adaptive_conv_bf16_plain,
+                                      _adaptive_conv_v3_cuda, _conv_fake)
+_OPS["adaptive_conv_v4"] = register_op("adaptive_conv_v4", _SCHEMA, adaptive_conv_bf16_plain,
+                                      _adaptive_conv_v4_cuda, _conv_fake)
+
+
 def adaptive_conv_v3(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
     """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
     or fp32 -> [B, C, H, W] in inp's dtype, both operands rounded to bf16
     (adaptive_conv_pallas_v3's function). CPU tensors take the plain
     version, CUDA tensors kernel K4e."""
-    if _on_cpu(inp, "adaptive_conv_v3"):
-        return adaptive_conv_bf16_plain(inp, filt_t, diameter)
-    out = _rounded_cuda(inp, filt_t, diameter, False)
-    adaptive_conv_v3.launches += 1
-    return out
+    _refuse_other_devices(inp, "adaptive_conv_v3")
+    return _OPS["adaptive_conv_v3"](inp, filt_t, diameter)
 
 
 def adaptive_conv_v4(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
@@ -393,11 +428,8 @@ def adaptive_conv_v4(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> 
     take the plain version, CUDA tensors kernel K4f."""
     if diameter > V4_MAX_D:
         raise ValueError(f"adaptive_conv_v4 takes d <= {V4_MAX_D}, got d={diameter}")
-    if _on_cpu(inp, "adaptive_conv_v4"):
-        return adaptive_conv_bf16_plain(inp, filt_t, diameter)
-    out = _rounded_cuda(inp, filt_t, diameter, True)
-    adaptive_conv_v4.launches += 1
-    return out
+    _refuse_other_devices(inp, "adaptive_conv_v4")
+    return _OPS["adaptive_conv_v4"](inp, filt_t, diameter)
 
 
 adaptive_conv_v3.launches = 0  # CUDA kernel launches (K4e), for the chip smoke run

@@ -12,6 +12,12 @@ library as ``<library>.<source>.log``.
 Each C entry point takes device pointers, ints, floats and the CUDA stream, launches
 on that stream and returns ``cudaGetLastError()``; ``launch`` calls one on the
 current stream of a device, ``check`` raises on a non-zero code.
+
+``register_op`` makes each kernel an operator of the ``rs_ov`` namespace
+(``torch.library.custom_op``): the plain version for CPU tensors, the kernel
+for CUDA tensors, a fake for tracing. ``torch.export`` then records one
+node per kernel call, and an exported program launches the kernel itself.
+Registering loads no library.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import tempfile
 
 import torch
 
-__all__ = ["load_library", "launch", "check", "NVCC_FLAGS"]
+__all__ = ["load_library", "launch", "check", "register_op", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -136,3 +142,16 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = load_library().rs_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+
+
+def register_op(name: str, schema: str, plain, cuda, fake):
+    """The operator ``rs_ov::<name>`` of ``schema``: ``plain`` is its CPU
+    implementation, ``cuda`` its CUDA one (the kernel's launch, which counts
+    it) and ``fake`` the output's shape and dtype for tracing (and meta
+    tensors). No implementation stands in for another; the wrappers refuse
+    a tensor on any other device. Inference only: no autograd formula."""
+    op = torch.library.custom_op(f"rs_ov::{name}", plain, mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda", cuda)
+    op.register_fake(fake)
+    return op

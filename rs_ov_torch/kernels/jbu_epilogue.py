@@ -32,6 +32,7 @@ tensor the hand-written kernel, which replaces a TPU kernel:
 ``rs_ov_torch/csrc/jbu_classify_sm90.cu`` on one block design (the adaptive
 conv, and the classify tail's fixup and cosine products, on the tensor
 cores; the fused stages compute their range logits in the block first).
+Each is the operator ``rs_ov::<its name>`` (``build.register_op``).
 They take d <= 17 (odd for the fused stages), an even C and Q <= 128, the
 TPU kernels' limits, and bf16 features and guidance; fp32 runs take the
 channel-first route (plain epilogue + adaptive-conv kernel K4b), as in the
@@ -43,7 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from rs_ov_torch.kernels.build import check, launch, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library, register_op
 from rs_ov_torch.utils.resize import reflect_pad_nhwc
 
 __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
@@ -414,10 +415,45 @@ def _jbu_epilogue_fused_classify_cuda(inp, proj, guid_cf, spatial, pos_temp, w0,
     return out
 
 
-def _route(inp: torch.Tensor) -> str:
+_STAGE = "Tensor spatial, Tensor pos_temp, Tensor w0, Tensor b0, Tensor w1, Tensor b1"
+_TAIL = "Tensor fixup_w, Tensor fixup_b, Tensor query_features"
+
+
+def _features_fake(inp, front, *rest):
+    """[B, H, W, C] in inp's dtype, the grid from the logits or projection."""
+    return inp.new_empty((*front.shape[:3], inp.shape[-1]))
+
+
+def _logits_fake(inp, front, *rest):
+    """[B, H, W, Q] fp32, Q the queries' rows (``rest[-2]``)."""
+    return inp.new_empty((*front.shape[:3], rest[-2].shape[0]), dtype=torch.float32)
+
+
+_OPS = {
+    "jbu_epilogue": register_op(
+        "jbu_epilogue", f"(Tensor inp, Tensor logits_t, Tensor guid_t, {_STAGE}, "
+        "int diameter) -> Tensor", jbu_epilogue_plain, _jbu_epilogue_cuda, _features_fake),
+    "jbu_epilogue_classify": register_op(
+        "jbu_epilogue_classify", f"(Tensor inp, Tensor logits_t, Tensor guid_t, {_STAGE}, "
+        f"{_TAIL}, int diameter) -> Tensor", jbu_epilogue_classify_plain,
+        _jbu_epilogue_classify_cuda, _logits_fake),
+    "jbu_epilogue_fused": register_op(
+        "jbu_epilogue_fused", f"(Tensor inp, Tensor proj, Tensor guid_cf, {_STAGE}, "
+        "int diameter) -> Tensor", jbu_epilogue_fused_plain, _jbu_epilogue_fused_cuda,
+        _features_fake),
+    "jbu_epilogue_fused_classify": register_op(
+        "jbu_epilogue_fused_classify", f"(Tensor inp, Tensor proj, Tensor guid_cf, {_STAGE}, "
+        f"{_TAIL}, int diameter) -> Tensor", jbu_epilogue_fused_classify_plain,
+        _jbu_epilogue_fused_classify_cuda, _logits_fake),
+}
+
+
+def _call(name: str, inp: torch.Tensor, *args):
+    """The operator ``rs_ov::<name>``: the plain version on CPU tensors, the
+    kernel on CUDA tensors; any other device is refused."""
     if inp.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"jbu_epilogue: no route for {inp.device}")
-    return inp.device.type
+        raise NotImplementedError(f"{name}: no route for {inp.device}")
+    return _OPS[name](inp, *args)
 
 
 def jbu_epilogue(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
@@ -425,24 +461,16 @@ def jbu_epilogue(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
     """See jbu_epilogue_plain. CPU tensors take the plain version, CUDA
     tensors the kernel (d <= 17, even C; it shares K3's blocks, so the
     library refuses C past 1408, or past 896 at d = 17, as K3's does)."""
-    if _route(inp) == "cpu":
-        return jbu_epilogue_plain(inp, logits_t, guid_t, spatial, pos_temp,
-                                  w0, b0, w1, b1, diameter)
-    return _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp,
-                              w0, b0, w1, b1, diameter)
+    return _call("jbu_epilogue", inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
+                 diameter)
 
 
 def jbu_epilogue_classify(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                           fixup_w, fixup_b, query_features, diameter: int) -> torch.Tensor:
     """See jbu_epilogue_classify_plain. CPU tensors take the plain version,
     CUDA tensors the kernel (Q <= 128 queries, d <= 17)."""
-    if _route(inp) == "cpu":
-        return jbu_epilogue_classify_plain(inp, logits_t, guid_t, spatial, pos_temp,
-                                           w0, b0, w1, b1, fixup_w, fixup_b,
-                                           query_features, diameter)
-    return _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp,
-                                       w0, b0, w1, b1, fixup_w, fixup_b,
-                                       query_features, diameter)
+    return _call("jbu_epilogue_classify", inp, logits_t, guid_t, spatial, pos_temp, w0, b0,
+                 w1, b1, fixup_w, fixup_b, query_features, diameter)
 
 
 def jbu_epilogue_fused(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
@@ -450,11 +478,8 @@ def jbu_epilogue_fused(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
     """See jbu_epilogue_fused_plain. CPU tensors take the plain version, CUDA
     tensors the kernel (odd d <= 17, even C, any K; K2's blocks, so C past
     1408, or past 896 at d = 17, is refused as for K2)."""
-    if _route(inp) == "cpu":
-        return jbu_epilogue_fused_plain(inp, proj, guid_cf, spatial, pos_temp,
-                                        w0, b0, w1, b1, diameter)
-    return _jbu_epilogue_fused_cuda(inp, proj, guid_cf, spatial, pos_temp,
-                                    w0, b0, w1, b1, diameter)
+    return _call("jbu_epilogue_fused", inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
+                 diameter)
 
 
 def jbu_epilogue_fused_classify(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
@@ -462,13 +487,8 @@ def jbu_epilogue_fused_classify(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w
                                 diameter: int) -> torch.Tensor:
     """See jbu_epilogue_fused_classify_plain. CPU tensors take the plain
     version, CUDA tensors the kernel (Q <= 128 queries, odd d <= 17)."""
-    if _route(inp) == "cpu":
-        return jbu_epilogue_fused_classify_plain(inp, proj, guid_cf, spatial, pos_temp,
-                                                 w0, b0, w1, b1, fixup_w, fixup_b,
-                                                 query_features, diameter)
-    return _jbu_epilogue_fused_classify_cuda(inp, proj, guid_cf, spatial, pos_temp,
-                                             w0, b0, w1, b1, fixup_w, fixup_b,
-                                             query_features, diameter)
+    return _call("jbu_epilogue_fused_classify", inp, proj, guid_cf, spatial, pos_temp, w0, b0,
+                 w1, b1, fixup_w, fixup_b, query_features, diameter)
 
 
 jbu_epilogue.launches = 0  # CUDA kernel launches, for the chip smoke run

@@ -6,14 +6,15 @@
 version (a loop of shifted multiply-adds), a CUDA tensor the hand-written
 kernel in ``rs_ov_torch/csrc/range_logits.cu`` (the window staged once for
 several tap rows by cp.async, d accumulators a thread), which replaces the
-TPU kernel ``range_logits_pallas`` (rs_ov/kernels/range_logits.py:64).
+TPU kernel ``range_logits_pallas`` (rs_ov/kernels/range_logits.py:64),
+through the operator ``rs_ov::range_logits`` (``build.register_op``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library, register_op
 
 __all__ = ["range_logits", "range_logits_plain"]
 
@@ -64,14 +65,21 @@ def _range_logits_cuda(padded: torch.Tensor, proj: torch.Tensor,
     return out
 
 
+def _range_logits_fake(padded, proj, diameter):
+    b, _, h, w = proj.shape
+    return proj.new_empty((b, diameter * diameter, h, w), dtype=torch.float32)
+
+
+_OP = register_op("range_logits", "(Tensor padded, Tensor proj, int diameter) -> Tensor",
+                  range_logits_plain, _range_logits_cuda, _range_logits_fake)
+
+
 def range_logits(padded: torch.Tensor, proj: torch.Tensor, diameter: int) -> torch.Tensor:
     """padded [B, K, H+d-1, W+d-1] (reflect-padded projection), proj
     [B, K, H, W] -> logits [B, d*d, H, W] fp32."""
-    if proj.device.type == "cpu":
-        return range_logits_plain(padded, proj, diameter)
-    if proj.device.type != "cuda":
+    if proj.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"range_logits: no route for {proj.device}")
-    return _range_logits_cuda(padded, proj, diameter)
+    return _OP(padded, proj, diameter)
 
 
 range_logits.launches = 0  # CUDA kernel launches, for the chip smoke run

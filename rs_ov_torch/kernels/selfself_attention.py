@@ -27,14 +27,15 @@ tensor cores, the weights meeting v as a bf16 pair hi + lo), fp32 in
 TF32 tensor cores, each fp32 product taken as three TF32 products of the
 operands split into hi + lo; where the three operands do not fit a block, as
 at ViT-H/14's L = 257, hd = 80, the score operands share one slot, staged in
-turn).
+turn). The kernel is the operator ``rs_ov::fused_selfself_attention``
+(``build.register_op``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library
+from rs_ov_torch.kernels.build import check, launch, load_library, register_op
 
 __all__ = ["fused_selfself_attention", "fused_selfself_attention_plain", "SUPPORTED_MODES"]
 
@@ -156,18 +157,24 @@ def _fused_selfself_attention_cuda(q, k, v, sim_map, mode: str,
     return out
 
 
+def _plain_positional(q, k, v, sim_map, mode, sim_weight):
+    return fused_selfself_attention_plain(q, k, v, sim_map, mode=mode, sim_weight=sim_weight)
+
+
+_OP = register_op("fused_selfself_attention", "(Tensor q, Tensor k, Tensor v, Tensor? sim_map, "
+                  "str mode, float sim_weight) -> Tensor", _plain_positional,
+                  _fused_selfself_attention_cuda, lambda q, *rest: torch.empty_like(q))
+
+
 def fused_selfself_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              sim_map: torch.Tensor | None = None, *,
                              mode: str = "Experimental",
                              sim_weight: float = 1.0) -> torch.Tensor:
     """q, k, v [B, H, L, hd] in one dtype; sim_map optional fp32 [B, L, L]
     (CLS row and column padded) -> the context [B, H, L, hd] in q's dtype."""
-    if q.device.type == "cpu":
-        return fused_selfself_attention_plain(q, k, v, sim_map, mode=mode,
-                                              sim_weight=sim_weight)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"fused_selfself_attention: no route for {q.device}")
-    return _fused_selfself_attention_cuda(q, k, v, sim_map, mode, sim_weight)
+    return _OP(q, k, v, sim_map, mode, float(sim_weight))
 
 
 fused_selfself_attention.launches = 0  # CUDA kernel launches, for the chip smoke run

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from rs_ov_torch.nn.layers import linear, matmul32
+from rs_ov_torch.utils.device_cache import device_cache
 
 __all__ = ["standard_attention", "custom_attn", "ATTENTION_MODES", "qkv_projection"]
 
@@ -102,7 +103,7 @@ def _gaussian_addition(grid_h: int, grid_w: int, std: float) -> np.ndarray:
     return full
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _gaussian_on(grid_h: int, grid_w: int, std: float, device: torch.device) -> torch.Tensor:
     """``_gaussian_addition`` moved to the device once per grid, std and device."""
     return torch.from_numpy(_gaussian_addition(grid_h, grid_w, std)).to(device)

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from rs_ov_torch.nn.attention import standard_attention
 from rs_ov_torch.nn.layers import gelu, layer_norm, linear, matmul32, mlp
+from rs_ov_torch.utils.device_cache import device_cache
 from rs_ov_torch.utils.resize import resize_bicubic_antialias
 
 __all__ = ["ConvNeXtArch", "SigLipVitArch", "EvaArch", "TIMM_ARCHS", "timm_arch",
@@ -284,7 +285,7 @@ def _rope_tables(head_dim: int, grid_h: int, grid_w: int,
     return np.sin(ang).astype(np.float32), np.cos(ang).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _rope_on(head_dim: int, grid_hw: tuple[int, int], ref_hw, device: torch.device):
     """``_rope_tables`` as fp32 tensors on ``device``, copied once per grid."""
     sin, cos = _rope_tables(head_dim, grid_hw[0], grid_hw[1], ref_hw)

@@ -14,19 +14,22 @@ GSPMD's inserted all-reduces) written as autograd functions:
   all-reduce forward with an identity backward.
 
 And the no-grad helpers the steps share: ``all_gather`` (a batch's rows from
-every rank), ``mean_over`` (a loss's mean over the ranks, to report it) and
-``mean_share`` (a rank's share of a mean over the whole batch). These and
+every rank), ``mean_over`` (a loss's mean over the ranks, to report it),
+``mean_share`` (a rank's share of a mean over the whole batch) and
+``sum_over`` (``jax.lax.psum``: the eval's confusion states summed over the
+"data" ranks, for ``IoUMetric.merge``). These and
 the Megatron pair take ``group=None`` as one process: the tensor as it is.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather_with_grad", "neighbour_exchange", "copy_to_group",
            "reduce_from_group", "all_reduce_mean_", "group_size", "all_gather", "mean_over",
-           "mean_share"]
+           "mean_share", "sum_over"]
 
 
 def group_size(group) -> int:
@@ -160,3 +163,23 @@ def mean_share(total: torch.Tensor, count: torch.Tensor, group) -> torch.Tensor:
     whole batch's sum / count, whose mean over the ranks is that quotient
     (``total / count`` without a group)."""
     return total / mean_over(count.float(), group).clamp_min(1)
+
+
+@torch.no_grad()
+def sum_over(state, group):
+    """The sum of ``state`` over the group's ranks, in its own dtype: a tensor
+    (the device confusion state, fp32) on its device, or a numpy array (the
+    host state, float64), summed on the device the group's backend takes
+    (the card for NCCL) and returned as numpy. The state as it is without a
+    group."""
+    if group is None:
+        return state
+    if torch.is_tensor(state):
+        out = state.clone()
+        dist.all_reduce(out, group=group)
+        return out
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    out = torch.tensor(np.asarray(state), device=dev)
+    dist.all_reduce(out, group=group)
+    return out.cpu().numpy()

@@ -38,6 +38,15 @@ card" in place of the JAX package's "not on the CPU":
   epilogue in plain torch, K4b for fp32 / K4a for bf16), then the classifier
   in plain torch: fp32 L2 norm, bf16-rounded operands under bf16.
 
+With ``mesh`` (a ``parallel.mesh.make_mesh`` ``DeviceMesh``, one process a
+rank, e.g. under ``torchrun``) the N*T crops are split over the "data" axis
+as GSPMD shards them in the JAX package (rs_ov/pipeline/segmentor.py:556-567):
+padded to a multiple of its size by repeating the last crop, each data rank
+runs the ViT and the chunked decontamination / JBU / classify on its
+contiguous block (the "model" ranks repeat it), cross-tile fusion sees the
+tokens gathered over "data", and the per-crop logits are gathered back, so
+every rank stitches and returns the whole result.
+
 Precision follows the JAX package with the card in the TPU's role: bf16
 weights and activations on CUDA by default (fp32 LayerNorm, softmax and
 product results), fp32 on the CPU; ``param_dtype`` chooses. The segmentor
@@ -51,6 +60,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rs_ov_torch.core.checkpoint import (clip_params_from_state_dict,
                                          jbu_params_from_state_dict, load_torch_state_dict)
@@ -67,6 +77,7 @@ from rs_ov_torch.nn.blip import (BlipConfig, blip_encode_image, blip_encode_text
                                  blip_params_from_state_dict, init_blip_params)
 from rs_ov_torch.nn.gem import gem_vit_forward
 from rs_ov_torch.nn.vit import VitCallConfig, vit_forward
+from rs_ov_torch.parallel.collectives import all_gather
 from rs_ov_torch.pipeline.postprocess import postprocess_logits, query_onehot
 from rs_ov_torch.pipeline.tiler import compute_padsize, extract_tiles, stitch, tile_grid
 from rs_ov_torch.text.classifier import build_text_classifier, get_cls_idx
@@ -148,6 +159,7 @@ class SegmentorEx:
                  tile_chunk: int = 0,
                  pred_dtype=None,
                  shape_bucket: int = 0,
+                 mesh=None,
                  gem_depth: int = 7,
                  ss_attn_iter: int = 1,
                  ss_attn_temp: Optional[float] = None,
@@ -283,6 +295,8 @@ class SegmentorEx:
         self.heatmap_dir = heatmap_dir
         self.tile_chunk = tile_chunk  # 0: RS_OV_TILE_CHUNK or the default, at call time
         self.shape_bucket = shape_bucket or int(os.environ.get("RS_OV_SHAPE_BUCKET", "0"))
+        # a parallel.mesh DeviceMesh: the crop batch split over its "data" axis
+        self.mesh = mesh
 
         self.apply_sim_feat_up = apply_sim_feat_up
         up_cfg = sim_feat_up_cfg or {}
@@ -435,12 +449,10 @@ class SegmentorEx:
         tile_logits = self._forward_tiles(tiles, grid_shape, pads, (ch, cw), n)
         return tile_logits.reshape(n, len(coords), *tile_logits.shape[1:]), coords
 
-    def _forward_tiles(self, tiles: torch.Tensor, grid_shape, pads, tile_hw,
-                       n_images: int = 1) -> torch.Tensor:
-        """Padded crops [T, 3, ch, cw] -> per-crop logits [T, Q, th, tw]
-        (rs_ov/pipeline/segmentor.py:434-487); cross-tile fusion regroups the
-        crops per image."""
-        tiles = tiles.to(self.param_dtype)
+    def _tower(self, tiles: torch.Tensor):
+        """Crops [T, 3, ch, cw] in the weights' dtype -> (tokens [T, P, C],
+        CLS features [T, C], CLS logits [T, Q], the crops the upsampler
+        reads)."""
         if self.is_blip:  # the crops at the tower's own size: no pos-embed resample
             s = self.cfg.vision.image_size
             tiles = resize_bilinear(tiles, (s, s))
@@ -461,11 +473,48 @@ class SegmentorEx:
             p32 = pooled.float()
             cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
+        return tokens, cls_norm, cls_logits, tiles
+
+    def _data_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous block of a crop batch on the mesh's "data"
+        axis, the batch first padded to a multiple of its size by repeating
+        the last crop (GSPMD's padding of an uneven split)."""
+        group = self.mesh.get_group("data")
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        pad = -x.shape[0] % size
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        block = x.shape[0] // size
+        return x[rank * block:(rank + 1) * block]
+
+    def _gather_crops(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """Every data rank's block of a crop batch, the padding dropped: the
+        whole batch of ``n`` crops on every rank."""
+        return all_gather(x, self.mesh.get_group("data"))[:n]
+
+    def _forward_tiles(self, tiles: torch.Tensor, grid_shape, pads, tile_hw,
+                       n_images: int = 1) -> torch.Tensor:
+        """Padded crops [T, 3, ch, cw] -> per-crop logits [T, Q, th, tw]
+        (rs_ov/pipeline/segmentor.py:434-487); cross-tile fusion regroups the
+        crops per image. With a mesh each data rank runs its block of the
+        crops (the ranks of its "model" axis repeat it), fusion sees the
+        whole batch gathered, and the logits are gathered back: every rank
+        returns all of them."""
+        n = tiles.shape[0]
+        tiles = tiles.to(self.param_dtype)
+        if self.mesh is not None:
+            tiles = self._data_block(tiles)
+        tokens, cls_norm, cls_logits, tiles = self._tower(tiles)
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
         if self.apply_cross_tile_fusion:
-            tokens = self._fuse_tiles(tokens, grid_shape, grid_hw, n_images)
-        return self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
-                                      tile_hw)
+            if self.mesh is None:
+                tokens = self._fuse_tiles(tokens, grid_shape, grid_hw, n_images)
+            else:
+                tokens = self._data_block(self._fuse_tiles(
+                    self._gather_crops(tokens, n), grid_shape, grid_hw, n_images))
+        logits = self._chunked_decontam(tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
+                                        tile_hw)
+        return logits if self.mesh is None else self._gather_crops(logits, n)
 
     def _forward_images(self, imgs: torch.Tensor, ori_shape: tuple[int, int],
                         extent: Optional[tuple[int, int]] = None):

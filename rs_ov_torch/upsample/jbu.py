@@ -26,7 +26,6 @@ only.
 
 from __future__ import annotations
 
-import functools
 import os
 
 import numpy as np
@@ -40,6 +39,7 @@ from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue, jbu_epilogue_classif
                                               jbu_epilogue_fused_classify)
 from rs_ov_torch.kernels.range_logits import range_logits
 from rs_ov_torch.upsample import alternates
+from rs_ov_torch.utils.device_cache import device_cache
 from rs_ov_torch.utils.resize import (adaptive_avg_pool2d, reflect_pad_2d,
                                       reflect_pad_nhwc, resize_bicubic,
                                       resize_bicubic_nhwc, resize_bilinear)
@@ -52,7 +52,7 @@ __all__ = ["unfold", "adaptive_conv", "jbu_module_forward", "jbu_one_forward",
            "get_upsampler_nhwc_classify", "init_jbu_one_params", "init_jbu_stack_params"]
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _tap_sq_dist(diameter: int, device: torch.device) -> torch.Tensor:
     """x^2 + y^2 over a [-1, 1]^2 window, flattened in meshgrid 'ij' order
     (tap u*d + v); cached on the device (no per-call host copy)."""

@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from rs_ov_torch.utils.device_cache import device_cache
+
 __all__ = ["resize_bilinear", "resize_bicubic", "resize_bicubic_scaled",
            "resize_bicubic_antialias", "adaptive_avg_pool2d", "reflect_pad_2d",
            "resize_bicubic_nhwc", "reflect_pad_nhwc"]
@@ -113,7 +115,7 @@ def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _matrix(kind: str, in_size: int, out_size: int, device: torch.device,
             dtype: torch.dtype, coord_scale: float = 0.0) -> torch.Tensor:
     """A resize matrix on ``device``, rounded to ``dtype``, as fp32. Cached:
@@ -173,7 +175,7 @@ def resize_bicubic_nhwc(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tenso
     return torch.einsum("pw,...owc->...opc", ww, y.float()).to(dtype)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _reflect_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     if pad >= n:
         raise ValueError(f"reflect pad {pad} needs a dimension above it, got {n}")

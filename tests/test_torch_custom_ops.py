@@ -1,0 +1,169 @@
+"""The kernels as operators of the ``rs_ov`` namespace
+(rs_ov_torch/kernels/build.py:register_op): each one's schema and fake
+implementation checked by ``torch.library.opcheck`` on CPU sample inputs,
+without the kernel library; on a card (``cuda`` tests, skipped here) each
+operator against the direct launch of its kernel, its fake against the real
+output, and the serving export of a small segmentor on the default route.
+
+This file imports no jax, so that on a card it runs with
+
+    python -m pytest tests/test_torch_custom_ops.py --noconftest -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rs_ov_torch.kernels import adaptive_conv as ac
+from rs_ov_torch.kernels import build
+from rs_ov_torch.kernels import jbu_epilogue as epi
+from rs_ov_torch.kernels import range_logits as rl
+from rs_ov_torch.kernels import selfself_attention as sa
+
+torch.set_num_threads(1)
+
+D, H, W, C, G, CMID, Q, K = 3, 6, 7, 8, 3, 5, 3, 4
+# operator -> (its CUDA wrapper, which counts the launch; the counter's
+# function and key)
+OPS = {
+    "range_logits": (rl._range_logits_cuda, rl.range_logits, None),
+    "jbu_epilogue": (epi._jbu_epilogue_cuda, epi.jbu_epilogue, None),
+    "jbu_epilogue_classify": (epi._jbu_epilogue_classify_cuda, epi.jbu_epilogue_classify, None),
+    "jbu_epilogue_fused": (epi._jbu_epilogue_fused_cuda, epi.jbu_epilogue_fused, None),
+    "jbu_epilogue_fused_classify": (epi._jbu_epilogue_fused_classify_cuda,
+                                    epi.jbu_epilogue_fused_classify, None),
+    "adaptive_conv_tapmajor[bf16]": (ac._adaptive_conv_cuda, ac.adaptive_conv_tapmajor,
+                                     torch.bfloat16),
+    "adaptive_conv_tapmajor[fp32]": (ac._adaptive_conv_cuda, ac.adaptive_conv_tapmajor,
+                                     torch.float32),
+    "adaptive_conv_planes": (ac._adaptive_conv_planes_cuda, ac.adaptive_conv_planes, None),
+    "adaptive_conv_cl": (ac._adaptive_conv_cl_cuda, ac.adaptive_conv_cl, None),
+    "adaptive_conv_v3": (ac._adaptive_conv_v3_cuda, ac.adaptive_conv_v3, None),
+    "adaptive_conv_v4": (ac._adaptive_conv_v4_cuda, ac.adaptive_conv_v4, None),
+    "fused_selfself_attention[bf16]": (sa._fused_selfself_attention_cuda,
+                                       sa.fused_selfself_attention, None),
+    "fused_selfself_attention[fp32]": (sa._fused_selfself_attention_cuda,
+                                       sa.fused_selfself_attention, None),
+}
+
+
+def _samples(name: str, device) -> tuple:
+    """The operator's arguments, drawn from a seed: the dtypes and layouts
+    its kernel takes."""
+    rng = np.random.RandomState(sorted(OPS).index(name))
+
+    def t(*shape, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy(np.asarray(rng.randn(*shape) * scale, np.float32)).to(
+            device=device, dtype=dtype)
+
+    bf = torch.bfloat16
+    stage = (t(D * D), t(), t(CMID, D * D + G, scale=0.3), t(CMID, scale=0.1),
+             t(D * D, CMID, scale=0.3), t(D * D, scale=0.1))
+    tail = (t(C, C, scale=0.2, dtype=bf), t(C, scale=0.1), t(Q, C))
+    padded_nhwc = t(2, H + D - 1, W + D - 1, C, dtype=bf)
+    if name == "range_logits":
+        return t(2, K, H + D - 1, W + D - 1), t(2, K, H, W), D
+    if name in ("jbu_epilogue", "jbu_epilogue_classify"):
+        front = (padded_nhwc, t(2, H, W, D * D), t(2, H, W, G, dtype=bf), *stage)
+        return (*front, *tail, D) if name.endswith("classify") else (*front, D)
+    if name.startswith("jbu_epilogue_fused"):
+        front = (t(2, H, W, C, dtype=bf), t(2, H, W, K), t(2, G, H, W, dtype=bf), *stage)
+        return (*front, *tail, D) if name.endswith("classify") else (*front, D)
+    if name.startswith("adaptive_conv"):
+        dt = torch.float32 if name.endswith("[fp32]") else bf
+        filt_dt = torch.float32 if name in ("adaptive_conv_planes", "adaptive_conv_v3") else dt
+        return t(2, C, H + D - 1, W + D - 1, dtype=dt), t(2, D * D, H, W, dtype=filt_dt), D
+    dt = torch.float32 if name.endswith("[fp32]") else bf
+    q, k, v = (t(2, 3, 17, 16, dtype=dt) for _ in range(3))
+    return q, k, v, t(2, 17, 17, scale=0.1), "SCLIP", 0.7
+
+
+def _op(name: str):
+    return getattr(torch.ops.rs_ov, name.split("[")[0]).default
+
+
+def _launches(name):
+    _, counter, key = OPS[name]
+    return counter.launches if key is None else counter.launches[key]
+
+
+def test_every_kernel_wrapper_has_its_operator():
+    """One operator per public wrapper (K4a and K4b share one, by dtype)."""
+    assert sorted({n.split("[")[0] for n in OPS}) == sorted(
+        name for name in dir(torch.ops.rs_ov) if not name.startswith("_")
+        and isinstance(getattr(torch.ops.rs_ov, name), torch._ops.OpOverloadPacket))
+
+
+@pytest.mark.parametrize("name", list(OPS))
+def test_operator_schema_and_fake_on_the_cpu(name, monkeypatch):
+    """opcheck's schema and fake-tensor checks on the CPU implementation, the
+    plain version; the kernel library is never loaded."""
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    for mod in (build, rl, epi, ac, sa):
+        monkeypatch.setattr(mod, "load_library", no_library)
+    torch.library.opcheck(_op(name), _samples(name, "cpu"),
+                          test_utils=("test_schema", "test_faketensor"))
+    before = _launches(name)
+    _op(name)(*_samples(name, "cpu"))
+    assert _launches(name) == before
+
+
+# ---------------------------------------------------------------------------
+# on a card (skipped without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(OPS))
+def test_operator_equals_the_direct_launch(cuda, name):
+    """On CUDA tensors the operator launches the kernel (counted once) and
+    gives the direct launch's output exactly; its fake gives the real
+    output's shape, dtype and strides."""
+    args = _samples(name, cuda)
+    want = OPS[name][0](*args)
+    before = _launches(name)
+    got = _op(name)(*args)
+    assert _launches(name) == before + 1
+    assert torch.equal(got, want)
+    torch.library.opcheck(_op(name), args, test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+def test_export_on_the_card_serves_the_kernels(cuda, tmp_path):
+    """A small segmentor (random weights, bf16) on the card's default route:
+    the served program equals the live predict_raw and launches K1, K2 and
+    K3 as often."""
+    from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
+    from rs_ov_torch.pipeline.export import export_predict, load_predict
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    cfg = CLIPConfig(embed_dim=32, vision=VisionConfig(
+        image_size=64, patch_size=16, width=64, layers=3, output_dim=32, head_width=32),
+        text=TextConfig(context_length=77, vocab_size=49408, width=32, heads=2, layers=1,
+                        output_dim=32))
+    seg = SegmentorEx(name_path="configs/cls_potsdam.txt", slide_stride=32, slide_crop=64,
+                      global_debias_factor=0.2, apply_sim_feat_up=True,
+                      apply_outlier_suppression=True, outlier_suppression_cfg=dict(top_k=5),
+                      apply_similarity_enhancement=True, clip_config=cfg)
+    img = np.random.RandomState(0).randint(0, 256, (96, 128, 3), np.uint8)
+    path = str(tmp_path / "tiny.rsovt")
+    assert export_predict(seg, (96, 128), path)["platforms"] == ["cuda"]
+    fn = load_predict(path)
+    names = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify")
+    before = [_launches(n) for n in names]
+    live = seg.predict_raw(img[None])[0]
+    mid = [_launches(n) for n in names]
+    got = fn(img)
+    after = [_launches(n) for n in names]
+    assert all(m > b for m, b in zip(mid, before))
+    assert [a - m for a, m in zip(after, mid)] == [m - b for m, b in zip(mid, before)]
+    assert torch.equal(got["pred_sem_seg"], live["pred_sem_seg"])
+    assert torch.equal(got["probs"], live["seg_logits"])

@@ -41,6 +41,8 @@ def test_port_imports_without_jax():
             "mods = [m.name for m in pkgutil.walk_packages(rs_ov_torch.__path__, 'rs_ov_torch.')]\n"
             "[importlib.import_module(m) for m in mods]\n"
             "assert len(mods) >= 25, mods\n"
+            "assert {'rs_ov_torch.pipeline.export', 'rs_ov_torch.data.converters.convert',\n"
+            "        'rs_ov_torch.utils.profiling'} <= set(mods), mods\n"
             "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'rs_ov' or m.startswith('rs_ov.')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -127,3 +127,30 @@ def spawn(fn, world, tmp_path, *args):
                                 nprocs=world, join=True)
     with np.load(out) as f:
         return dict(f)
+
+
+def segmentor_mesh_worker(rank, world, store, out, kwargs, cases, images, states):
+    """SegmentorEx(mesh=...) on this rank for each case (name -> (mesh shape,
+    extra kwargs, "raw" for predict_raw of the first image or "batch" for
+    predict_batch_raw of all)); then each rank's confusion state summed over
+    the "data" group, as an fp32 tensor and as a float64 numpy array. Every
+    rank writes its results: rank 0 to ``out``, rank r to ``out.r<r>.npz``."""
+    from rs_ov_torch.parallel.collectives import sum_over
+    from rs_ov_torch.pipeline.segmentor import SegmentorEx
+
+    _join(rank, world, store)
+    res = {}
+    for name, (shape, extra, entry) in cases.items():
+        seg = SegmentorEx(**kwargs, **extra, mesh=make_mesh(*shape, device_type="cpu"),
+                          device="cpu")
+        got = (seg.predict_raw(images[:1]) if entry == "raw"
+               else seg.predict_batch_raw(images))
+        for i, r in enumerate(got):
+            res[f"{name}/{i}/probs"] = r["seg_logits"].numpy()
+            res[f"{name}/{i}/pred"] = r["pred_sem_seg"].numpy()
+    group = make_mesh(world, 1, device_type="cpu").get_group("data")
+    res["state_fp32"] = sum_over(torch.from_numpy(states[rank]).float(), group).numpy()
+    res["state_fp64"] = sum_over(states[rank], group)
+    res["own_state_after"] = states[rank]
+    np.savez(out if rank == 0 else f"{out}.r{rank}.npz", **res)
+    dist.destroy_process_group()

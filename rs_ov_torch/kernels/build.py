@@ -18,6 +18,10 @@ current stream of a device, ``check`` raises on a non-zero code.
 for CUDA tensors, a fake for tracing. ``torch.export`` then records one
 node per kernel call, and an exported program launches the kernel itself.
 Registering loads no library.
+
+``launch_counts`` reads every kernel operator's launch counter (the
+``.launches`` attribute its CUDA implementation bumps), for the recorder's
+spans (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import tempfile
 
 import torch
 
-__all__ = ["load_library", "launch", "check", "register_op", "NVCC_FLAGS"]
+__all__ = ["load_library", "launch", "check", "register_op", "launch_counts",
+           "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -106,16 +111,22 @@ def _build(sources: list[str], lib_path: str) -> None:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library."""
+    """Compile (if needed) and load the kernel library; the build and the
+    load inside the span ``rs_ov/setup/kernel_library`` (``built``: whether
+    this call compiled the library), after the sources' hash (milliseconds)."""
+    from rs_ov_torch.utils.profiling import span
+
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
     lib_path = os.path.join(BUILD_DIR, f"librs_ov_kernels_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(lib_path):
-        _build(sources, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    built = not os.path.exists(lib_path)
+    with span("rs_ov/setup/kernel_library", built=built):
+        if built:
+            _build(sources, lib_path)
+        lib = ctypes.CDLL(lib_path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -155,3 +166,30 @@ def register_op(name: str, schema: str, plain, cuda, fake):
     op.register_kernel("cuda", cuda)
     op.register_fake(fake)
     return op
+
+
+@functools.cache
+def _counted() -> tuple:
+    """(the kernel operators' wrappers, ``adaptive_conv_tapmajor``), each
+    with its launch counter; imported at first use, since each kernel
+    module imports this one."""
+    from rs_ov_torch.kernels import adaptive_conv as ac
+    from rs_ov_torch.kernels import jbu_epilogue as je
+    from rs_ov_torch.kernels import range_logits as rl
+    from rs_ov_torch.kernels import selfself_attention as sa
+
+    return ((rl.range_logits, je.jbu_epilogue, je.jbu_epilogue_classify, je.jbu_epilogue_fused,
+             je.jbu_epilogue_fused_classify, ac.adaptive_conv_planes, ac.adaptive_conv_cl,
+             ac.adaptive_conv_v3, ac.adaptive_conv_v4, sa.fused_selfself_attention),
+            ac.adaptive_conv_tapmajor)
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches so far of each kernel operator, by its wrapper's name;
+    ``adaptive_conv_tapmajor`` by the input's dtype (``.bf16``: K4a,
+    ``.f32``: K4b)."""
+    fns, tap = _counted()
+    counts = {fn.__name__: fn.launches for fn in fns}
+    counts["adaptive_conv_tapmajor.bf16"] = tap.launches[torch.bfloat16]
+    counts["adaptive_conv_tapmajor.f32"] = tap.launches[torch.float32]
+    return counts

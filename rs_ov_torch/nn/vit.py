@@ -15,7 +15,10 @@
 LayerScale towers (ViT-M-16-alt) scale each branch of the ordinary blocks by
 ``ls_1`` / ``ls_2``; the decontaminated last block's own output leaves them
 out, as in the JAX package (rs_ov/nn/vit.py:245-256). The JAX package runs
-the homogeneous front blocks as one lax.scan; the port keeps a loop.
+the homogeneous front blocks as one lax.scan; the port keeps a loop. The
+three parts run in the spans ``rs_ov/vit/front`` (to the last front block),
+``rs_ov/vit/last`` (the similarity hook and the last block(s)) and
+``rs_ov/vit/post`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from rs_ov_torch.decontam.similarity import compute_similarity_map
 from rs_ov_torch.decontam.som import suppress_outlier_module
 from rs_ov_torch.nn.attention import custom_attn, qkv_projection, standard_attention
 from rs_ov_torch.nn.layers import gelu, layer_norm, linear, mlp, quick_gelu
+from rs_ov_torch.utils.profiling import span
 from rs_ov_torch.utils.resize import resize_bicubic_scaled
 
 __all__ = ["VitCallConfig", "vit_forward", "interpolate_pos_embedding"]
@@ -136,118 +140,122 @@ def vit_forward(p, images: torch.Tensor, vcfg: VisionConfig, call: VitCallConfig
     heads = vcfg.heads
     act = quick_gelu if call.quick_gelu else gelu
 
-    x = _patchify(images, p.conv1_w)
-    cls_tok = p.class_embedding.to(x.dtype).expand(b, 1, -1)
-    x = torch.cat([cls_tok, x], dim=1)
-    pos = p.positional_embedding
-    if x.shape[1] != pos.shape[0]:
-        pos = interpolate_pos_embedding(pos, (gh, gw))
-    x = x + pos.to(x.dtype)[None]
-    if not vcfg.no_ln_pre:
-        x = layer_norm(x, p.ln_pre)
+    with span("rs_ov/vit/front"):
+        x = _patchify(images, p.conv1_w)
+        cls_tok = p.class_embedding.to(x.dtype).expand(b, 1, -1)
+        x = torch.cat([cls_tok, x], dim=1)
+        pos = p.positional_embedding
+        if x.shape[1] != pos.shape[0]:
+            pos = interpolate_pos_embedding(pos, (gh, gw))
+        x = x + pos.to(x.dtype)[None]
+        if not vcfg.no_ln_pre:
+            x = layer_norm(x, p.ln_pre)
 
-    n_layers = len(p.blocks)
-    last_n = call.last_n_layers
-    n_front = n_layers - last_n
-    mid_idx = n_front // 2
+        n_layers = len(p.blocks)
+        last_n = call.last_n_layers
+        n_front = n_layers - last_n
+        mid_idx = n_front // 2
 
-    # the attention maps are captured when outlier suppression or
-    # self-attention enhancement reads them, unless layer fusion replaces
-    # them (rs_ov/nn/vit.py:166-181)
-    capture_attn = ((call.apply_outlier_suppression or call.apply_self_attn_enhancement)
-                    and not call.apply_layer_fusion)
-    if call.outlier_source_layers:
-        src_layers = sorted({i if i >= 0 else n_layers + i
-                             for i in call.outlier_source_layers})
-        if not all(0 <= i < n_layers for i in src_layers):
-            raise ValueError(f"outlier_source_layers {call.outlier_source_layers} out "
-                             f"of range for {n_layers} layers")
-    else:
-        src_layers = [n_front - 1]
+        # the attention maps are captured when outlier suppression or
+        # self-attention enhancement reads them, unless layer fusion replaces
+        # them (rs_ov/nn/vit.py:166-181)
+        capture_attn = ((call.apply_outlier_suppression or call.apply_self_attn_enhancement)
+                        and not call.apply_layer_fusion)
+        if call.outlier_source_layers:
+            src_layers = sorted({i if i >= 0 else n_layers + i
+                                 for i in call.outlier_source_layers})
+            if not all(0 <= i < n_layers for i in src_layers):
+                raise ValueError(f"outlier_source_layers {call.outlier_source_layers} out "
+                                 f"of range for {n_layers} layers")
+        else:
+            src_layers = [n_front - 1]
 
-    mid_features = None
-    captured = []     # head-averaged [B, L, L] maps of the source layers
-    attn_acc = None   # the layer-fusion EMA
-    for idx in range(n_front):
-        if idx == mid_idx:
-            mid_features = x  # the state BEFORE block mid_idx
-        need_w = call.apply_layer_fusion or (capture_attn and idx in src_layers)
-        x, w_attn = _resblock(p.blocks[idx], x, heads, act, need_weights=need_w)
-        if call.apply_layer_fusion:
-            attn_acc = fuse_attention_ema(attn_acc, w_attn, call.layer_fusion_lambda)
-        elif need_w:
-            captured.append(w_attn)
-
-    sim_map = None
-    if call.apply_similarity_enhancement and mid_features is not None:
-        sim_map = compute_similarity_map(
-            mid_features[:, 1:, :], temperature=call.similarity_temperature,
-            add_self_similarity=call.add_self_similarity)
-
-    output = None
-    qk_attn = None  # per-head qk attention of the final block, for SOM
-    for i in range(last_n):
-        layer = n_front + i
-        blk = p.blocks[layer]
-        x_ln = layer_norm(x, blk.ln_1)
-        if call.apply_som and i == last_n - 1:
-            q, k, _ = qkv_projection(blk.attn, x_ln, heads)
-            scale = (vcfg.width // heads) ** -0.5
-            qk_attn = torch.softmax(
-                torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
-        attn_out = custom_attn(blk.attn, x_ln, mode=call.model_type, heads=heads,
-                               sim_map=sim_map, similarity_weight=call.similarity_weight,
-                               gaussian_std=call.gaussian_std, grid_hw=(gh, gw))
-        if not call.ignore_residual:
-            attn_out = x + attn_out
-            attn_out = attn_out + mlp(layer_norm(attn_out, blk.ln_2), blk.mlp, act=act)
-        output = attn_out if output is None else output + attn_out
-        # the ordinary stream runs through the full block when a later block,
-        # a capture or layer fusion reads it; otherwise nothing does
-        need_w = call.apply_layer_fusion or (capture_attn and layer in src_layers)
-        if need_w or i < last_n - 1:
-            x, w_attn = _resblock(blk, x, heads, act, need_weights=need_w)
+        mid_features = None
+        captured = []     # head-averaged [B, L, L] maps of the source layers
+        attn_acc = None   # the layer-fusion EMA
+        for idx in range(n_front):
+            if idx == mid_idx:
+                mid_features = x  # the state BEFORE block mid_idx
+            need_w = call.apply_layer_fusion or (capture_attn and idx in src_layers)
+            x, w_attn = _resblock(p.blocks[idx], x, heads, act, need_weights=need_w)
             if call.apply_layer_fusion:
                 attn_acc = fuse_attention_ema(attn_acc, w_attn, call.layer_fusion_lambda)
             elif need_w:
                 captured.append(w_attn)
 
-    attn_weights = None
-    if captured:
-        attn_weights = captured[0] if len(captured) == 1 else sum(captured) / len(captured)
+    with span("rs_ov/vit/last"):
+        sim_map = None
+        if call.apply_similarity_enhancement and mid_features is not None:
+            sim_map = compute_similarity_map(
+                mid_features[:, 1:, :], temperature=call.similarity_temperature,
+                add_self_similarity=call.add_self_similarity)
 
-    if call.apply_som:
-        purified, _, _ = suppress_outlier_module(
-            output[:, 1:], qk_attn, gh, gw,
-            consensus_threshold=call.som_consensus_threshold,
-            detection_mode=call.som_detection_mode,
-            self_sufficiency_ratio=call.som_self_sufficiency_ratio)
-        output = torch.cat([output[:, :1], purified], dim=1)
+        output = None
+        qk_attn = None  # per-head qk attention of the final block, for SOM
+        for i in range(last_n):
+            layer = n_front + i
+            blk = p.blocks[layer]
+            x_ln = layer_norm(x, blk.ln_1)
+            if call.apply_som and i == last_n - 1:
+                q, k, _ = qkv_projection(blk.attn, x_ln, heads)
+                scale = (vcfg.width // heads) ** -0.5
+                qk_attn = torch.softmax(
+                    torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+            attn_out = custom_attn(blk.attn, x_ln, mode=call.model_type, heads=heads,
+                                   sim_map=sim_map, similarity_weight=call.similarity_weight,
+                                   gaussian_std=call.gaussian_std, grid_hw=(gh, gw))
+            if not call.ignore_residual:
+                attn_out = x + attn_out
+                attn_out = attn_out + mlp(layer_norm(attn_out, blk.ln_2), blk.mlp, act=act)
+            output = attn_out if output is None else output + attn_out
+            # the ordinary stream runs through the full block when a later block,
+            # a capture or layer fusion reads it; otherwise nothing does
+            need_w = call.apply_layer_fusion or (capture_attn and layer in src_layers)
+            if need_w or i < last_n - 1:
+                x, w_attn = _resblock(blk, x, heads, act, need_weights=need_w)
+                if call.apply_layer_fusion:
+                    attn_acc = fuse_attention_ema(attn_acc, w_attn, call.layer_fusion_lambda)
+                elif need_w:
+                    captured.append(w_attn)
 
-    if call.apply_layer_fusion and call.apply_outlier_suppression:
-        output = layer_fusion_reweight(output, attn_acc, call.outlier_top_k)
+    with span("rs_ov/vit/post"):
+        attn_weights = None
+        if captured:
+            attn_weights = captured[0] if len(captured) == 1 else sum(captured) / len(captured)
 
-    if call.apply_self_attn_enhancement and attn_weights is not None:
-        output = _patch_stage(output, gh, gw, lambda s: self_attention_enhance(
-            s, attn_weights, gh, gw, mode=call.self_attn_mode,
-            enhancement_strength=call.self_attn_strength,
-            min_self_attn_threshold=call.self_attn_threshold,
-            top_k=call.self_attn_top_k))
+        if call.apply_som:
+            purified, _, _ = suppress_outlier_module(
+                output[:, 1:], qk_attn, gh, gw,
+                consensus_threshold=call.som_consensus_threshold,
+                detection_mode=call.som_detection_mode,
+                self_sufficiency_ratio=call.som_self_sufficiency_ratio)
+            output = torch.cat([output[:, :1], purified], dim=1)
 
-    if call.apply_outlier_suppression and attn_weights is not None:
-        output = _patch_stage(output, gh, gw, lambda s: outlier_suppress(
-            s, attn_weights, gh, gw, top_k=call.outlier_top_k,
-            contamination_temp=call.contamination_temp))
+        if call.apply_layer_fusion and call.apply_outlier_suppression:
+            output = layer_fusion_reweight(output, attn_acc, call.outlier_top_k)
 
-    def pool(y):
-        return y[:, 1:].mean(1) if vcfg.pool_type == "avg" else y[:, 0]
+        if call.apply_self_attn_enhancement and attn_weights is not None:
+            output = _patch_stage(output, gh, gw, lambda s: self_attention_enhance(
+                s, attn_weights, gh, gw, mode=call.self_attn_mode,
+                enhancement_strength=call.self_attn_strength,
+                min_self_attn_threshold=call.self_attn_threshold,
+                top_k=call.self_attn_top_k))
 
-    if vcfg.final_ln_after_pool:
-        pooled, tokens = layer_norm(pool(output), p.ln_post), output[:, 1:]
-    else:
-        x = layer_norm(output, p.ln_post)
-        pooled, tokens = pool(x), x[:, 1:]
-    proj = p.proj.float()
-    dtype = output.dtype
-    return (torch.matmul(pooled.float(), proj).to(dtype),
-            torch.matmul(tokens.float(), proj).to(dtype))
+        if call.apply_outlier_suppression and attn_weights is not None:
+            output = _patch_stage(output, gh, gw, lambda s: outlier_suppress(
+                s, attn_weights, gh, gw, top_k=call.outlier_top_k,
+                contamination_temp=call.contamination_temp))
+
+        def pool(y):
+            return y[:, 1:].mean(1) if vcfg.pool_type == "avg" else y[:, 0]
+
+        if vcfg.final_ln_after_pool:
+            pooled, tokens = layer_norm(pool(output), p.ln_post), output[:, 1:]
+        else:
+            x = layer_norm(output, p.ln_post)
+            pooled, tokens = pool(x), x[:, 1:]
+        proj = p.proj.float()
+        dtype = output.dtype
+        return (torch.matmul(pooled.float(), proj).to(dtype),
+                torch.matmul(tokens.float(), proj).to(dtype))
+

@@ -47,6 +47,13 @@ contiguous block (the "model" ranks repeat it), cross-tile fusion sees the
 tokens gathered over "data", and the per-crop logits are gathered back, so
 every rank stitches and returns the whole result.
 
+Each step runs in a span of ``utils.profiling`` (recorded only while its
+recorder is on): ``rs_ov/request`` around each entry call,
+``rs_ov/entry/prepare``, ``rs_ov/vit/tower``, one ``rs_ov/entry/chunk`` a
+chunk (``debias``, the upsampler's ``rs_ov/jbu/call``, ``logit_resize``),
+``rs_ov/entry/stitch`` and ``postprocess`` per image, and
+``rs_ov/setup/segmentor`` around the constructor.
+
 Precision follows the JAX package with the card in the TPU's role: bf16
 weights and activations on CUDA by default (fp32 LayerNorm, softmax and
 product results), fp32 on the CPU; ``param_dtype`` chooses. The segmentor
@@ -85,6 +92,7 @@ from rs_ov_torch.text.templates import OPENAI_IMAGENET_TEMPLATES
 from rs_ov_torch.text.wordpiece import WordPieceTokenizer
 from rs_ov_torch.upsample.jbu import (get_upsampler, get_upsampler_nhwc,
                                       get_upsampler_nhwc_classify)
+from rs_ov_torch.utils.profiling import REQUEST, annotate, span
 from rs_ov_torch.utils.resize import resize_bilinear
 
 __all__ = ["SegmentorEx", "Segmentor"]
@@ -117,6 +125,7 @@ def _torch_dtype(dtype) -> torch.dtype:
 class SegmentorEx:
     """Training-free open-vocabulary segmentor, the production recipe."""
 
+    @annotate("rs_ov/setup/segmentor")
     def __init__(self,
                  clip_type: str = "CLIP",
                  vit_type: str = "ViT-B/16",
@@ -194,53 +203,56 @@ class SegmentorEx:
         # no implicit download: without params or a checkpoint, random
         # weights from the seed keep the pipeline runnable
         self.clip = self.blip = None
-        if self.is_blip:
-            self.cfg = clip_config if clip_config is not None else (
-                BlipConfig.base(slide_crop) if "B" in vit_type else BlipConfig.large(slide_crop))
-            if params is not None:
-                model = blip_params_from_numpy(params)
-            elif checkpoint_path:
-                model = blip_params_from_state_dict(load_torch_state_dict(checkpoint_path))
+        with span("rs_ov/setup/tower"):
+            if self.is_blip:
+                self.cfg = clip_config if clip_config is not None else (
+                    BlipConfig.base(slide_crop) if "B" in vit_type
+                    else BlipConfig.large(slide_crop))
+                if params is not None:
+                    model = blip_params_from_numpy(params)
+                elif checkpoint_path:
+                    model = blip_params_from_state_dict(load_torch_state_dict(checkpoint_path))
+                else:
+                    model = init_blip_params(torch.Generator().manual_seed(seed), self.cfg)
+                self.blip = model.to(device=self.device, dtype=param_dtype)
             else:
-                model = init_blip_params(torch.Generator().manual_seed(seed), self.cfg)
-            self.blip = model.to(device=self.device, dtype=param_dtype)
-        else:
-            self.cfg = clip_config if clip_config is not None else get_model_config(
-                _resolve_arch(clip_type, vit_type))
-            if self.cfg.vision.timm_model_name:
-                # the JAX segmentor would build a plain ViT from the config's
-                # ViT fields; the port refuses (ROADMAP queue 3)
-                raise NotImplementedError(
-                    f"SegmentorEx takes CLIP ViT towers only: the decontamination hooks "
-                    f"do not apply to the timm tower {self.cfg.vision.timm_model_name} "
-                    "(a deliberate difference from the JAX package, ROADMAP queue 3)")
-            if params is not None:
-                model = clip_params_from_numpy(params, self.cfg)
-            elif checkpoint_path:
-                model = clip_params_from_state_dict(load_torch_state_dict(checkpoint_path),
-                                                    self.cfg)
-            else:
-                model = init_clip_params(torch.Generator().manual_seed(seed), self.cfg)
-            self.clip = model.to(device=self.device, dtype=param_dtype)
+                self.cfg = clip_config if clip_config is not None else get_model_config(
+                    _resolve_arch(clip_type, vit_type))
+                if self.cfg.vision.timm_model_name:
+                    # the JAX segmentor would build a plain ViT from the config's
+                    # ViT fields; the port refuses (ROADMAP queue 3)
+                    raise NotImplementedError(
+                        f"SegmentorEx takes CLIP ViT towers only: the decontamination hooks "
+                        f"do not apply to the timm tower {self.cfg.vision.timm_model_name} "
+                        "(a deliberate difference from the JAX package, ROADMAP queue 3)")
+                if params is not None:
+                    model = clip_params_from_numpy(params, self.cfg)
+                elif checkpoint_path:
+                    model = clip_params_from_state_dict(load_torch_state_dict(checkpoint_path),
+                                                        self.cfg)
+                else:
+                    model = init_clip_params(torch.Generator().manual_seed(seed), self.cfg)
+                self.clip = model.to(device=self.device, dtype=param_dtype)
         self.patch_size = self.cfg.vision.patch_size
         self.gem_depth, self.ss_attn_iter, self.ss_attn_temp = gem_depth, ss_attn_iter, ss_attn_temp
 
-        query_words, self.query_idx = get_cls_idx(name_path)
-        self.num_queries = len(query_words)
-        self.num_classes = max(self.query_idx) + 1
-        if query_features is not None:
-            self.query_features = torch.as_tensor(
-                np.asarray(query_features, np.float32)).to(self.device)
-        elif self.is_blip:
-            self.query_features = self._build_blip_classifier(query_words, templates,
-                                                              blip_vocab_path)
-        else:
-            self.query_features = build_text_classifier(
-                self.clip.text, query_words, self.cfg.text,
-                quick_gelu=self.cfg.quick_gelu, templates=templates)
-        self._onehot = torch.from_numpy(query_onehot(self.query_idx)).to(self.device)
-        self._mean = torch.from_numpy(PREPROC_MEAN).to(self.device)
-        self._std = torch.from_numpy(PREPROC_STD).to(self.device)
+        with span("rs_ov/setup/queries"):
+            query_words, self.query_idx = get_cls_idx(name_path)
+            self.num_queries = len(query_words)
+            self.num_classes = max(self.query_idx) + 1
+            if query_features is not None:
+                self.query_features = torch.as_tensor(
+                    np.asarray(query_features, np.float32)).to(self.device)
+            elif self.is_blip:
+                self.query_features = self._build_blip_classifier(query_words, templates,
+                                                                  blip_vocab_path)
+            else:
+                self.query_features = build_text_classifier(
+                    self.clip.text, query_words, self.cfg.text,
+                    quick_gelu=self.cfg.quick_gelu, templates=templates)
+            self._onehot = torch.from_numpy(query_onehot(self.query_idx)).to(self.device)
+            self._mean = torch.from_numpy(PREPROC_MEAN).to(self.device)
+            self._std = torch.from_numpy(PREPROC_STD).to(self.device)
 
         sim_cfg = dict(similarity_weight=1.0, temperature=1.0, add_self_similarity=True)
         sim_cfg.update(similarity_enhancement_cfg or {})
@@ -317,15 +329,16 @@ class SegmentorEx:
             model_path = up_cfg.get("model_path")
             # random init unless weights are given, as the JAX package does:
             # a missing model_path falls back to it
-            if upsampler_params is not None:
-                up = load_numpy_tree(init(torch.Generator(), self.cfg.embed_dim),
-                                     upsampler_params)
-            elif model_path and os.path.exists(model_path):
-                up = jbu_params_from_state_dict(load_torch_state_dict(model_path),
-                                                self.upsampler_name)
-            else:
-                up = init(torch.Generator().manual_seed(seed + 1), self.cfg.embed_dim)
-            self.upsampler = up.to(device=self.device, dtype=param_dtype)
+            with span("rs_ov/setup/upsampler"):
+                if upsampler_params is not None:
+                    up = load_numpy_tree(init(torch.Generator(), self.cfg.embed_dim),
+                                         upsampler_params)
+                elif model_path and os.path.exists(model_path):
+                    up = jbu_params_from_state_dict(load_torch_state_dict(model_path),
+                                                    self.upsampler_name)
+                else:
+                    up = init(torch.Generator().manual_seed(seed + 1), self.cfg.embed_dim)
+                self.upsampler = up.to(device=self.device, dtype=param_dtype)
 
     # ------------------------------------------------------------------
 
@@ -371,40 +384,51 @@ class SegmentorEx:
 
     def _decontam_and_classify(self, tokens, cls_norm, cls_logits, tiles, grid_hw,
                                pads, tile_hw):
-        """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]."""
+        """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]: one chunk, in
+        the span ``rs_ov/entry/chunk``."""
         gh, gw = grid_hw
         t, _, c = tokens.shape
-        tokens = global_debias(tokens, cls_norm, self.global_debias_factor)
-        if self.apply_ctd:
-            _, labels = cluster_patch_tokens_dbscan(tokens, (gh, gw), self.ctd_cfg)
-            tokens = adaptive_debiasing(tokens, labels, cls_norm, factor=-1.5)
-        out_hw = (gh, gw)
-        if not self.apply_sim_feat_up:
-            logits = self._classify(tokens)
-        else:
-            route = self._jbu_route(tokens)
-            if route == "nhwc_classify":
-                lg = self._upsample_classify_nhwc(self.upsampler, tokens.reshape(t, gh, gw, c),
-                                                  tiles, self.query_features)
-                out_hw = lg.shape[1:3]
-                logits = lg.reshape(t, -1, lg.shape[-1])
-            elif route == "nhwc":
-                up = self._upsample_fn_nhwc(self.upsampler, tokens.reshape(t, gh, gw, c), tiles)
-                out_hw = up.shape[1:3]
-                logits = self._classify(up.reshape(t, -1, c))
+        with span("rs_ov/entry/chunk", crops=t):
+            with span("rs_ov/entry/debias"):
+                tokens = global_debias(tokens, cls_norm, self.global_debias_factor)
+                if self.apply_ctd:
+                    _, labels = cluster_patch_tokens_dbscan(tokens, (gh, gw), self.ctd_cfg)
+                    tokens = adaptive_debiasing(tokens, labels, cls_norm, factor=-1.5)
+            out_hw = (gh, gw)
+            if not self.apply_sim_feat_up:
+                logits = self._classify(tokens)
             else:
-                feats = tokens.transpose(1, 2).reshape(t, c, gh, gw)
-                up = self._upsample_fn(self.upsampler, feats, tiles)
-                out_hw = up.shape[-2:]
-                logits = self._classify(up.reshape(t, c, -1).transpose(1, 2))
-        if self.cls_token_lambda != 0.0:
-            logits = logits + cls_logits[:, None, :] * self.cls_token_lambda
-        logits = logits.transpose(1, 2).reshape(t, -1, *out_hw)  # [T, Q, ph, pw]
-        pad_h = tile_hw[0] + pads[2] + pads[3]
-        pad_w = tile_hw[1] + pads[0] + pads[1]
-        logits = resize_bilinear(logits, (pad_h, pad_w))
-        left, _, top, _ = pads
-        return logits[:, :, top:top + tile_hw[0], left:left + tile_hw[1]]
+                route = self._jbu_route(tokens)
+                # rs_ov/jbu/call holds the upsampler's call alone: the work
+                # of the benchmark's perfbench/jbu/_upsample_* spans
+                if route == "nhwc_classify":
+                    src = tokens.reshape(t, gh, gw, c)
+                    with span("rs_ov/jbu/call", route=route):
+                        lg = self._upsample_classify_nhwc(self.upsampler, src, tiles,
+                                                          self.query_features)
+                    out_hw = lg.shape[1:3]
+                    logits = lg.reshape(t, -1, lg.shape[-1])
+                elif route == "nhwc":
+                    src = tokens.reshape(t, gh, gw, c)
+                    with span("rs_ov/jbu/call", route=route):
+                        up = self._upsample_fn_nhwc(self.upsampler, src, tiles)
+                    out_hw = up.shape[1:3]
+                    logits = self._classify(up.reshape(t, -1, c))
+                else:
+                    feats = tokens.transpose(1, 2).reshape(t, c, gh, gw)
+                    with span("rs_ov/jbu/call", route=route):
+                        up = self._upsample_fn(self.upsampler, feats, tiles)
+                    out_hw = up.shape[-2:]
+                    logits = self._classify(up.reshape(t, c, -1).transpose(1, 2))
+            with span("rs_ov/entry/logit_resize"):
+                if self.cls_token_lambda != 0.0:
+                    logits = logits + cls_logits[:, None, :] * self.cls_token_lambda
+                logits = logits.transpose(1, 2).reshape(t, -1, *out_hw)  # [T, Q, ph, pw]
+                pad_h = tile_hw[0] + pads[2] + pads[3]
+                pad_w = tile_hw[1] + pads[0] + pads[1]
+                logits = resize_bilinear(logits, (pad_h, pad_w))
+                left, _, top, _ = pads
+                return logits[:, :, top:top + tile_hw[0], left:left + tile_hw[1]]
 
     def _chunk_size(self) -> int:
         """Crops per decontam / JBU / classify chunk; 0 runs all at once
@@ -444,11 +468,13 @@ class SegmentorEx:
             coords, grid_shape = ((0, 0, h_img, w_img),), (1, 1)
         ch, cw = coords[0][2] - coords[0][0], coords[0][3] - coords[0][1]
         pads = compute_padsize(ch, cw, self.patch_size)
-        tiles = torch.cat([extract_tiles(im, coords) for im in imgs])
-        tiles = torch.nn.functional.pad(tiles, pads)  # (left, right, top, bottom)
+        with span("rs_ov/entry/prepare"):
+            tiles = torch.cat([extract_tiles(im, coords) for im in imgs])
+            tiles = torch.nn.functional.pad(tiles, pads)  # (left, right, top, bottom)
         tile_logits = self._forward_tiles(tiles, grid_shape, pads, (ch, cw), n)
         return tile_logits.reshape(n, len(coords), *tile_logits.shape[1:]), coords
 
+    @annotate("rs_ov/vit/tower")
     def _tower(self, tiles: torch.Tensor):
         """Crops [T, 3, ch, cw] in the weights' dtype -> (tokens [T, P, C],
         CLS features [T, C], CLS logits [T, Q], the crops the upsampler
@@ -465,14 +491,15 @@ class SegmentorEx:
                 ignore_residual=self.call.ignore_residual, quick_gelu_act=self.cfg.quick_gelu)
         else:
             pooled, tokens = vit_forward(self.clip.visual, tiles, self.cfg.vision, self.call)
-        if self.is_blip or self.model_type == "GEM":  # patch tokens only: no CLS
-            cls_norm = torch.zeros((tokens.shape[0], tokens.shape[-1]), device=self.device)
-            cls_logits = torch.zeros((tokens.shape[0], self.query_features.shape[0]),
-                                     device=self.device)
-        else:
-            p32 = pooled.float()
-            cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-            cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
+        with span("rs_ov/vit/post"):  # the tower's tail: the CLS logits
+            if self.is_blip or self.model_type == "GEM":  # patch tokens only: no CLS
+                cls_norm = torch.zeros((tokens.shape[0], tokens.shape[-1]), device=self.device)
+                cls_logits = torch.zeros((tokens.shape[0], self.query_features.shape[0]),
+                                         device=self.device)
+            else:
+                p32 = pooled.float()
+                cls_norm = p32 / p32.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+                cls_logits = cls_norm @ self.query_features.t()  # [N*T, Q]
         return tokens, cls_norm, cls_logits, tiles
 
     def _data_block(self, x: torch.Tensor) -> torch.Tensor:
@@ -501,9 +528,10 @@ class SegmentorEx:
         whole batch gathered, and the logits are gathered back: every rank
         returns all of them."""
         n = tiles.shape[0]
-        tiles = tiles.to(self.param_dtype)
-        if self.mesh is not None:
-            tiles = self._data_block(tiles)
+        with span("rs_ov/entry/prepare"):
+            tiles = tiles.to(self.param_dtype)
+            if self.mesh is not None:
+                tiles = self._data_block(tiles)
         tokens, cls_norm, cls_logits, tiles = self._tower(tiles)
         grid_hw = (tiles.shape[-2] // self.patch_size, tiles.shape[-1] // self.patch_size)
         if self.apply_cross_tile_fusion:
@@ -525,11 +553,13 @@ class SegmentorEx:
         eh, ew = extent or (h_img, w_img)
         results = []
         for tl in tile_logits:
-            canvas = stitch(tl, coords, h_img, w_img)[:, :eh, :ew]
-            probs, pred = postprocess_logits(
-                resize_bilinear(canvas, ori_shape), self._onehot,
-                logit_scale=self.logit_scale, prob_thd=self.prob_thd, bg_idx=self.bg_idx,
-                pred_dtype=self.pred_dtype)
+            with span("rs_ov/entry/stitch"):
+                canvas = stitch(tl, coords, h_img, w_img)[:, :eh, :ew]
+            with span("rs_ov/entry/postprocess"):
+                probs, pred = postprocess_logits(
+                    resize_bilinear(canvas, ori_shape), self._onehot,
+                    logit_scale=self.logit_scale, prob_thd=self.prob_thd, bg_idx=self.bg_idx,
+                    pred_dtype=self.pred_dtype)
             results.append({"seg_logits": probs, "pred_sem_seg": pred})
         return results
 
@@ -540,7 +570,8 @@ class SegmentorEx:
 
     def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         """uint8 [..., H, W, 3] on the device -> normalised fp32 [..., 3, H, W]."""
-        return ((x.float() - self._mean) / self._std).movedim(-1, -3)
+        with span("rs_ov/entry/prepare"):
+            return ((x.float() - self._mean) / self._std).movedim(-1, -3)
 
     @staticmethod
     def _meta(data_samples, i: int) -> dict:
@@ -574,12 +605,15 @@ class SegmentorEx:
         """Per-pixel logits [B, Q, H, W] of normalised images [B, 3, H, W] in
         one shot, without the sliding window (rs_ov/pipeline/segmentor.py:661-675);
         resized to ``logit_size`` when given."""
-        x = torch.as_tensor(np.asarray(img, np.float32) if not torch.is_tensor(img)
-                            else img).to(self.device, torch.float32)
-        h, w = x.shape[-2:]
-        pads = compute_padsize(h, w, self.patch_size)
-        logits = self._forward_tiles(torch.nn.functional.pad(x, pads), (1, 1), pads, (h, w))
-        return logits if logit_size is None else resize_bilinear(logits, tuple(logit_size))
+        with span(REQUEST, entry="forward_feature", images=len(img)):
+            with span("rs_ov/entry/prepare"):
+                x = torch.as_tensor(np.asarray(img, np.float32) if not torch.is_tensor(img)
+                                    else img).to(self.device, torch.float32)
+                h, w = x.shape[-2:]
+                pads = compute_padsize(h, w, self.patch_size)
+                x = torch.nn.functional.pad(x, pads)
+            logits = self._forward_tiles(x, (1, 1), pads, (h, w))
+            return logits if logit_size is None else resize_bilinear(logits, tuple(logit_size))
 
     @torch.no_grad()
     def predict_raw(self, inputs, data_samples=None):
@@ -587,17 +621,19 @@ class SegmentorEx:
         run on the device. Returns one {'seg_logits': [C, oh, ow],
         'pred_sem_seg': [1, oh, ow]} per image, on the device. With a shape
         bucket the uint8 image is padded with 0 (normalised: -mean/std)."""
-        x = torch.as_tensor(np.asarray(inputs)).to(self.device)
-        results = []
-        for i, im in enumerate(x):
-            h, w = im.shape[:2]
-            ori_shape = self._ori_shape(data_samples, i, (h, w))
-            if self.shape_bucket:
-                ph, pw = self._bucket_pad(h, w)
-                im = torch.nn.functional.pad(im, (0, 0, 0, pw, 0, ph))
-            results += self._forward_images(self._normalise(im)[None], ori_shape, (h, w))
-        self._maybe_dump(results, data_samples)
-        return results
+        with span(REQUEST, entry="predict_raw", images=len(inputs)):
+            with span("rs_ov/entry/prepare"):
+                x = torch.as_tensor(np.asarray(inputs)).to(self.device)
+            results = []
+            for i, im in enumerate(x):
+                h, w = im.shape[:2]
+                ori_shape = self._ori_shape(data_samples, i, (h, w))
+                if self.shape_bucket:
+                    ph, pw = self._bucket_pad(h, w)
+                    im = torch.nn.functional.pad(im, (0, 0, 0, pw, 0, ph))
+                results += self._forward_images(self._normalise(im)[None], ori_shape, (h, w))
+            self._maybe_dump(results, data_samples)
+            return results
 
     @torch.no_grad()
     def predict_batch_raw(self, inputs, data_samples=None):
@@ -614,27 +650,31 @@ class SegmentorEx:
         if len(shapes) != 1:
             raise ValueError(f"predict_batch_raw needs a shape-homogeneous batch, got "
                              f"ori_shapes {sorted(shapes)}")
-        x = torch.as_tensor(inputs).to(self.device)
-        results = self._forward_images(self._normalise(x), shapes.pop())
-        self._maybe_dump(results, data_samples)
-        return results
+        with span(REQUEST, entry="predict_batch_raw", images=n):
+            with span("rs_ov/entry/prepare"):
+                x = torch.as_tensor(inputs).to(self.device)
+            results = self._forward_images(self._normalise(x), shapes.pop())
+            self._maybe_dump(results, data_samples)
+            return results
 
     @torch.no_grad()
     def predict(self, inputs, data_samples=None):
         """inputs [B, 3, H, W] mean/std-normalised RGB (numpy or tensor). With
         a shape bucket the image is padded with 0 (the dataset mean)."""
-        x = torch.as_tensor(np.asarray(inputs, np.float32) if not torch.is_tensor(inputs)
-                            else inputs).to(self.device, torch.float32)
-        results = []
-        for i, img in enumerate(x):
-            h, w = img.shape[-2:]
-            ori_shape = self._ori_shape(data_samples, i, (h, w))
-            if self.shape_bucket:
-                ph, pw = self._bucket_pad(h, w)
-                img = torch.nn.functional.pad(img, (0, pw, 0, ph))
-            results += self._forward_images(img[None], ori_shape, (h, w))
-        self._maybe_dump(results, data_samples)
-        return results
+        with span(REQUEST, entry="predict", images=len(inputs)):
+            with span("rs_ov/entry/prepare"):
+                x = torch.as_tensor(np.asarray(inputs, np.float32) if not torch.is_tensor(inputs)
+                                    else inputs).to(self.device, torch.float32)
+            results = []
+            for i, img in enumerate(x):
+                h, w = img.shape[-2:]
+                ori_shape = self._ori_shape(data_samples, i, (h, w))
+                if self.shape_bucket:
+                    ph, pw = self._bucket_pad(h, w)
+                    img = torch.nn.functional.pad(img, (0, pw, 0, ph))
+                results += self._forward_images(img[None], ori_shape, (h, w))
+            self._maybe_dump(results, data_samples)
+            return results
 
 
 class Segmentor(SegmentorEx):

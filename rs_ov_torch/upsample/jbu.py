@@ -19,7 +19,10 @@ Two layouts, as in the JAX package:
   computes the range logits and both reflect pads itself.
 
 The guidance stays channel-first in both. On the CPU every kernel wrapper
-takes its plain version. ``get_upsampler`` also hands out the alternates of
+takes its plain version. Each stage runs in the span ``rs_ov/jbu/stage``
+(``utils.profiling``; its index and its epilogue operator as attributes),
+its operands in ``rs_ov/jbu/operands`` and its epilogue's call in
+``rs_ov/jbu/epilogue``. ``get_upsampler`` also hands out the alternates of
 ``upsample/alternates.py`` (resize_conv, ifa, carafe, sapa), channel-first
 only.
 """
@@ -40,6 +43,7 @@ from rs_ov_torch.kernels.jbu_epilogue import (jbu_epilogue, jbu_epilogue_classif
 from rs_ov_torch.kernels.range_logits import range_logits
 from rs_ov_torch.upsample import alternates
 from rs_ov_torch.utils.device_cache import device_cache
+from rs_ov_torch.utils.profiling import span
 from rs_ov_torch.utils.resize import (adaptive_avg_pool2d, reflect_pad_2d,
                                       reflect_pad_nhwc, resize_bicubic,
                                       resize_bicubic_nhwc, resize_bilinear)
@@ -121,23 +125,28 @@ def _fixup_weights(fx):
 
 
 def jbu_module_forward(p, source: torch.Tensor, guidance: torch.Tensor,
-                       radius: int) -> torch.Tensor:
+                       radius: int, stage: int = 0) -> torch.Tensor:
     """One learned-range JBU step, channel-first: source [B, C, h, w] +
-    guidance [B, G, GH, GW] -> [B, C, GH, GW] (rs_ov/upsample/jbu.py:140-206)."""
+    guidance [B, G, GH, GW] -> [B, C, GH, GW] (rs_ov/upsample/jbu.py:140-206);
+    ``stage`` names it in its span."""
     d = radius * 2 + 1
     gh, gw = guidance.shape[-2:]
-    logits = _range_logits(p, guidance, radius)
-    pos_temp = torch.exp(p.range_temp.float()).clamp(1e-4, 1e4)
-    hr_padded = reflect_pad_2d(resize_bicubic(source, (gh, gw)), radius)
-    range_kernel = torch.softmax(logits * pos_temp, dim=1)
-    combined = range_kernel * _spatial_kernel(d, p.sigma_spatial)[None, :, None, None]
-    combined = combined / combined.sum(1, keepdim=True).clamp_min(1e-7)
-    fixup_in = torch.cat([combined.to(guidance.dtype), guidance], dim=1)
-    combined = combined + 0.1 * _proj2(fixup_in, p.fixup_proj).float()
-    # tap-major filters in the source's dtype: bf16 taps are rounded here,
-    # before the kernel (K4a), as rs_ov/upsample/jbu.py:190 does
-    combined = combined.to(hr_padded.dtype).contiguous()
-    return adaptive_conv_tapmajor(hr_padded.contiguous(), combined, d)
+    with span("rs_ov/jbu/stage", stage=stage, kernel="adaptive_conv_tapmajor"):
+        with span("rs_ov/jbu/operands"):
+            logits = _range_logits(p, guidance, radius)
+            pos_temp = torch.exp(p.range_temp.float()).clamp(1e-4, 1e4)
+            hr_padded = reflect_pad_2d(resize_bicubic(source, (gh, gw)), radius)
+            range_kernel = torch.softmax(logits * pos_temp, dim=1)
+            combined = range_kernel * _spatial_kernel(d, p.sigma_spatial)[None, :, None, None]
+            combined = combined / combined.sum(1, keepdim=True).clamp_min(1e-7)
+            fixup_in = torch.cat([combined.to(guidance.dtype), guidance], dim=1)
+            combined = combined + 0.1 * _proj2(fixup_in, p.fixup_proj).float()
+            # tap-major filters in the source's dtype: bf16 taps are rounded here,
+            # before the kernel (K4a), as rs_ov/upsample/jbu.py:190 does
+            combined = combined.to(hr_padded.dtype).contiguous()
+            hr_padded = hr_padded.contiguous()
+        with span("rs_ov/jbu/epilogue"):
+            return adaptive_conv_tapmajor(hr_padded, combined, d)
 
 
 def _final_fixup(x: torch.Tensor, p) -> torch.Tensor:
@@ -159,7 +168,7 @@ def jbu_one_forward(p, source: torch.Tensor, guidance: torch.Tensor,
                     radius: int = 5, stages: int = 4) -> torch.Tensor:
     """JBUOne: one shared module per stage, then the final fixup."""
     out = _staged_upsample(source, guidance,
-                           lambda _s, x, g: jbu_module_forward(p.up, x, g, radius), stages)
+                           lambda s, x, g: jbu_module_forward(p.up, x, g, radius, s), stages)
     return _final_fixup(out, p.final_fixup)
 
 
@@ -167,7 +176,8 @@ def jbu_stack_forward(p, source: torch.Tensor, guidance: torch.Tensor,
                       radius: int = 3, stages: int = 4) -> torch.Tensor:
     """JBUStack: module ``ups[stage]`` at each stage, then the final fixup."""
     out = _staged_upsample(source, guidance,
-                           lambda s, x, g: jbu_module_forward(p.ups[s], x, g, radius), stages)
+                           lambda s, x, g: jbu_module_forward(p.ups[s], x, g, radius, s),
+                           stages)
     return _final_fixup(out, p.final_fixup)
 
 
@@ -208,29 +218,39 @@ def _fused_stage_operands(p, source, guidance_cf, radius):
             pos_temp, *_fixup_weights(p.fixup_proj))
 
 
+def _stage(epilogue, operands, p, source, guidance_cf, radius, stage, tail):
+    """``epilogue(*operands(...), *tail)`` in the stage's spans."""
+    with span("rs_ov/jbu/stage", stage=stage, kernel=epilogue.__name__):
+        with span("rs_ov/jbu/operands"):
+            args = operands(p, source, guidance_cf, radius)
+        with span("rs_ov/jbu/epilogue"):
+            return epilogue(*args, *tail)
+
+
 def jbu_module_forward_nhwc(p, source: torch.Tensor, guidance_cf: torch.Tensor,
-                            radius: int) -> torch.Tensor:
+                            radius: int, stage: int = 0) -> torch.Tensor:
     """One JBU step: source [B, h, w, C] + guidance [B, G, GH, GW] ->
-    [B, GH, GW, C]."""
+    [B, GH, GW, C]; ``stage`` names it in its span."""
     if _fused_range():
-        return jbu_epilogue_fused(*_fused_stage_operands(p, source, guidance_cf, radius),
-                                  radius * 2 + 1)
-    return jbu_epilogue(*_stage_operands(p, source, guidance_cf, radius),
-                        radius * 2 + 1)
+        return _stage(jbu_epilogue_fused, _fused_stage_operands, p, source, guidance_cf,
+                      radius, stage, (radius * 2 + 1,))
+    return _stage(jbu_epilogue, _stage_operands, p, source, guidance_cf, radius, stage,
+                  (radius * 2 + 1,))
 
 
 def jbu_module_forward_nhwc_classify(p, source: torch.Tensor,
                                      guidance_cf: torch.Tensor, final_fixup,
                                      query_features: torch.Tensor,
-                                     radius: int) -> torch.Tensor:
+                                     radius: int, stage: int = 0) -> torch.Tensor:
     """The last JBU step with the final fixup, L2 norm and cosine classifier
-    fused -> [B, GH, GW, Q] fp32 logits."""
+    fused -> [B, GH, GW, Q] fp32 logits; ``stage`` names it in its span."""
     c = source.shape[-1]
     tail = (final_fixup.w.reshape(c, c), final_fixup.b, query_features, radius * 2 + 1)
     if _fused_range():
-        return jbu_epilogue_fused_classify(
-            *_fused_stage_operands(p, source, guidance_cf, radius), *tail)
-    return jbu_epilogue_classify(*_stage_operands(p, source, guidance_cf, radius), *tail)
+        return _stage(jbu_epilogue_fused_classify, _fused_stage_operands, p, source,
+                      guidance_cf, radius, stage, tail)
+    return _stage(jbu_epilogue_classify, _stage_operands, p, source, guidance_cf, radius,
+                  stage, tail)
 
 
 def _final_fixup_nhwc(x: torch.Tensor, p) -> torch.Tensor:
@@ -245,18 +265,18 @@ def _final_fixup_nhwc(x: torch.Tensor, p) -> torch.Tensor:
 def _staged_nhwc(modules, source, guidance_cf, radius):
     """One NHWC JBU step per module, guidance pooled to each target size."""
     x = source
-    for m in modules:
+    for stage, m in enumerate(modules):
         h, w = x.shape[1], x.shape[2]
         x = jbu_module_forward_nhwc(m, x, adaptive_avg_pool2d(guidance_cf, (h * 2, w * 2)),
-                                    radius)
+                                    radius, stage)
     return x
 
 
-def _classify_last_nhwc(m, x, guidance_cf, final_fixup, query_features, radius):
+def _classify_last_nhwc(m, x, guidance_cf, final_fixup, query_features, radius, stage):
     h, w = x.shape[1], x.shape[2]
     return jbu_module_forward_nhwc_classify(
         m, x, adaptive_avg_pool2d(guidance_cf, (h * 2, w * 2)), final_fixup,
-        query_features, radius)
+        query_features, radius, stage)
 
 
 def jbu_one_forward_nhwc(p, source: torch.Tensor, guidance_cf: torch.Tensor,
@@ -280,7 +300,8 @@ def jbu_one_forward_nhwc_classify(p, source: torch.Tensor, guidance_cf: torch.Te
     -> [B, 2^stages h, 2^stages w, Q] fp32 cosine logits. With stages < 4 the
     caller's bilinear logit resize covers the remaining factor."""
     x = _staged_nhwc([p.up] * (stages - 1), source, guidance_cf, radius)
-    return _classify_last_nhwc(p.up, x, guidance_cf, p.final_fixup, query_features, radius)
+    return _classify_last_nhwc(p.up, x, guidance_cf, p.final_fixup, query_features, radius,
+                               stages - 1)
 
 
 def jbu_stack_forward_nhwc_classify(p, source: torch.Tensor, guidance_cf: torch.Tensor,
@@ -291,7 +312,7 @@ def jbu_stack_forward_nhwc_classify(p, source: torch.Tensor, guidance_cf: torch.
     for the classify stage (rs_ov/upsample/jbu.py:361-379)."""
     x = _staged_nhwc(list(p.ups)[:stages - 1], source, guidance_cf, radius)
     return _classify_last_nhwc(p.ups[3], x, guidance_cf, p.final_fixup, query_features,
-                               radius)
+                               radius, stages - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -243,7 +243,9 @@ K1_TOL, K2_TOL, K3_TOL, K4B_TOL, K4A_TOL = 1e-5, 1e-2, 1e-3, 1e-5, 1e-2
 B, D, K, C, G, Q = 2, 11, 32, 512, 3, 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BPS, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
-CHUNKS = 8  # 16 crops of a 512x512 image in chunks of 2
+# decontam / JBU / classify chunks a call runs on the card: its crops (16 a
+# 512x512 image) in one at 2 stages, whatever the batch; in chunks of 2 with CTD
+CHUNKS, CTD_CHUNKS = 1, 8
 DEV = torch.device("cuda")
 # The stages the other towers give the JBU kernels (jbu_one, d=11, two
 # stages): (C, the first stage's output grid, the last stage's); ViT-B/32
@@ -1254,6 +1256,15 @@ def _classify_repairs(seg, image, rows):
     rows["jbu_epilogue_classify"]["request_operands"] = out
 
 
+def _call_chunk(seg, crops=16):
+    """The crops in each decontam / JBU / classify chunk of a call of
+    ``crops`` 224² crops, by the segmentor's default on the card."""
+    grid = 224 // seg.patch_size
+    tokens = torch.empty((crops, grid * grid, seg.query_features.shape[1]),
+                         dtype=seg.param_dtype, device=DEV)
+    return seg._chunk_size(tokens, (grid, grid), (224, 224))
+
+
 def _segmentors():
     """The segmentors phases 4 and 5 drive on the card, by name, with the
     base config's weights and queries."""
@@ -1265,8 +1276,8 @@ def _segmentors():
     print(f"[slice] SegmentorEx built in {time.perf_counter() - t0:.2f} s: "
           f"{seg.cfg.vision.width} wide, {seg.cfg.vision.layers} layers, "
           f"Q={seg.num_queries}, {seg.num_classes} classes, stages={seg.jbu_stages}, "
-          f"tile_chunk={seg._chunk_size()}, dtype={seg.param_dtype}")
-    assert 16 // seg._chunk_size() == CHUNKS
+          f"chunk={_call_chunk(seg)} of a 512x512 image's 16 crops, dtype={seg.param_dtype}")
+    assert -(-16 // _call_chunk(seg)) == CHUNKS
     qf = seg.query_features.cpu().numpy()
     return {"base": seg,
             "base fp32": SegmentorEx(**_base_model_cfg(), param_dtype=torch.float32,
@@ -1368,12 +1379,14 @@ def phase_slice(rows):
         images[:2], {"range_logits": 2 * 4 * CHUNKS, "jbu_epilogue": 2 * 3 * CHUNKS,
                      "jbu_epilogue_classify": 2 * CHUNKS})
     k6 = {**channel_last, "fused_selfself_attention": 3}
+    ctd = {"range_logits": 3 * s * CTD_CHUNKS, "jbu_epilogue": 3 * (s - 1) * CTD_CHUNKS,
+           "jbu_epilogue_classify": 3 * CTD_CHUNKS, "fused_selfself_attention": 3}
     with _env("RS_OV_FUSED_ATTN", "1"):
         by_path["(a) fused attention"] = _drive(
             "(a) base config, RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", seg, images, k6)
         by_path["(b) full stack"] = _drive(
             "(b) SegEarth + CTD + self-attn enhancement + SOM + cross-tile fusion, "
-            "RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", segs["stack"], images, k6)
+            "RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", segs["stack"], images, ctd)
         by_path["(c) ClearCLIP"] = _drive(
             "(c) ClearCLIP + layer fusion + outlier suppression, RS_OV_FUSED_ATTN=1 "
             "(K6 K1 K2 K3)", segs["clearclip"], images, k6)
@@ -1391,9 +1404,9 @@ def phase_slice(rows):
                          "jbu_epilogue_fused_classify": 2 * CHUNKS})
         by_path["batch, fused range"] = _drive_batch(
             "predict_batch_raw of 3 images, RS_OV_JBU_FUSED_RANGE=1 (K5a K5b)", seg, images,
-            fused)
+            {k: v // 3 for k, v in fused.items()})
     by_path["batch"] = _drive_batch("predict_batch_raw of 3 images (K1 K2 K3)", seg, images,
-                                    channel_last)
+                                    {k: v // 3 for k, v in channel_last.items()})
     by_path["entry points"] = _drive_entry_points(segs["base fp32"], images[0])
     _classify_repairs(seg, images[0], rows)
     segs.update(_drive_towers(images, s, by_path))
@@ -1710,10 +1723,12 @@ def phase_eval(rows):
         seg = build_segmentor_from_config(load_config(EVAL_CFG),
                                           {"device": DEV, "pred_dtype": "uint8"})
         s = seg.jbu_stages
-        want = {"range_logits": n * s * CHUNKS, "jbu_epilogue": n * (s - 1) * CHUNKS,
-                "jbu_epilogue_classify": n * CHUNKS}
         results, states = {}, {}
         for batch in (1, 3):
+            calls = n // batch
+            want = {"range_logits": calls * s * CHUNKS,
+                    "jbu_epilogue": calls * (s - 1) * CHUNKS,
+                    "jbu_epilogue_classify": calls * CHUNKS}
             work = os.path.join(tmp, f"batch{batch}")
             _reset_launches()
             results[batch] = run_eval(EVAL_CFG, work_dir=work, segmentor=seg,

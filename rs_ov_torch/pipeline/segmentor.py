@@ -16,8 +16,9 @@ N*T crops at once (every attention mode of ``ATTENTION_MODES``, SOM, layer
 fusion, self-attention enhancement, outlier suppression; or GEM's gem
 stream, or the BLIP ViT with its q.q last block) -> optional cross-tile
 fusion over each image's crops -> in chunks of ``tile_chunk`` crops
-(``RS_OV_TILE_CHUNK``; by default 2 with SimFeatUp, else all at once):
-global CLS debias, optional CTD (DBSCAN, then
+(``RS_OV_TILE_CHUNK``; by default, with SimFeatUp, as many as the modelled
+peak of their temporaries fits in a quarter of the card's memory, or 2 on
+the CPU; without it all at once): global CLS debias, optional CTD (DBSCAN, then
 clustered CLS debias), SimFeatUp (``jbu_one``, ``jbu_stack``, ``bilinear``
 or, random init only, the channel-first alternates ``resize_conv``,
 ``ifa``, ``carafe`` and ``sapa``) and the cosine classifier -> optional CLS-logit blend
@@ -62,6 +63,7 @@ runs on the card unless ``device="cpu"`` is passed.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -95,7 +97,7 @@ from rs_ov_torch.upsample.jbu import (get_upsampler, get_upsampler_nhwc,
 from rs_ov_torch.utils.profiling import REQUEST, annotate, span
 from rs_ov_torch.utils.resize import resize_bilinear
 
-__all__ = ["SegmentorEx", "Segmentor"]
+__all__ = ["SegmentorEx", "Segmentor", "chunk_peak_bytes", "chunk_crops"]
 
 
 def _resolve_arch(clip_type: str, vit_type: str) -> str:
@@ -120,6 +122,69 @@ def _resolve_arch(clip_type: str, vit_type: str) -> str:
 def _torch_dtype(dtype) -> torch.dtype:
     """A torch dtype, or a numpy dtype or its name ("uint8"), as a torch dtype."""
     return dtype if isinstance(dtype, torch.dtype) else getattr(torch, np.dtype(dtype).name)
+
+
+# the upsamplers the chunk's byte model reckons, with the taps (d * d) that
+# upsample.jbu.get_upsampler runs them at (radius 5 and 3)
+_JBU_TAPS = {"jbu_one": 11 * 11, "jbu_stack": 7 * 7}
+
+
+def chunk_peak_bytes(grid_hw: tuple[int, int], stages: int, route: str, width: int,
+                     taps: int, queries: int, dtype: torch.dtype,
+                     crop_hw: tuple[int, int]) -> int:
+    """Modelled peak of one crop's temporaries in a decontam / JBU / classify
+    chunk: the largest live set of the JBU's last stage, which upsamples the
+    source [h, w, C] to [H, W, C] = 2^stages x the token grid, and of the
+    classifier's tail, in the route's dtypes (``width`` C, ``dtype`` the
+    tokens'). It follows the order in which the stage and the tail allocate
+    and free; on an H100 it reads 0.93-1.06 x ``torch.cuda.max_memory_allocated``
+    at C = 512 and 768 on every route, at 1, 2 and 4 stages, for both
+    upsamplers."""
+    b, c, q = dtype.itemsize, width, queries
+    up32 = 0 if b == 4 else 4  # bytes an element of the fp32 upcast of bf16 data
+    h, w = grid_hw[0] << (stages - 1), grid_hw[1] << (stages - 1)
+    hh, ww = 2 * h, 2 * w
+    r = math.isqrt(taps) // 2
+    feat = hh * ww * c  # elements of the last stage's output features
+    src = b * h * w * c
+    logits = 4 * taps * hh * ww  # K1's range logits, fp32
+    # bicubic 2x: the first (row) pass [H, w, C] in the dtype, its fp32 copy
+    # for the second product and the product's own operand copy, then the
+    # second pass's fp32 result
+    bicubic = src + logits + hh * w * c * (b + up32 + 4) + 4 * feat
+    # the reflect pad: unpadded, rows padded, both padded
+    pad = src + logits + b * c * (hh * ww + (hh + 2 * r) * ww + (hh + 2 * r) * (ww + 2 * r))
+    # the logit resize to the crop: the classifier's fp32 logits [H*W, Q],
+    # the row pass [Q, ch, W] and its operand copy, the result [Q, ch, cw];
+    # the features routes still hold their features
+    ch, cw = crop_hw
+    held = 0 if route == "nhwc_classify" else b * feat
+    tail = held + 4 * q * (hh * ww + 2 * ch * ww + ch * cw)
+    phases = [bicubic, pad, tail]
+    if route == "channel_first":
+        # the tap softmax, normalisation and fixup MLP on fp32 [d*d, H, W]
+        # planes beside the padded source, then the tap-major filters
+        phases.append(src + b * c * (hh + 2 * r) * (ww + 2 * r) + (24 + 2 * b) * taps * hh * ww)
+    if route != "nhwc_classify":
+        # the final fixup and the classifier: the features and two fp32
+        # planes, and for bf16 one more: channel-first the features' fp32
+        # upcast, channel-last a bf16 rounding
+        extra = 0 if b == 4 else 4 if route == "channel_first" else 2
+        phases.append(feat * (b + 8 + extra))
+    return b * grid_hw[0] * grid_hw[1] * c + max(phases)  # + the debiased tokens
+
+
+def chunk_crops(crops: int, grid_hw: tuple[int, int], stages: int, upsampler: str,
+                route: str, width: int, taps: int, queries: int, dtype: torch.dtype,
+                crop_hw: tuple[int, int], budget: int) -> int:
+    """Crops per decontam / JBU / classify chunk: the largest count whose
+    modelled peak (``chunk_peak_bytes`` a crop) fits ``budget`` bytes, at
+    least 1 and at most ``crops``; 2 for an upsampler the model does not
+    reckon."""
+    if upsampler not in _JBU_TAPS:
+        return 2
+    per_crop = chunk_peak_bytes(grid_hw, stages, route, width, taps, queries, dtype, crop_hw)
+    return max(1, min(crops, budget // per_crop))
 
 
 class SegmentorEx:
@@ -306,6 +371,10 @@ class SegmentorEx:
         self.result_dir = result_dir
         self.heatmap_dir = heatmap_dir
         self.tile_chunk = tile_chunk  # 0: RS_OV_TILE_CHUNK or the default, at call time
+        # the default chunk's byte budget on the card: a quarter of its
+        # memory, whatever other processes hold (None on the CPU)
+        self._chunk_budget = (torch.cuda.get_device_properties(self.device).total_memory // 4
+                              if self.device.type == "cuda" else None)
         self.shape_bucket = shape_bucket or int(os.environ.get("RS_OV_SHAPE_BUCKET", "0"))
         # a parallel.mesh DeviceMesh: the crop batch split over its "data" axis
         self.mesh = mesh
@@ -383,12 +452,12 @@ class SegmentorEx:
         return torch.stack(feats)
 
     def _decontam_and_classify(self, tokens, cls_norm, cls_logits, tiles, grid_hw,
-                               pads, tile_hw):
-        """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]: one chunk, in
-        the span ``rs_ov/entry/chunk``."""
+                               pads, tile_hw, chunks: int = 1):
+        """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]: one chunk of
+        ``chunks`` in the call, in the span ``rs_ov/entry/chunk``."""
         gh, gw = grid_hw
         t, _, c = tokens.shape
-        with span("rs_ov/entry/chunk", crops=t):
+        with span("rs_ov/entry/chunk", crops=t, of=chunks):
             with span("rs_ov/entry/debias"):
                 tokens = global_debias(tokens, cls_norm, self.global_debias_factor)
                 if self.apply_ctd:
@@ -430,24 +499,42 @@ class SegmentorEx:
                 left, _, top, _ = pads
                 return logits[:, :, top:top + tile_hw[0], left:left + tile_hw[1]]
 
-    def _chunk_size(self) -> int:
-        """Crops per decontam / JBU / classify chunk; 0 runs all at once
+    def _chunk_size(self, tokens: Optional[torch.Tensor] = None, grid_hw=None,
+                    crop_hw=None) -> int:
+        """Crops per decontam / JBU / classify chunk; 0 runs all at once.
+        ``tile_chunk``, else ``RS_OV_TILE_CHUNK``; else 0 without SimFeatUp;
+        else, for a call's tokens [T, P, C] on the card, ``chunk_crops``
+        under the budget: each chunk launches the whole operand chain
+        again; else (no tokens, the CPU, CTD) the JAX package's 2
         (rs_ov/pipeline/segmentor.py:496-497)."""
-        return self.tile_chunk or int(os.environ.get(
-            "RS_OV_TILE_CHUNK", "2" if self.apply_sim_feat_up else "0"))
+        if self.tile_chunk:
+            return self.tile_chunk
+        env = os.environ.get("RS_OV_TILE_CHUNK")
+        if env is not None:
+            return int(env)
+        if not self.apply_sim_feat_up:
+            return 0
+        if tokens is None or self._chunk_budget is None or self.apply_ctd:
+            return 2
+        return chunk_crops(tokens.shape[0], grid_hw, self.jbu_stages, self.upsampler_name,
+                           self._jbu_route(tokens), tokens.shape[-1],
+                           _JBU_TAPS.get(self.upsampler_name, 0),
+                           self.query_features.shape[0], tokens.dtype, crop_hw,
+                           self._chunk_budget)
 
     def _chunked_decontam(self, tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
                           tile_hw):
         """Debias + JBU + classify in chunks of crops: the upsampler's
         temporaries scale with the chunk, the ViT still runs on all crops."""
-        c, t = self._chunk_size(), tokens.shape[0]
+        crop_hw = (tile_hw[0] + pads[2] + pads[3], tile_hw[1] + pads[0] + pads[1])
+        c, t = self._chunk_size(tokens, grid_hw, crop_hw), tokens.shape[0]
         if not c or t <= c:
             return self._decontam_and_classify(tokens, cls_norm, cls_logits, tiles,
                                                grid_hw, pads, tile_hw)
         return torch.cat([
             self._decontam_and_classify(tokens[i:i + c], cls_norm[i:i + c],
                                         cls_logits[i:i + c], tiles[i:i + c], grid_hw,
-                                        pads, tile_hw)
+                                        pads, tile_hw, -(-t // c))
             for i in range(0, t, c)])
 
     def _fuse_tiles(self, tokens, grid_shape, grid_hw, n_images: int):

@@ -51,7 +51,9 @@ every rank stitches and returns the whole result.
 Each step runs in a span of ``utils.profiling`` (recorded only while its
 recorder is on): ``rs_ov/request`` around each entry call,
 ``rs_ov/entry/prepare``, ``rs_ov/vit/tower``, one ``rs_ov/entry/chunk`` a
-chunk (``debias``, the upsampler's ``rs_ov/jbu/call``, ``logit_resize``),
+chunk (its crops, its call's chunk count ``of``, its modelled peak
+``peak_bytes`` and the card's ``budget``; inside, ``debias``, the
+upsampler's ``rs_ov/jbu/call``, ``logit_resize``),
 ``rs_ov/entry/stitch`` and ``postprocess`` per image, and
 ``rs_ov/setup/segmentor`` around the constructor.
 
@@ -452,12 +454,19 @@ class SegmentorEx:
         return torch.stack(feats)
 
     def _decontam_and_classify(self, tokens, cls_norm, cls_logits, tiles, grid_hw,
-                               pads, tile_hw, chunks: int = 1):
+                               pads, tile_hw, chunks: int = 1,
+                               crop_bytes: Optional[int] = None):
         """tokens [T, P, C] -> per-tile logits [T, Q, th, tw]: one chunk of
-        ``chunks`` in the call, in the span ``rs_ov/entry/chunk``."""
+        ``chunks`` in the call, in the span ``rs_ov/entry/chunk``; with
+        ``crop_bytes`` (``chunk_peak_bytes`` of a crop) the span also holds
+        the chunk's modelled peak, ``peak_bytes``, and the card's ``budget``."""
         gh, gw = grid_hw
         t, _, c = tokens.shape
-        with span("rs_ov/entry/chunk", crops=t, of=chunks):
+        with span("rs_ov/entry/chunk", crops=t, of=chunks) as sp:
+            if crop_bytes is not None:
+                sp.set(peak_bytes=crop_bytes * t)
+            if self._chunk_budget is not None:
+                sp.set(budget=self._chunk_budget)
             with span("rs_ov/entry/debias"):
                 tokens = global_debias(tokens, cls_norm, self.global_debias_factor)
                 if self.apply_ctd:
@@ -522,19 +531,29 @@ class SegmentorEx:
                            self.query_features.shape[0], tokens.dtype, crop_hw,
                            self._chunk_budget)
 
+    def _crop_bytes(self, tokens: torch.Tensor, grid_hw, crop_hw) -> Optional[int]:
+        """``chunk_peak_bytes`` of one of the call's crops; None without
+        SimFeatUp or for an upsampler the model does not reckon."""
+        if not self.apply_sim_feat_up or self.upsampler_name not in _JBU_TAPS:
+            return None
+        return chunk_peak_bytes(grid_hw, self.jbu_stages, self._jbu_route(tokens),
+                                tokens.shape[-1], _JBU_TAPS[self.upsampler_name],
+                                self.query_features.shape[0], tokens.dtype, crop_hw)
+
     def _chunked_decontam(self, tokens, cls_norm, cls_logits, tiles, grid_hw, pads,
                           tile_hw):
         """Debias + JBU + classify in chunks of crops: the upsampler's
         temporaries scale with the chunk, the ViT still runs on all crops."""
         crop_hw = (tile_hw[0] + pads[2] + pads[3], tile_hw[1] + pads[0] + pads[1])
         c, t = self._chunk_size(tokens, grid_hw, crop_hw), tokens.shape[0]
+        crop_bytes = self._crop_bytes(tokens, grid_hw, crop_hw)
         if not c or t <= c:
             return self._decontam_and_classify(tokens, cls_norm, cls_logits, tiles,
-                                               grid_hw, pads, tile_hw)
+                                               grid_hw, pads, tile_hw, 1, crop_bytes)
         return torch.cat([
             self._decontam_and_classify(tokens[i:i + c], cls_norm[i:i + c],
                                         cls_logits[i:i + c], tiles[i:i + c], grid_hw,
-                                        pads, tile_hw, -(-t // c))
+                                        pads, tile_hw, -(-t // c), crop_bytes)
             for i in range(0, t, c)])
 
     def _fuse_tiles(self, tokens, grid_shape, grid_hw, n_images: int):

@@ -20,11 +20,14 @@ Two layouts, as in the JAX package:
 
 The guidance stays channel-first in both. On the CPU every kernel wrapper
 takes its plain version. Each stage runs in the span ``rs_ov/jbu/stage``
-(``utils.profiling``; its index and its epilogue operator as attributes),
-its operands in ``rs_ov/jbu/operands`` and its epilogue's call in
-``rs_ov/jbu/epilogue``. ``get_upsampler`` also hands out the alternates of
-``upsample/alternates.py`` (resize_conv, ifa, carafe, sapa), channel-first
-only.
+(``utils.profiling``; as attributes its index, its epilogue operator, its
+output's side in pixels and ``operand_bytes``, the bytes of the tensors its
+epilogue takes: the padded bicubic source and the range logits (channel-first:
+the taps made from them), or with the fused range the unpadded bicubic source
+and the projection, beside the guidance and the fixup weights), its operands
+in ``rs_ov/jbu/operands`` and its epilogue's call in ``rs_ov/jbu/epilogue``.
+``get_upsampler`` also hands out the alternates of ``upsample/alternates.py``
+(resize_conv, ifa, carafe, sapa), channel-first only.
 """
 
 from __future__ import annotations
@@ -131,7 +134,8 @@ def jbu_module_forward(p, source: torch.Tensor, guidance: torch.Tensor,
     ``stage`` names it in its span."""
     d = radius * 2 + 1
     gh, gw = guidance.shape[-2:]
-    with span("rs_ov/jbu/stage", stage=stage, kernel="adaptive_conv_tapmajor"):
+    with span("rs_ov/jbu/stage", stage=stage, kernel="adaptive_conv_tapmajor",
+              side=gh) as sp:
         with span("rs_ov/jbu/operands"):
             logits = _range_logits(p, guidance, radius)
             pos_temp = torch.exp(p.range_temp.float()).clamp(1e-4, 1e4)
@@ -145,8 +149,14 @@ def jbu_module_forward(p, source: torch.Tensor, guidance: torch.Tensor,
             # before the kernel (K4a), as rs_ov/upsample/jbu.py:190 does
             combined = combined.to(hr_padded.dtype).contiguous()
             hr_padded = hr_padded.contiguous()
+        sp.set(operand_bytes=hr_padded.nbytes + combined.nbytes)
         with span("rs_ov/jbu/epilogue"):
             return adaptive_conv_tapmajor(hr_padded, combined, d)
+
+
+def _tensor_bytes(args) -> int:
+    """Bytes of the tensors among a stage epilogue's operands."""
+    return sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
 
 
 def _final_fixup(x: torch.Tensor, p) -> torch.Tensor:
@@ -220,9 +230,11 @@ def _fused_stage_operands(p, source, guidance_cf, radius):
 
 def _stage(epilogue, operands, p, source, guidance_cf, radius, stage, tail):
     """``epilogue(*operands(...), *tail)`` in the stage's spans."""
-    with span("rs_ov/jbu/stage", stage=stage, kernel=epilogue.__name__):
+    with span("rs_ov/jbu/stage", stage=stage, kernel=epilogue.__name__,
+              side=guidance_cf.shape[-2]) as sp:
         with span("rs_ov/jbu/operands"):
             args = operands(p, source, guidance_cf, radius)
+        sp.set(operand_bytes=_tensor_bytes(args))
         with span("rs_ov/jbu/epilogue"):
             return epilogue(*args, *tail)
 

@@ -5,8 +5,9 @@
     nothing, after one check of a module-level flag. While ``recording()``
     is on, a span records its name, its id, its parent's id, its request's
     id (the id of the outermost ``rs_ov/request`` span it lies in), its
-    thread, its start and end, ``attrs``, and how many times each kernel
-    operator launched while it was open (``kernels.build.launch_counts``).
+    thread, its start and end, ``attrs`` (with those its ``set`` adds while
+    it is open), and how many times each kernel operator launched while it
+    was open (``kernels.build.launch_counts``).
     Start and end are Unix nanoseconds, the time base of torch.profiler's
     host events (its chrome trace counts microseconds from
     ``baseTimeNanoseconds``). While a profiler is active, each span is also
@@ -69,6 +70,9 @@ class _Off:
         return self
 
     def __exit__(self, *exc):
+        return None
+
+    def set(self, **attrs) -> None:
         return None
 
 
@@ -141,10 +145,15 @@ class _Span:
                       self.start, end, tuple(self.attrs.items()), launched))
         return None
 
+    def set(self, **attrs) -> None:
+        """Add ``attrs`` to the span's record: what is known only inside it."""
+        self.attrs.update(attrs)
+
 
 def span(name: str, **attrs):
     """A context manager around one step of the program named ``name``;
-    ``attrs`` (numbers and strings) go into its record."""
+    ``attrs`` (numbers and strings) go into its record, and so do those the
+    entered span's ``set(**attrs)`` adds (a no-op while the recorder is off)."""
     rec = _recorder
     if rec is None or torch.compiler.is_exporting():
         return _OFF

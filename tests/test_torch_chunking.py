@@ -5,8 +5,10 @@ on the CPU, for CTD and for the upsamplers the model does not reckon it
 stays 2; ``tile_chunk`` and ``RS_OV_TILE_CHUNK`` override it, in that
 order; each ``rs_ov/entry/chunk`` span says how many chunks its call ran.
 On a card: a batch of 8 512x512 tiles runs as one chunk and gives what chunks
-of 2 give, and the model's estimate is held against ``torch.cuda.max_memory_allocated``
-on every route, 1, 2 and 4 stages, both upsamplers and two widths:
+of 2 give, the model's estimate is held against ``torch.cuda.max_memory_allocated``
+on every route, 1, 2 and 4 stages, both upsamplers and two widths, and at 4
+stages one chunk of 79 crops, whose padded source passes 2^31 elements, gives
+what chunks of 8 give, bit for bit:
 
     python -m pytest tests/test_torch_chunking.py --noconftest -m cuda -s
 """
@@ -180,15 +182,26 @@ def _chunk_spans(seg, images):
 
 def test_each_chunk_span_counts_the_chunks_of_its_call(tmp_path, monkeypatch):
     """A 48 x 64 image is 6 crops of 32: 2 images in chunks of 2 are 6
-    spans of 2 crops, each of=6; with a chunk of all 12 crops, one span."""
+    spans of 2 crops, each of=6; with a chunk of all 12 crops, one span.
+    Each span holds its chunk's modelled peak (the CPU's channel-first
+    route, 4 x 4 tokens, 4 queries, fp32), and with a budget the budget."""
     monkeypatch.delenv("RS_OV_TILE_CHUNK", raising=False)
     images = np.random.RandomState(3).randint(0, 256, (2, 48, 64, 3), np.uint8)
     seg = _segmentor(tmp_path, clip_config=_cfg(16, patch=8))
-    assert _chunk_spans(seg, images) == [{"crops": 2, "of": 6}] * 6
+    per = chunk_peak_bytes((4, 4), 2, "channel_first", 16, ONE, 4, F32, (32, 32))
+
+    def chunk(crops, of, **budget):
+        return {"crops": crops, "of": of, "peak_bytes": crops * per, **budget}
+
+    assert _chunk_spans(seg, images) == [chunk(2, 6)] * 6
     seg._chunk_budget = BUDGET
-    assert _chunk_spans(seg, images) == [{"crops": 12, "of": 1}]
+    assert _chunk_spans(seg, images) == [chunk(12, 1, budget=BUDGET)]
     seg.tile_chunk = 5
-    assert _chunk_spans(seg, images) == [{"crops": 5, "of": 3}] * 2 + [{"crops": 2, "of": 3}]
+    assert _chunk_spans(seg, images) == ([chunk(5, 3, budget=BUDGET)] * 2
+                                         + [chunk(2, 3, budget=BUDGET)])
+    bilinear = _segmentor(tmp_path, clip_config=_cfg(16, patch=8),
+                          sim_feat_up_cfg=dict(model_name="bilinear"))
+    assert _chunk_spans(bilinear, images) == [{"crops": 2, "of": 6}] * 6
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +257,8 @@ def test_a_batch_of_8_tiles_runs_as_one_chunk(cuda):
     images = np.random.RandomState(2).randint(0, 256, (8, 512, 512, 3), np.uint8)
     seg.predict_batch_raw(images)  # warm-up
     spans = _chunk_spans(seg, images)
-    assert spans == [{"crops": 128, "of": 1}], spans
+    assert [(a["crops"], a["of"]) for a in spans] == [(128, 1)], spans
+    assert spans[0]["peak_bytes"] == 128 * _per_crop(14, 512) <= spans[0]["budget"], spans
     got, peaks = _chunk_peak(seg, lambda: seg.predict_batch_raw(images))
     seg.tile_chunk = 2
     ref = seg.predict_batch_raw(images)
@@ -297,3 +311,44 @@ def test_the_byte_model_holds_on_the_card(cuda, tmp_path, monkeypatch, width, gr
     print(f"{route} {dtype} {upsampler} stages {stages} C {width}: peak {peaks[0] / crops:.0f} "
           f"bytes a crop, modelled {est / crops:.0f} (ratio {est / peaks[0]:.3f})")
     assert est >= 0.75 * peaks[0], (peaks[0], est)
+
+
+@pytest.mark.cuda
+def test_a_chunk_past_two_to_the_31_elements_equals_chunks_of_8(cuda, tmp_path, monkeypatch):
+    """ViT-B/16's width and token grid at jbu_one's 4 stages, bf16 on the
+    default route (nhwc_classify): one chunk of 79 crops, the most the
+    card's budget takes, whose last stage's padded source [79, 234, 234,
+    512] holds more than 2^31 elements, gives the logits of the same crops
+    in chunks of 8 bit for bit; its peak allocation lies within 10% of the
+    model's ``chunk_peak_bytes`` x 79."""
+    monkeypatch.delenv("RS_OV_TILE_CHUNK", raising=False)
+    crops, grid, width = 79, 14, 512
+    assert crops * (16 * grid + 10) ** 2 * width > 2 ** 31
+    seg = _segmentor(tmp_path, embed=width, device=cuda, param_dtype=BF16, tile_chunk=crops,
+                     clip_config=_cfg(width, 16),
+                     sim_feat_up_cfg=dict(model_name="jbu_one", num_stages=4))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = seg.query_features.shape[0]
+    tokens = torch.randn((crops, grid * grid, width), generator=g, device=cuda).to(BF16)
+    cls_norm = torch.nn.functional.normalize(torch.randn((crops, width), generator=g,
+                                                         device=cuda), dim=-1)
+    tiles = torch.randn((crops, 3, 224, 224), generator=g, device=cuda).to(BF16)
+    cls_logits = torch.zeros((crops, q), device=cuda)
+    assert seg._jbu_route(tokens) == "nhwc_classify"
+
+    def call():
+        return seg._chunked_decontam(tokens, cls_norm, cls_logits, tiles, (grid, grid),
+                                     (0, 0, 0, 0), (224, 224))
+
+    call()  # warm-up
+    got, peaks = _chunk_peak(seg, call)
+    seg.tile_chunk = 8
+    ref = call()
+    est = crops * _per_crop(grid, width, stages=4, queries=q)
+    diff = (got - ref).abs().max().item()
+    print(f"79 crops at 4 stages: peak {peaks[0]} bytes, modelled {est} (ratio "
+          f"{est / peaks[0]:.3f}); max|chunk of 79 - chunks of 8| {diff:.3e} on "
+          f"{torch.cuda.get_device_name(cuda)}")
+    assert got.shape == (crops, q, 224, 224) and torch.isfinite(got).all()
+    assert torch.equal(got, ref), diff
+    assert abs(peaks[0] - est) <= 0.1 * est, (peaks[0], est)

@@ -73,6 +73,7 @@ _SIGNATURES = {
     "rs_selfself_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32_smem": [_I, _I, _I],
+    "rs_layer_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -175,12 +176,14 @@ def _counted() -> tuple:
     module imports this one."""
     from rs_ov_torch.kernels import adaptive_conv as ac
     from rs_ov_torch.kernels import jbu_epilogue as je
+    from rs_ov_torch.kernels import layer_norm as ln
     from rs_ov_torch.kernels import range_logits as rl
     from rs_ov_torch.kernels import selfself_attention as sa
 
     return ((rl.range_logits, je.jbu_epilogue, je.jbu_epilogue_classify, je.jbu_epilogue_fused,
              je.jbu_epilogue_fused_classify, ac.adaptive_conv_planes, ac.adaptive_conv_cl,
-             ac.adaptive_conv_v3, ac.adaptive_conv_v4, sa.fused_selfself_attention),
+             ac.adaptive_conv_v3, ac.adaptive_conv_v4, sa.fused_selfself_attention,
+             ln.layer_norm),
             ac.adaptive_conv_tapmajor)
 
 

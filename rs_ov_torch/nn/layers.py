@@ -1,14 +1,17 @@
 """Primitive layers (rs_ov/nn/layers.py).
 
 Precision policy as in the JAX package: LayerNorm computes in fp32 and casts
-back; a linear layer multiplies its (possibly bf16) operands with fp32 sums
-(``matmul32``), adds the bias in fp32 and returns the input's dtype.
+back (on the card in one kernel, K7); a linear layer multiplies its (possibly
+bf16) operands with fp32 sums (``matmul32``), adds the bias in fp32 and
+returns the input's dtype.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from rs_ov_torch.kernels.layer_norm import layer_norm as _layer_norm
 
 __all__ = ["layer_norm", "linear", "matmul32", "gelu", "quick_gelu", "mlp"]
 
@@ -87,12 +90,9 @@ def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis in fp32. ``p`` has ``scale`` and ``bias``."""
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = (x32 - mean).square().mean(-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
+    """LayerNorm over the last axis in fp32. ``p`` has ``scale`` and ``bias``.
+    One launch of the kernel K7 on the card (``kernels/layer_norm.py``)."""
+    return _layer_norm(x, p.scale, p.bias, eps)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:

@@ -10,6 +10,8 @@ This file imports no jax, so that on a card it runs with
     python -m pytest tests/test_torch_custom_ops.py --noconftest -m cuda
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from rs_ov_torch.kernels import adaptive_conv as ac
 from rs_ov_torch.kernels import build
 from rs_ov_torch.kernels import jbu_epilogue as epi
+from rs_ov_torch.kernels import layer_norm as ln
 from rs_ov_torch.kernels import range_logits as rl
 from rs_ov_torch.kernels import selfself_attention as sa
 
@@ -44,13 +47,16 @@ OPS = {
                                        sa.fused_selfself_attention, None),
     "fused_selfself_attention[fp32]": (sa._fused_selfself_attention_cuda,
                                        sa.fused_selfself_attention, None),
+    "layer_norm[bf16]": (ln._layer_norm_cuda, ln.layer_norm, None),
+    "layer_norm[fp32]": (ln._layer_norm_cuda, ln.layer_norm, None),
 }
 
 
 def _samples(name: str, device) -> tuple:
     """The operator's arguments, drawn from a seed: the dtypes and layouts
-    its kernel takes."""
-    rng = np.random.RandomState(sorted(OPS).index(name))
+    its kernel takes. The seed is a hash of the name alone, so that adding
+    an operator leaves the others' samples as they were."""
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
 
     def t(*shape, dtype=torch.float32, scale=1.0):
         return torch.from_numpy(np.asarray(rng.randn(*shape) * scale, np.float32)).to(
@@ -74,6 +80,8 @@ def _samples(name: str, device) -> tuple:
         filt_dt = torch.float32 if name in ("adaptive_conv_planes", "adaptive_conv_v3") else dt
         return t(2, C, H + D - 1, W + D - 1, dtype=dt), t(2, D * D, H, W, dtype=filt_dt), D
     dt = torch.float32 if name.endswith("[fp32]") else bf
+    if name.startswith("layer_norm"):
+        return t(2, 5, 24, dtype=dt), t(24, dtype=dt), t(24, dtype=dt, scale=0.1), 1e-5
     q, k, v = (t(2, 3, 17, 16, dtype=dt) for _ in range(3))
     return q, k, v, t(2, 17, 17, scale=0.1), "SCLIP", 0.7
 
@@ -101,7 +109,7 @@ def test_operator_schema_and_fake_on_the_cpu(name, monkeypatch):
     def no_library():
         raise AssertionError("the kernel library was loaded")
 
-    for mod in (build, rl, epi, ac, sa):
+    for mod in (build, rl, epi, ac, sa, ln):
         monkeypatch.setattr(mod, "load_library", no_library)
     torch.library.opcheck(_op(name), _samples(name, "cpu"),
                           test_utils=("test_schema", "test_faketensor"))

@@ -213,9 +213,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 against the meshless segmentor (predict_raw and
                 predict_batch_raw, MESH_TOL, the same launches; one card
                 holds one rank), and utils.profiling.trace of one live and
-                one served request: each trace names its span, K1's
-                operator and the kernels K1-K3; kernel launches, device ms
-                and host span printed.
+                one served request: each trace names its span and the
+                kernels K1-K3, the served one K1's operator, the live one
+                no operator (eager calls launch directly); kernel launches,
+                device ms and host span printed.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -234,6 +235,8 @@ import time
 
 import numpy as np
 import torch
+
+from rs_ov_torch.kernels.build import launch_counts
 
 CARD = {}
 # Each bound is on max|kernel - plain| / max|plain|. K3's logits here reach
@@ -509,8 +512,8 @@ def _classify_check(rng, dev, tail, d, hw, c=C, more_faults=True):
     r = _check(f"K3 jbu_epilogue_classify {tag}", K3_TOL, wrapper, plain, dropped,
                _epilogue_bound(hw, hw, True, d, C=c), faults=faults if more_faults else (),
                oracle=_in_order(plain))
-    _out, args, _keep = mod._classify_operands(**a, diameter=d)  # _out outlives the calls
-    _bare_beside_wrapper(f"K3 {tag}", r, "rs_jbu_epilogue_classify", args, wrapper)
+    _out, entry, args, _keep = mod._classify_operands(**a, diameter=d)  # they outlive the calls
+    _bare_beside_wrapper(f"K3 {tag}", r, entry, args, wrapper)
     return r
 
 
@@ -564,8 +567,8 @@ def phase_kernels():
         c = _check(f"K1 range_logits d={d} H=W={hw}", K1_TOL, wrapper,
                    lambda: range_logits_plain(padded, proj, d),
                    lambda: _last_tap_dropped(range_logits_plain(padded, proj, d)), bound)
-        _out, args = _range_logits_operands(padded, proj, d)  # _out outlives the calls
-        _bare_beside_wrapper(f"K1 d={d} H=W={hw}", c, "rs_range_logits", args, wrapper)
+        _out, entry, args, _keep = _range_logits_operands(padded, proj, d)  # outlive the calls
+        _bare_beside_wrapper(f"K1 d={d} H=W={hw}", c, entry, args, wrapper)
         k1.append((f"B={B} K={K} d={d} H=W={hw}", c))
 
     k2 = []
@@ -582,8 +585,8 @@ def phase_kernels():
         r = _check(f"K2 jbu_epilogue {tag}", K2_TOL, wrapper,
                    lambda: jbu_epilogue_plain(**a, diameter=d), faulty,
                    _epilogue_bound(hw, hw, False, d, C=c))
-        _out, args, _keep = _epilogue_operands(**a, diameter=d)  # _out outlives the calls
-        _bare_beside_wrapper(f"K2 {tag}", r, "rs_jbu_epilogue", args, wrapper)
+        _out, entry, args, _keep = _epilogue_operands(**a, diameter=d)  # outlive the calls
+        _bare_beside_wrapper(f"K2 {tag}", r, entry, args, wrapper)
         k2.append((f"B={B} d={d} C={c} G={G} H=W={hw}", r))
 
     tail = _tail(rng, dev)
@@ -681,11 +684,11 @@ def _layer_norm_kernel(rng, dev):
         c["bf16_gap"] = float((diff / (step + 1e-5 * ref.abs().max())).max())
         c["outputs_past_one_step"] = int((diff > step).sum())
         assert c["bf16_gap"] <= 1, (label, c["bf16_gap"])
-        _out, args = _layer_norm_operands(x, scale, bias, 1e-5)  # _out outlives the calls
-        _bare_beside_wrapper(label, c, "rs_layer_norm", args, wrapper)
+        _out, entry, args, _keep = _layer_norm_operands(x, scale, bias, 1e-5)  # outlive them
+        _bare_beside_wrapper(label, c, entry, args, wrapper)
         library = lambda: F.layer_norm(x, (d,), scale, bias, 1e-5)  # noqa: E731
         c["library_ms"], _ = _timed_pair(library, wrapper)
-        fn, stream = getattr(load_library(), "rs_layer_norm"), torch.cuda.current_stream()
+        fn, stream = getattr(load_library(), entry), torch.cuda.current_stream()
         bare = lambda: fn(*args, stream.cuda_stream)  # noqa: E731
         operator = lambda: torch.ops.rs_ov.layer_norm(x, scale, bias, 1e-5)  # noqa: E731
         for key, call in (("kernel_stream_ms", bare), ("stream_ms", wrapper),
@@ -778,11 +781,11 @@ def _fused_range_kernels(rng, dev):
             if extra is None:
                 kernel = lambda: mod.jbu_epilogue_fused(**a, diameter=d)  # noqa: E731
                 plain = lambda: mod.jbu_epilogue_fused_plain(**a, diameter=d)  # noqa: E731
-                operands, entry = mod._fused_operands, "rs_jbu_epilogue_fused"
+                operands = mod._fused_operands
             else:
                 kernel = lambda: mod.jbu_epilogue_fused_classify(**a, **t, diameter=d)  # noqa: E731
                 plain = lambda: mod.jbu_epilogue_fused_classify_plain(**a, **t, diameter=d)  # noqa: E731
-                operands, entry = mod._fused_classify_operands, "rs_jbu_epilogue_fused_classify"
+                operands = mod._fused_classify_operands
 
             def dropped():
                 with _epilogue_conv_without_last_tap():
@@ -797,7 +800,7 @@ def _fused_range_kernels(rng, dev):
                        _epilogue_bound(hw, hw, extra is not None, d, fused=True, C=c),
                        faults=[("zero padding", zero_padded)] if c == C else (),
                        oracle=None if extra is None else _in_order(plain))
-            _out, args, _keep = operands(**a, **t, diameter=d)  # _out outlives the calls
+            _out, entry, args, _keep = operands(**a, **t, diameter=d)  # outlive the calls
             _bare_beside_wrapper(label, r, entry, args, kernel)
             split = lambda: _split_stage(a, d, extra)  # noqa: E731
             got, ref = kernel().float(), split().float()
@@ -918,7 +921,7 @@ def _bf16_conv_kernels(rng, dev):
                 c = _check(label, K4B_TOL if dt_in == f32 else K4A_TOL, wrapper, plain,
                            lambda: adaptive_conv_bf16_plain(inp, _last_tap_dropped(filt), d),
                            bound, faults=faults)
-                _out, entry, args = _rounded_operands(inp, filt, d, key == "K4f")  # outlives them
+                _out, entry, args, _keep = _rounded_operands(inp, filt, d, key == "K4f")
                 _bare_beside_wrapper(label, c, entry, args, wrapper)
                 c["tiling"] = list(args[-2:])
                 c["bound_ms_fp32_cores"] = _bound(nbytes, fp32_ops=ops)[0]
@@ -946,9 +949,9 @@ def _adaptive_conv_kernels(rng, dev):
 
     rows = {}
     for dtype, key, tol, name, tpu_line in (
-            (torch.float32, "K4b", K4B_TOL, "adaptive_conv_f32",
+            (torch.float32, "K4b", K4B_TOL, "adaptive_conv_tapmajor.f32",
              "rs_ov/kernels/adaptive_conv_v2.py:99"),
-            (torch.bfloat16, "K4a", K4A_TOL, "adaptive_conv_bf16",
+            (torch.bfloat16, "K4a", K4A_TOL, "adaptive_conv_tapmajor.bf16",
              "rs_ov/kernels/adaptive_conv_v5.py:68")):
         esz = torch.finfo(dtype).bits // 8
         checks = []
@@ -968,7 +971,7 @@ def _adaptive_conv_kernels(rng, dev):
                        lambda: ac.adaptive_conv_tapmajor_plain(inp, filt, d),
                        lambda: ac.adaptive_conv_tapmajor_plain(inp, _last_tap_dropped(filt), d),
                        bound)
-            _out, entry, args = ac._adaptive_conv_operands(inp, filt, d)  # _out outlives them
+            _out, entry, args, _keep = ac._adaptive_conv_operands(inp, filt, d)  # outlive them
             _bare_beside_wrapper(label, r, entry, args, wrapper)
             r["tiling"] = list(args[-2:])
             if dtype == torch.float32:
@@ -1064,7 +1067,7 @@ def _k6_case(q, k, v, sm, mode):
                lambda: fused_selfself_attention_plain(q, k, v, sm, mode=mode),
                lambda: fused_selfself_attention_plain(q, k, v, masked, mode=mode),
                bound, dropped="key")
-    _out, entry, args = _attention_operands(q, k, v, sm, mode, 1.0)  # _out outlives them
+    _out, entry, args, _keep = _attention_operands(q, k, v, sm, mode, 1.0)  # outlive them
     _bare_beside_wrapper(f"K6 {tag}", c, entry, args, wrapper)
     if dtype == torch.bfloat16:
         c["bound_ms_weights_v_fp32"] = earlier[0]
@@ -1151,10 +1154,7 @@ def _blip_cfg(**kw):
             "blip_vocab_path": BLIP_VOCAB, **kw}
 
 
-KERNELS = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "adaptive_conv_bf16",
-           "adaptive_conv_f32", "fused_selfself_attention", "jbu_epilogue_fused",
-           "jbu_epilogue_fused_classify", "adaptive_conv_planes", "adaptive_conv_cl",
-           "adaptive_conv_v3", "adaptive_conv_v4", "layer_norm")
+KERNELS = tuple(launch_counts())  # every kernel, by its launch counter's name
 # K7's launches in one image-tower pass (one a call: every crop of a request or
 # a batch goes through the tower at once), read from the towers' code: ln_pre,
 # ln_1 and ln_2 of each front block, the last block's ln_1 alone (the base
@@ -1162,23 +1162,6 @@ KERNELS = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "adaptive_co
 # block whole too (27); GEM runs every block whole (26); BLIP has no ln_pre (24).
 LN_PER_PASS = {"ViT-B-16": 25, "ViT-B-32": 25, "ViT-B-16-quickgelu": 25, "ViT-L-14": 49,
                "ViT-L-14-quickgelu": 49, "ViT-H-14": 65, "ClearCLIP": 27, "GEM": 26, "BLIP": 24}
-
-
-def _counted():
-    """(module-level function, key of its launches dict or None) per kernel."""
-    from rs_ov_torch.kernels import adaptive_conv as ac
-    from rs_ov_torch.kernels import jbu_epilogue as epi
-    from rs_ov_torch.kernels import layer_norm as ln
-    from rs_ov_torch.kernels.range_logits import range_logits
-    from rs_ov_torch.kernels.selfself_attention import fused_selfself_attention
-
-    return dict(zip(KERNELS, (
-        (range_logits, None), (epi.jbu_epilogue, None), (epi.jbu_epilogue_classify, None),
-        (ac.adaptive_conv_tapmajor, torch.bfloat16), (ac.adaptive_conv_tapmajor, torch.float32),
-        (fused_selfself_attention, None), (epi.jbu_epilogue_fused, None),
-        (epi.jbu_epilogue_fused_classify, None), (ac.adaptive_conv_planes, None),
-        (ac.adaptive_conv_cl, None), (ac.adaptive_conv_v3, None), (ac.adaptive_conv_v4, None),
-        (ln.layer_norm, None))))
 
 
 @contextlib.contextmanager
@@ -1202,17 +1185,9 @@ def _layer_norms_on_the_card():
         layers._layer_norm = fn
 
 
-def _launches():
-    return {k: (fn.launches if key is None else fn.launches[key])
-            for k, (fn, key) in _counted().items()}
-
-
-def _reset_launches():
-    for fn, key in _counted().values():
-        if key is None:
-            fn.launches = 0
-        else:
-            fn.launches[key] = 0
+def _since(before):
+    """Each kernel's launches since ``before``, a snapshot of launch_counts()."""
+    return {k: n - before[k] for k, n in launch_counts().items()}
 
 
 @contextlib.contextmanager
@@ -1238,9 +1213,11 @@ def _check_results(route, seg, results):
         assert 0 <= int(pred.min()) and int(pred.max()) < seg.num_classes, "label range"
 
 
-def _expect_launches(route, n_images, want):
-    launches = _launches()
-    want = {k: want.get(k, 0) for k in KERNELS}
+def _expect_launches(route, n_images, want, before):
+    """The launches since ``before`` against ``want`` (0 for a kernel it
+    leaves out); a name that is no kernel's fails the gate."""
+    launches = _since(before)
+    want = {**dict.fromkeys(KERNELS, 0), **want}
     print(f"[slice] {route}: launches over {n_images} image(s) {launches} "
           f"(expected {want})")
     assert launches == want, (route, launches, want)
@@ -1248,10 +1225,10 @@ def _expect_launches(route, n_images, want):
 
 
 def _drive(route, seg, images, want):
-    """predict_raw on each image with every launch counter at 0 before and
-    read after; checks the outputs and the counts; prints the crops/s and
-    512² tiles/s of the requests after the first; returns the counts."""
-    _reset_launches()
+    """predict_raw on each image, the launches counted from before the first
+    to after the last; checks the outputs and the counts; prints the crops/s
+    and 512² tiles/s of the requests after the first; returns the counts."""
+    before = launch_counts()
     secs = []
     for img in images:
         t0 = time.perf_counter()
@@ -1259,7 +1236,7 @@ def _drive(route, seg, images, want):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         _check_results(route, seg, res)
-    launches = _expect_launches(route, len(images), want)
+    launches = _expect_launches(route, len(images), want, before)
     steady = float(np.median(secs[1:] if len(secs) > 1 else secs))
     print(f"[slice] {route}: request seconds {[round(x, 4) for x in secs]}; "
           f"{16 / steady:.2f} crops/s (224²), {1 / steady:.2f} 512² tiles/s (16 crops per "
@@ -1268,20 +1245,19 @@ def _drive(route, seg, images, want):
 
 
 def _drive_batch(route, seg, images, want):
-    """predict_batch_raw on all images as one batch, twice: the counters are
-    set to 0 before the second call and read after it, and the second call
-    is timed."""
+    """predict_batch_raw on all images as one batch, twice: the second call's
+    launches are counted, and the second call is timed."""
     batch = np.concatenate(images)
     seg.predict_batch_raw(batch)
     torch.cuda.synchronize()
-    _reset_launches()
+    before = launch_counts()
     t0 = time.perf_counter()
     res = seg.predict_batch_raw(batch)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     assert len(res) == len(images)
     _check_results(route, seg, res)
-    launches = _expect_launches(route, len(images), want)
+    launches = _expect_launches(route, len(images), want, before)
     n = 16 * len(images)
     print(f"[slice] {route}: {secs:.4f} s for the batch; {n / secs:.2f} crops/s (224²), "
           f"{n / 16 / secs:.2f} 512² tiles/s ({n} crops) on {CARD['smi']}")
@@ -1320,7 +1296,7 @@ def _drive_entry_points(seg, image):
     with _recording(jbu, "adaptive_conv_tapmajor") as calls:
         seg.predict_raw(image)
     refs = [adaptive_conv_bf16_plain(*args) for args, _ in calls]
-    _reset_launches()
+    before = launch_counts()
     worst = {"K4c K4d": 0.0, "K4e K4f": 0.0}
     for ((inp, filt, d), ref), ref16 in zip(calls, refs):
         for key, fns, want in (("K4c K4d", (adaptive_conv_planes, adaptive_conv_cl), ref),
@@ -1331,7 +1307,8 @@ def _drive_entry_points(seg, image):
     torch.cuda.synchronize()
     route = "entry points K4c K4d K4e K4f on one fp32 channel-first request's stage operands"
     launches = _expect_launches(route, 1, {k: len(calls) for k in (
-        "adaptive_conv_planes", "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4")})
+        "adaptive_conv_planes", "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4")},
+                                before)
     print(f"[slice] {route}: {len(calls)} stages, max|d|/max|ref| K4c K4d against K4b "
           f"{worst['K4c K4d']:.3e}, K4e K4f against their plain version {worst['K4e K4f']:.3e} "
           f"(tol {K4B_TOL})")
@@ -1376,7 +1353,7 @@ def _classify_repairs(seg, image, rows):
     y = mod._adaptive_conv_nhwc(inp, mod._comb_fixed(*args[1:9], inp.dtype), d)
     yb = y.to(inp.dtype)
     t = (torch.matmul(yb.float(), fw.to(inp.dtype).float().t()) + fb.float()) * 0.1
-    _out, largs, _keep = mod._classify_operands(*args)  # _out outlives the calls
+    _out, _entry, largs, _keep = mod._classify_operands(*args)  # they outlive the calls
     lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
     ms = _median_ms(lambda: lib.rs_jbu_epilogue_classify(*largs, stream))
     out = {"shape": list(inp.shape[:1]) + list(y.shape[1:]) + [d], "kernel_ms": ms}
@@ -1456,7 +1433,7 @@ def _drive_towers(images, s, by_path):
     n = len(images)
     jbu_cl = {"range_logits": n * s * CHUNKS, "jbu_epilogue": n * (s - 1) * CHUNKS,
               "jbu_epilogue_classify": n * CHUNKS}
-    jbu_cf = {"range_logits": n * s * CHUNKS, "adaptive_conv_f32": n * s * CHUNKS}
+    jbu_cf = {"range_logits": n * s * CHUNKS, "adaptive_conv_tapmajor.f32": n * s * CHUNKS}
     k6 = {"fused_selfself_attention": n}
     kept = {}
     for clip_type, vit_type, arch in TOWERS:
@@ -1517,11 +1494,11 @@ def phase_slice(rows):
                                     channel_last),
         "fp32 channel-first": _drive("fp32 channel-first (K1 K4b K7)", segs["base fp32"],
                                      images, {"range_logits": 3 * s * CHUNKS,
-                                              "adaptive_conv_f32": 3 * s * CHUNKS, **ln})}
+                                              "adaptive_conv_tapmajor.f32": 3 * s * CHUNKS, **ln})}
     with _env("RS_OV_JBU_FUSED", "0"):
         by_path["bf16 channel-first"] = _drive(
             "bf16 channel-first, RS_OV_JBU_FUSED=0 (K1 K4a K7)", seg, images,
-            {"range_logits": 3 * s * CHUNKS, "adaptive_conv_bf16": 3 * s * CHUNKS, **ln})
+            {"range_logits": 3 * s * CHUNKS, "adaptive_conv_tapmajor.bf16": 3 * s * CHUNKS, **ln})
     by_path["jbu_stack 4 stages"] = _drive(
         "jbu_stack 4 stages bf16 channel-last (K1 K2 K3 at d=7, K7)", segs["jbu_stack"],
         images[:2], {"range_logits": 2 * 4 * CHUNKS, "jbu_epilogue": 2 * 3 * CHUNKS,
@@ -1543,7 +1520,7 @@ def phase_slice(rows):
         by_path["fp32 fused attention"] = _drive(
             "fp32 channel-first, RS_OV_FUSED_ATTN=1 (fp32 K6, K1, K4b)", segs["base fp32"],
             images, {"fused_selfself_attention": 3, "range_logits": 3 * s * CHUNKS,
-                     "adaptive_conv_f32": 3 * s * CHUNKS, **ln})
+                     "adaptive_conv_tapmajor.f32": 3 * s * CHUNKS, **ln})
     fused = {"jbu_epilogue_fused": 3 * (s - 1) * CHUNKS, "jbu_epilogue_fused_classify": 3 * CHUNKS,
              **ln}
     with _env("RS_OV_JBU_FUSED_RANGE", "1"):
@@ -1564,7 +1541,8 @@ def phase_slice(rows):
     segs.update(_drive_towers(images, s, by_path))
     own = {"range_logits": "bf16 channel-last", "jbu_epilogue": "bf16 channel-last",
            "jbu_epilogue_classify": "bf16 channel-last",
-           "adaptive_conv_f32": "fp32 channel-first", "adaptive_conv_bf16": "bf16 channel-first",
+           "adaptive_conv_tapmajor.f32": "fp32 channel-first",
+           "adaptive_conv_tapmajor.bf16": "bf16 channel-first",
            "fused_selfself_attention": "(a) fused attention",
            "jbu_epilogue_fused": "(d) fused range",
            "jbu_epilogue_fused_classify": "(d) fused range",
@@ -1897,11 +1875,11 @@ def phase_eval(rows):
                     "jbu_epilogue_classify": calls * CHUNKS,
                     "layer_norm": calls * LN_PER_PASS["ViT-B-16"]}
             work = os.path.join(tmp, f"batch{batch}")
-            _reset_launches()
+            before = launch_counts()
             results[batch] = run_eval(EVAL_CFG, work_dir=work, segmentor=seg,
                                       batch_images=batch, verbose=False)
             launches = _expect_launches(f"eval: run_eval batch_images={batch} (K1 K2 K3 K7)",
-                                        n, want)
+                                        n, want, before)
             for k in KERNELS:
                 rows[k]["launches_by_path"][f"eval batch {batch}"] = launches[k]
             states[batch] = _state(work)
@@ -2091,17 +2069,17 @@ def _layerscale_left_out(model):
 
 def _fused_entry(models, images, rows):
     """encode_image(model_type="Experimental") with RS_OV_FUSED_ATTN=1: K6
-    once (counters at 0 before, read after), against the plain route."""
+    launched once, against the plain route."""
     for dtype, model in models:
         plain = model.encode_image(images, model_type="Experimental", output_cls_token=True)
         with _env("RS_OV_FUSED_ATTN", "1"), _layer_norms_on_the_card() as lns:
-            _reset_launches()
+            before = launch_counts()
             fused = model.encode_image(images, model_type="Experimental",
                                        output_cls_token=True)
             torch.cuda.synchronize()
             label = f"entry: ViT-B-16 encode_image Experimental {dtype}, RS_OV_FUSED_ATTN=1 (K6)"
             launches = _expect_launches(label, images.shape[0], {"fused_selfself_attention": 1,
-                                                                 "layer_norm": lns[0]})
+                                                                 "layer_norm": lns[0]}, before)
         rows["fused_selfself_attention"]["launches_by_path"][f"entry {dtype}"] = \
             launches["fused_selfself_attention"]
         errs = [_rel(f, p) for f, p in zip(fused, plain)]
@@ -2159,7 +2137,7 @@ def _alternates_entry(images):
             query_features=qf)
         seg.predict_raw(images[0])
         torch.cuda.synchronize()
-        _reset_launches()
+        before = launch_counts()
         t0 = time.perf_counter()
         with _layer_norms_on_the_card() as lns:
             res = seg.predict_raw(images[1])
@@ -2169,7 +2147,7 @@ def _alternates_entry(images):
         if name in ALTERNATES:  # the tower's norms and sapa's own
             assert lns[0] >= LN_PER_PASS["ViT-B-16"], (name, lns[0])
             _expect_launches(f"entry: SegmentorEx with {name} (K7 alone)", 1,
-                             {"layer_norm": lns[0]})
+                             {"layer_norm": lns[0]}, before)
         rates[name] = 16 / secs
         print(f"[entry] SegmentorEx {name}, bf16: {secs:.4f} s for a 512² request, "
               f"{rates[name]:.2f} crops/s (224²) on {CARD['smi']}")
@@ -2325,12 +2303,12 @@ def _timm_tower(name, rng):
     built = time.perf_counter() - t0
     images = torch.from_numpy(rng.randn(TIMM_CPU_BATCH, 3, size, size).astype(np.float32))
     ids = _text_ids(cfg, rng)
-    _reset_launches()
+    before = launch_counts()
     with _layer_norms_on_the_card() as lns:
         card = _encode_pooled(m32, images, ids)
         torch.cuda.synchronize()
     _expect_launches(f"timm: {name} encode_image / encode_text fp32 (K7 alone)", TIMM_CPU_BATCH,
-                     {"layer_norm": lns[0]})
+                     {"layer_norm": lns[0]}, before)
     t0 = time.perf_counter()
     ref = _encode_pooled(cpu, images, ids)
     cpu_s = time.perf_counter() - t0
@@ -2843,13 +2821,13 @@ def _blip_caption(rng, tok):
                         runs["card"])
         for prec, model in (("fp32", m32), ("bf16", m16)):
             blip_lm.generate_captions(model, images[:1], cfg, tok, **kw, **extra)  # warm-up
-            _reset_launches()
+            before = launch_counts()
             with _StepClock(blip_lm, "make_cached_decoder") as clock, \
                     _layer_norms_on_the_card() as lns:
                 caps = blip_lm.generate_captions(model, images, cfg, tok,
                                                  rng=np.random.RandomState(6), **kw, **extra)
             _expect_launches(f"generate: BLIP {mode} {prec} (K7 alone)", GEN_IMAGES,
-                             {"layer_norm": lns[0]})
+                             {"layer_norm": lns[0]}, before)
             assert len(caps) == GEN_IMAGES and all(isinstance(c, str) for c in caps)
             _rate_line(f"BLIP {mode} {prec}, {GEN_IMAGES} images", GEN_IMAGES, "captions",
                        clock)
@@ -3049,12 +3027,12 @@ def _coca(rng):
     for prec, model in (("fp32", m32), ("bf16", m16)):
         kw = dict(generation_type="beam_search", num_beams=6, seq_len=30)
         model.generate(images[:1], **kw)
-        _reset_launches()
+        before = launch_counts()
         with _StepClock(coca, "make_coca_cached_decoder") as clock, \
                 _layer_norms_on_the_card() as lns:
             out = model.generate(images, **kw)
         _expect_launches(f"generate: {GEN_COCA} beam {prec} (K7 alone)", GEN_IMAGES,
-                         {"layer_norm": lns[0]})
+                         {"layer_norm": lns[0]}, before)
         assert out.shape[0] == GEN_IMAGES and out.dtype == np.int32
         _rate_line(f"{GEN_COCA} beam 6 {prec}, {GEN_IMAGES} images", GEN_IMAGES, "captions",
                    clock)
@@ -3647,7 +3625,7 @@ def phase_train():
     planted faults, then the rates. No kernel but K7 is launched, once for
     each LayerNorm on the card."""
     t0 = time.perf_counter()
-    before = dict(_launches())
+    before = launch_counts()
     with _layer_norms_on_the_card() as lns:
         _clip_gates()
         _other_clip_steps()
@@ -3658,9 +3636,9 @@ def phase_train():
         _blip_lm_steps()
         _train_rates()
     want = {**before, "layer_norm": before["layer_norm"] + lns[0]}
-    print(f"[train] K7 launched {dict(_launches())['layer_norm'] - before['layer_norm']} "
+    print(f"[train] K7 launched {launch_counts()['layer_norm'] - before['layer_norm']} "
           f"times, once for each of the {lns[0]} LayerNorms on the card")
-    assert dict(_launches()) == want, "a kernel other than K7 launched in the training phase"
+    assert launch_counts() == want, "a kernel other than K7 launched in the training phase"
     print(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
@@ -3674,18 +3652,14 @@ SERVE_CHILD = """
 import json, sys
 import numpy as np
 from rs_ov_torch.pipeline.export import load_predict
-from rs_ov_torch.kernels import jbu_epilogue as epi
-from rs_ov_torch.kernels.layer_norm import layer_norm
-from rs_ov_torch.kernels.range_logits import range_logits
+from rs_ov_torch.kernels.build import launch_counts
 path, image, out, device = sys.argv[1:5]
 fn = load_predict(path, device=device)
 res = fn(np.load(image))
 np.savez(out, probs=res["probs"].float().cpu().numpy(), pred=res["pred_sem_seg"].cpu().numpy())
 mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rs_ov")
               or m == "rs_ov_torch.pipeline.segmentor")
-print(json.dumps({"launches": [range_logits.launches, epi.jbu_epilogue.launches,
-                               epi.jbu_epilogue_classify.launches, layer_norm.launches],
-                  "modules": mods}))
+print(json.dumps({"launches": launch_counts(), "modules": mods}))
 """
 
 
@@ -3715,16 +3689,14 @@ def _export_timed(seg, path):
 
 
 def _live_and_served(seg, fn, image):
-    """(live result, its launches, served result, its launches), each with
-    every counter at 0 before it."""
-    _reset_launches()
+    """(live result, its launches, served result, its launches)."""
+    before = launch_counts()
     live = seg.predict_raw(image[None])[0]
     torch.cuda.synchronize()
-    live_n = _launches()
-    _reset_launches()
+    live_n, before = _since(before), launch_counts()
     served = fn(image)
     torch.cuda.synchronize()
-    return live, live_n, served, _launches()
+    return live, live_n, served, _since(before)
 
 
 def _serve_route(label, seg, images, want, tmp, rows):
@@ -3739,7 +3711,7 @@ def _serve_route(label, seg, images, want, tmp, rows):
           f"{nodes.count('aten._assert_tensor_metadata.default')} metadata asserts, "
           f"{sum(t.startswith('aten.to.') for t in nodes)} casts), "
           f"{os.path.getsize(path)} bytes, loaded in {load_s:.2f} s")
-    want = {k: want.get(k, 0) for k in KERNELS}
+    want = {**dict.fromkeys(KERNELS, 0), **want}
     for i, img in enumerate(images):
         live, live_n, served, served_n = _live_and_served(seg, fn, img)
         print(f"[serve] {label} image {i}: launches live {live_n}, served {served_n}")
@@ -3776,8 +3748,9 @@ def _served_in_a_fresh_process(path, image, live, tmp):
     print(f"[serve] fresh process: {time.perf_counter() - t0:.2f} s, launches K1 K2 K3 K7 "
           f"{info['launches']}, modules of the segmentor / jax / rs_ov loaded: "
           f"{info['modules']}")
-    assert info["modules"] == [] and info["launches"] == [
-        2 * CHUNKS, CHUNKS, CHUNKS, LN_PER_PASS["ViT-B-16"]], info
+    assert info["modules"] == [] and info["launches"] == {
+        **dict.fromkeys(KERNELS, 0), "range_logits": 2 * CHUNKS, "jbu_epilogue": CHUNKS,
+        "jbu_epilogue_classify": CHUNKS, "layer_norm": LN_PER_PASS["ViT-B-16"]}, info
     assert _serve_gate("fresh process", probs, pred, {k: v.cpu() for k, v in live.items()})
 
 
@@ -3797,11 +3770,11 @@ def _mesh_on_one_card(seg, images):
             for entry in ("predict_raw", "predict_batch_raw"):
                 counts, outs = [], []
                 for s in (seg, meshed):
-                    _reset_launches()
+                    before = launch_counts()
                     outs.append(getattr(s, entry)(batch[:1] if entry == "predict_raw"
                                                   else batch))
                     torch.cuda.synchronize()
-                    counts.append(_launches())
+                    counts.append(_since(before))
                 err = max((a["seg_logits"].float() - b["seg_logits"].float()).abs().max().item()
                           for a, b in zip(*outs))
                 same = all(torch.equal(a["pred_sem_seg"], b["pred_sem_seg"])
@@ -3818,9 +3791,10 @@ def _mesh_on_one_card(seg, images):
 
 def _profiled_request(seg, fn, image, tmp):
     """utils.profiling.trace around one annotated live request and one
-    served: each trace file names its span, K1's operator and the kernels
-    K1, K2 and K3; prints each one's kernel launches, their device ms and
-    the span's host ms."""
+    served: each trace file names its span and the kernels K1, K2 and K3,
+    the served one K1's operator too, the live one no operator (its eager
+    calls launch the kernels directly); prints each one's kernel launches,
+    their device ms and the span's host ms."""
     import glob
 
     from rs_ov_torch.utils.profiling import annotate, trace
@@ -3836,15 +3810,15 @@ def _profiled_request(seg, fn, image, tmp):
         with open(files[0]) as f:
             events = json.load(f)["traceEvents"]
         names = {e.get("name", "") for e in events}
-        found = {k: any(k in n for n in names) for k in
-                 (span, "rs_ov::range_logits", "range_logits_kernel", "jbu_epilogue_kernel",
-                  "jbu_classify_kernel")}
+        want = {span: True, "rs_ov::range_logits": label == "served", "range_logits_kernel": True,
+                "jbu_epilogue_kernel": True, "jbu_classify_kernel": True}
+        found = {k: any(k in n for n in names) for k in want}
         kernels = [e for e in events if e.get("cat") == "kernel"]
         host_ms = max(e.get("dur", 0) for e in events if e.get("name") == span) / 1e3
         print(f"[serve] trace of one {label} request ({os.path.basename(files[0])}): "
               f"{len(kernels)} kernel launches, {sum(e['dur'] for e in kernels) / 1e3:.3f} "
               f"device ms, span {host_ms:.3f} host ms; found {found}")
-        assert all(found.values()), (label, found)
+        assert found == want, (label, found, want)
 
 
 @contextlib.contextmanager
@@ -3885,7 +3859,7 @@ def phase_serve(rows):
         live = seg.predict_raw(images[0][None])[0]
         _served_in_a_fresh_process(path, images[0], live, tmp)
         _serve_route("fp32 channel-first (K1 K4b K7)", seg32, images[:1], {
-            "range_logits": s * CHUNKS, "adaptive_conv_f32": s * CHUNKS, **ln}, tmp, rows)
+            "range_logits": s * CHUNKS, "adaptive_conv_tapmajor.f32": s * CHUNKS, **ln}, tmp, rows)
         del seg32
         torch.cuda.empty_cache()
         with _one_weight_changed(seg):

@@ -36,8 +36,8 @@ rounded as they are staged; entries in ``rs_ov_torch/csrc/adaptive_conv.cu``),
 where K4f's chunk is only a tiling; their plain version is
 ``adaptive_conv_bf16_plain``.
 
-Each entry point is the operator ``rs_ov::<its name>`` (``build.register_op``):
-the plain version on CPU tensors, the kernel on CUDA tensors.
+Each entry point is declared as ``build.Kernel`` (the operator ``rs_ov::<its
+name>``): the plain version on CPU tensors, the kernel on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import functools
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library, register_op
+from rs_ov_torch.kernels.build import Kernel
 
 __all__ = ["adaptive_conv_tapmajor", "adaptive_conv_tapmajor_plain", "adaptive_conv_planes",
            "adaptive_conv_cl", "adaptive_conv_v3", "adaptive_conv_v4",
@@ -150,18 +150,12 @@ def _sms(device: torch.device) -> int:
     return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
-def _refuse_other_devices(inp: torch.Tensor, name: str) -> None:
-    if inp.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"{name}: no route for {inp.device}")
-
-
 def _conv_fake(inp, filt_t, diameter):
     """[B, C, H, W] in inp's dtype, the grid from the taps."""
     return inp.new_empty((inp.shape[0], inp.shape[1], *filt_t.shape[2:]))
 
 
 _SCHEMA = "(Tensor inp, Tensor filt_t, int diameter) -> Tensor"
-_OPS = {}  # the operators rs_ov::<entry point>, registered below each CUDA wrapper
 
 
 def adaptive_conv_tapmajor_plain(inp: torch.Tensor, filt_t: torch.Tensor,
@@ -207,41 +201,25 @@ def _check(inp: torch.Tensor, filt_t: torch.Tensor, d: int) -> None:
 def _adaptive_conv_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
                             tiling: tuple[int, int] | None = None):
     """K4a's / K4b's operands checked and the output allocated. Returns (out,
-    entry, args): ``load_library().<entry>(*args, stream)`` is the bare
-    library call, at ``tiling`` (R, channels per warp) or ``_tiling``'s."""
+    entry, args, keep): ``load_library().<entry>(*args, stream)`` is the bare
+    library call, at ``tiling`` (R, channels per warp) or ``_tiling``'s, on
+    the caller's tensors alone."""
     _check(inp, filt_t, diameter)
     b, c, _, _ = inp.shape
     _, _, h, w = filt_t.shape
     rows, cw = tiling or _tiling(b, c, h, w, diameter, inp.dtype, _sms(inp.device))
     out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
     return out, _ENTRY[inp.dtype], (inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(), b, c,
-                                    h, w, diameter, rows, cw)
+                                    h, w, diameter, rows, cw), ()
 
 
-def _adaptive_conv_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
-                        diameter: int) -> torch.Tensor:
-    out, entry, args = _adaptive_conv_operands(inp, filt_t, diameter)
-    check(launch(getattr(load_library(), entry), args, inp.device), entry)
-    adaptive_conv_tapmajor.launches[inp.dtype] += 1
-    return out
-
-
-_OPS["adaptive_conv_tapmajor"] = register_op("adaptive_conv_tapmajor", _SCHEMA,
-                                            adaptive_conv_tapmajor_plain, _adaptive_conv_cuda,
-                                            _conv_fake)
-
-
-def adaptive_conv_tapmajor(inp: torch.Tensor, filt_t: torch.Tensor,
-                           diameter: int) -> torch.Tensor:
-    """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major ->
+adaptive_conv_tapmajor = Kernel(
+    "adaptive_conv_tapmajor", _SCHEMA, adaptive_conv_tapmajor_plain, _adaptive_conv_operands,
+    _conv_fake, counts={"rs_adaptive_conv_bf16": "adaptive_conv_tapmajor.bf16",
+                        "rs_adaptive_conv_f32": "adaptive_conv_tapmajor.f32"},
+    doc="""inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major ->
     [B, C, H, W] in inp's dtype. CPU tensors take the plain version, CUDA
-    tensors the kernel (bf16: K4a, fp32: K4b)."""
-    _refuse_other_devices(inp, "adaptive_conv")
-    return _OPS["adaptive_conv_tapmajor"](inp, filt_t, diameter)
-
-
-# CUDA kernel launches per TPU kernel (bf16: K4a, fp32: K4b), for the chip smoke run
-adaptive_conv_tapmajor.launches = {torch.bfloat16: 0, torch.float32: 0}
+    tensors the kernel (bf16: K4a, fp32: K4b).""")
 
 
 # ---------------------------------------------------------------------------
@@ -279,57 +257,22 @@ def _layout_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
                         int(filt_t.dtype == torch.bfloat16), rows, cw), src
 
 
-def _layout_cuda(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
-                 channels_last: bool) -> torch.Tensor:
-    out, entry, args, _src = _layout_operands(inp, filt_t, diameter, channels_last)
-    check(launch(getattr(load_library(), entry), args, inp.device), entry)
-    return out
-
-
-def _adaptive_conv_planes_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
-                               diameter: int) -> torch.Tensor:
-    out = _layout_cuda(inp, filt_t, diameter, False)
-    adaptive_conv_planes.launches += 1
-    return out
-
-
-def _adaptive_conv_cl_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
-                           diameter: int) -> torch.Tensor:
-    out = _layout_cuda(inp, filt_t, diameter, True)
-    adaptive_conv_cl.launches += 1
-    return out
-
-
-_OPS["adaptive_conv_planes"] = register_op("adaptive_conv_planes", _SCHEMA,
-                                          adaptive_conv_tapmajor_plain,
-                                          _adaptive_conv_planes_cuda, _conv_fake)
-_OPS["adaptive_conv_cl"] = register_op("adaptive_conv_cl", _SCHEMA, adaptive_conv_tapmajor_plain,
-                                      _adaptive_conv_cl_cuda, _conv_fake)
-
-
-def adaptive_conv_planes(inp: torch.Tensor, filt_t: torch.Tensor,
-                         diameter: int) -> torch.Tensor:
-    """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
+adaptive_conv_planes = Kernel(
+    "adaptive_conv_planes", _SCHEMA, adaptive_conv_tapmajor_plain,
+    functools.partial(_layout_operands, channels_last=False), _conv_fake,
+    doc="""inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
     or fp32 -> [B, C, H, W] in inp's dtype, fp32 products and sums (in tap
     order on the CPU). CPU tensors take the plain version, CUDA tensors
-    kernel K4c (d <= 25, any C)."""
-    _refuse_other_devices(inp, "adaptive_conv_planes")
-    return _OPS["adaptive_conv_planes"](inp, filt_t, diameter)
-
-
-def adaptive_conv_cl(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
-    """adaptive_conv_planes's function and NCHW contract, computed
+    kernel K4c (d <= 25, any C).""")
+adaptive_conv_cl = Kernel(
+    "adaptive_conv_cl", _SCHEMA, adaptive_conv_tapmajor_plain,
+    functools.partial(_layout_operands, channels_last=True), _conv_fake,
+    doc="""adaptive_conv_planes's function and NCHW contract, computed
     channels-last: a CUDA input is copied to [B, H+d-1, W+d-1, C], as the
     JAX wrapper transposes it, and kernel K4d writes the NCHW output itself.
     K4d takes any even C (the JAX kernel hands C % 128 != 0 to the planes
     kernel, a TPU lane rule) and d <= 25. CPU tensors take the plain
-    version."""
-    _refuse_other_devices(inp, "adaptive_conv_cl")
-    return _OPS["adaptive_conv_cl"](inp, filt_t, diameter)
-
-
-adaptive_conv_planes.launches = 0  # CUDA kernel launches (K4c), for the chip smoke run
-adaptive_conv_cl.launches = 0      # (K4d)
+    version.""")
 
 
 # ---------------------------------------------------------------------------
@@ -362,11 +305,12 @@ def v4_chunk(w: int) -> int:
 def _rounded_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
                       chunked: bool = False, tiling: tuple[int, int] | None = None):
     """K4e's (``chunked`` False) or K4f's operands checked and the output
-    allocated. Returns (out, entry, args): ``load_library().<entry>(*args,
+    allocated. Returns (out, entry, args, keep): ``load_library().<entry>(*args,
     stream)`` is the bare library call, at ``tiling`` (R, channels per warp)
-    or ``_tiling``'s for the rounded product. K4f takes d <= 17; both take d
-    up to the widest band where a block fits in shared memory (every d <= 44
-    with an fp32 input, <= 49 with a bf16 one)."""
+    or ``_tiling``'s for the rounded product, on the caller's tensors alone.
+    K4f takes d <= 17; both take d up to the widest band where a block fits
+    in shared memory (every d <= 44 with an fp32 input, <= 49 with a bf16
+    one)."""
     entry = _ROUNDED_ENTRY[chunked]
     _check_shapes(inp, filt_t, diameter)
     if inp.dtype not in _TYPES or filt_t.dtype not in _TYPES:
@@ -382,43 +326,18 @@ def _rounded_operands(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
     out = torch.empty((b, c, h, w), dtype=inp.dtype, device=inp.device)
     return out, entry, (inp.data_ptr(), filt_t.data_ptr(), out.data_ptr(), b, c, h, w, diameter,
                         int(inp.dtype == torch.bfloat16), int(filt_t.dtype == torch.bfloat16),
-                        rows, cw)
+                        rows, cw), ()
 
 
-def _rounded_cuda(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int,
-                  chunked: bool) -> torch.Tensor:
-    out, entry, args = _rounded_operands(inp, filt_t, diameter, chunked)
-    check(launch(getattr(load_library(), entry), args, inp.device), entry)
-    return out
-
-
-def _adaptive_conv_v3_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
-                           diameter: int) -> torch.Tensor:
-    out = _rounded_cuda(inp, filt_t, diameter, False)
-    adaptive_conv_v3.launches += 1
-    return out
-
-
-def _adaptive_conv_v4_cuda(inp: torch.Tensor, filt_t: torch.Tensor,
-                           diameter: int) -> torch.Tensor:
-    out = _rounded_cuda(inp, filt_t, diameter, True)
-    adaptive_conv_v4.launches += 1
-    return out
-
-
-_OPS["adaptive_conv_v3"] = register_op("adaptive_conv_v3", _SCHEMA, adaptive_conv_bf16_plain,
-                                      _adaptive_conv_v3_cuda, _conv_fake)
-_OPS["adaptive_conv_v4"] = register_op("adaptive_conv_v4", _SCHEMA, adaptive_conv_bf16_plain,
-                                      _adaptive_conv_v4_cuda, _conv_fake)
-
-
-def adaptive_conv_v3(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
-    """inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
+adaptive_conv_v3 = Kernel(
+    "adaptive_conv_v3", _SCHEMA, adaptive_conv_bf16_plain,
+    functools.partial(_rounded_operands, chunked=False), _conv_fake,
+    doc="""inp [B, C, H+d-1, W+d-1], filt_t [B, d*d, H, W] tap-major, each bf16
     or fp32 -> [B, C, H, W] in inp's dtype, both operands rounded to bf16
     (adaptive_conv_pallas_v3's function). CPU tensors take the plain
-    version, CUDA tensors kernel K4e."""
-    _refuse_other_devices(inp, "adaptive_conv_v3")
-    return _OPS["adaptive_conv_v3"](inp, filt_t, diameter)
+    version, CUDA tensors kernel K4e.""")
+_K4F = Kernel("adaptive_conv_v4", _SCHEMA, adaptive_conv_bf16_plain,
+              functools.partial(_rounded_operands, chunked=True), _conv_fake)
 
 
 def adaptive_conv_v4(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> torch.Tensor:
@@ -428,9 +347,4 @@ def adaptive_conv_v4(inp: torch.Tensor, filt_t: torch.Tensor, diameter: int) -> 
     take the plain version, CUDA tensors kernel K4f."""
     if diameter > V4_MAX_D:
         raise ValueError(f"adaptive_conv_v4 takes d <= {V4_MAX_D}, got d={diameter}")
-    _refuse_other_devices(inp, "adaptive_conv_v4")
-    return _OPS["adaptive_conv_v4"](inp, filt_t, diameter)
-
-
-adaptive_conv_v3.launches = 0  # CUDA kernel launches (K4e), for the chip smoke run
-adaptive_conv_v4.launches = 0  # (K4f)
+    return _K4F(inp, filt_t, diameter)

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and declare each one once.
 
 Every ``rs_ov_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for
 ``sm_90a``, all of them at once, and the objects are linked into one shared
@@ -13,15 +13,28 @@ Each C entry point takes device pointers, ints, floats and the CUDA stream, laun
 on that stream and returns ``cudaGetLastError()``; ``launch`` calls one on the
 current stream of a device, ``check`` raises on a non-zero code.
 
-``register_op`` makes each kernel an operator of the ``rs_ov`` namespace
-(``torch.library.custom_op``): the plain version for CPU tensors, the kernel
-for CUDA tensors, a fake for tracing. ``torch.export`` then records one
-node per kernel call, and an exported program launches the kernel itself.
-Registering loads no library.
+``Kernel`` is the one seam through which the program calls a kernel. A kernel
+module declares each kernel once: its name, its schema, its plain version,
+its operands (a function that checks the arguments, allocates the output and
+returns it with the library entry's name, the entry's arguments up to the
+stream and the tensors that must outlive the launch) and its fake. The
+declaration registers the operator ``rs_ov::<name>`` (``torch.library``: the
+plain version for CPU tensors, the launch for CUDA tensors, the fake for
+tracing, so that ``torch.export`` records one node per kernel call and an
+exported program launches the kernel itself). Called, it routes by one rule:
 
-``launch_counts`` reads every kernel operator's launch counter (the
-``.launches`` attribute its CUDA implementation bumps), for the recorder's
-spans (``utils.profiling``).
+  * an eager call on CUDA tensors (the first argument a plain
+    ``torch.Tensor``, nothing being compiled, no operand needing a gradient)
+    launches the kernel directly: the operator's dispatch costs more host
+    time than the launch;
+  * any other call on a CPU or CUDA tensor goes through the operator: CPU
+    tensors, fake or functional tensors under ``torch.export``, calls inside
+    ``torch.compile``, operands that need a gradient;
+  * a tensor on any other device is refused (``NotImplementedError``).
+
+Both CUDA paths are ``Kernel.launch``, which counts the launch in one table
+(``launch_counts``, read by the recorder's spans in ``utils.profiling``, by
+taking the difference of two snapshots). Registering loads no library.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -37,7 +51,7 @@ import tempfile
 
 import torch
 
-__all__ = ["load_library", "launch", "check", "register_op", "launch_counts",
+__all__ = ["load_library", "launch", "check", "Kernel", "KERNELS", "launch_counts",
            "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -156,43 +170,63 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
 
 
-def register_op(name: str, schema: str, plain, cuda, fake):
-    """The operator ``rs_ov::<name>`` of ``schema``: ``plain`` is its CPU
-    implementation, ``cuda`` its CUDA one (the kernel's launch, which counts
-    it) and ``fake`` the output's shape and dtype for tracing (and meta
-    tensors). No implementation stands in for another; the wrappers refuse
-    a tensor on any other device. Inference only: no autograd formula."""
-    op = torch.library.custom_op(f"rs_ov::{name}", plain, mutates_args=(), device_types="cpu",
-                                 schema=schema)
-    op.register_kernel("cuda", cuda)
-    op.register_fake(fake)
-    return op
+# CUDA launches so far of each kernel, by the name its readers know it by; K4a
+# and K4b share the operator adaptive_conv_tapmajor and count apart, by the
+# input's dtype
+_LAUNCHES = dict.fromkeys((
+    "range_logits", "jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_fused",
+    "jbu_epilogue_fused_classify", "adaptive_conv_planes", "adaptive_conv_cl", "adaptive_conv_v3",
+    "adaptive_conv_v4", "fused_selfself_attention", "layer_norm", "adaptive_conv_tapmajor.bf16",
+    "adaptive_conv_tapmajor.f32"), 0)
+KERNELS = {}  # every declared Kernel, by its operator's name
 
 
-@functools.cache
-def _counted() -> tuple:
-    """(the kernel operators' wrappers, ``adaptive_conv_tapmajor``), each
-    with its launch counter; imported at first use, since each kernel
-    module imports this one."""
-    from rs_ov_torch.kernels import adaptive_conv as ac
-    from rs_ov_torch.kernels import jbu_epilogue as je
-    from rs_ov_torch.kernels import layer_norm as ln
-    from rs_ov_torch.kernels import range_logits as rl
-    from rs_ov_torch.kernels import selfself_attention as sa
+class Kernel:
+    """The kernel ``name`` and its operator ``rs_ov::<name>`` of ``schema``
+    (module docstring): ``plain`` the CPU implementation, ``operands(*args)``
+    -> (out, entry, entry's arguments, tensors to keep) the CUDA one's checks
+    and output, ``fake`` the output's shape and dtype for tracing. A launch of
+    ``entry`` counts under ``counts[entry]``, else under ``name``. Called,
+    it takes its arguments as ``plain`` does, by position or keyword.
+    Inference only: no autograd formula."""
 
-    return ((rl.range_logits, je.jbu_epilogue, je.jbu_epilogue_classify, je.jbu_epilogue_fused,
-             je.jbu_epilogue_fused_classify, ac.adaptive_conv_planes, ac.adaptive_conv_cl,
-             ac.adaptive_conv_v3, ac.adaptive_conv_v4, sa.fused_selfself_attention,
-             ln.layer_norm),
-            ac.adaptive_conv_tapmajor)
+    def __init__(self, name: str, schema: str, plain, operands, fake, *,
+                 counts: dict[str, str] | None = None, doc: str | None = None):
+        # as the function it stands for
+        self.__name__, self.__doc__, self.__signature__ = name, doc, inspect.signature(plain)
+        self.operands, self.counts = operands, counts or {}
+        self.counters = tuple(sorted(set(self.counts.values()) or {name}))
+        missing = set(self.counters) - _LAUNCHES.keys()
+        if missing:
+            raise ValueError(f"{name}: launch counters {sorted(missing)} are not in "
+                             "kernels/build.py's table")
+        self.op = torch.library.custom_op(f"rs_ov::{name}", plain, mutates_args=(),
+                                          device_types="cpu", schema=schema)
+        self.op.register_kernel("cuda", self.launch)
+        self.op.register_fake(fake)
+        KERNELS[name] = self
+
+    def launch(self, *args) -> torch.Tensor:
+        """The kernel on CUDA operands, counted: the operator's CUDA
+        implementation and the direct path."""
+        out, entry, largs, _keep = self.operands(*args)  # _keep outlives the launch
+        check(launch(getattr(load_library(), entry), largs, out.device), entry)
+        _LAUNCHES[self.counts.get(entry, self.__name__)] += 1
+        return out
+
+    def __call__(self, *args, **kwargs) -> torch.Tensor:
+        if kwargs:
+            args = self.__signature__.bind(*args, **kwargs).args
+        x = args[0]
+        if (type(x) is torch.Tensor and x.is_cuda and not torch.compiler.is_compiling()
+                and not (torch.is_grad_enabled() and any(
+                    isinstance(a, torch.Tensor) and a.requires_grad for a in args))):
+            return self.launch(*args)
+        if x.device.type not in ("cpu", "cuda"):
+            raise NotImplementedError(f"{self.__name__}: no route for {x.device}")
+        return self.op(*args)
 
 
 def launch_counts() -> dict[str, int]:
-    """CUDA launches so far of each kernel operator, by its wrapper's name;
-    ``adaptive_conv_tapmajor`` by the input's dtype (``.bf16``: K4a,
-    ``.f32``: K4b)."""
-    fns, tap = _counted()
-    counts = {fn.__name__: fn.launches for fn in fns}
-    counts["adaptive_conv_tapmajor.bf16"] = tap.launches[torch.bfloat16]
-    counts["adaptive_conv_tapmajor.f32"] = tap.launches[torch.float32]
-    return counts
+    """A snapshot of every kernel's CUDA launches so far (``_LAUNCHES``)."""
+    return dict(_LAUNCHES)

@@ -32,7 +32,7 @@ tensor the hand-written kernel, which replaces a TPU kernel:
 ``rs_ov_torch/csrc/jbu_classify_sm90.cu`` on one block design (the adaptive
 conv, and the classify tail's fixup and cosine products, on the tensor
 cores; the fused stages compute their range logits in the block first).
-Each is the operator ``rs_ov::<its name>`` (``build.register_op``).
+Each is declared as ``build.Kernel`` (the operator ``rs_ov::<its name>``).
 They take d <= 17 (odd for the fused stages), an even C and Q <= 128, the
 TPU kernels' limits, and bf16 features and guidance; fp32 runs take the
 channel-first route (plain epilogue + adaptive-conv kernel K4b), as in the
@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from rs_ov_torch.kernels.build import check, launch, load_library, register_op
+from rs_ov_torch.kernels.build import Kernel
 from rs_ov_torch.utils.resize import reflect_pad_nhwc
 
 __all__ = ["jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_plain",
@@ -230,10 +230,10 @@ def _mlp_weights(who, ws, shapes, device):
 
 
 def _epilogue_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1, diameter):
-    """K2's operands checked and its output allocated. Returns (out, args,
-    keep): args are the library call's arguments up to the stream, keep the
-    tensors they point into (the caller's own, unless a dtype had to be
-    cast)."""
+    """K2's operands checked and its output allocated. Returns (out, entry,
+    args, keep): args are the library entry's arguments up to the stream,
+    keep the tensors they point into (the caller's own, unless a dtype had to
+    be cast)."""
     d = diameter
     _epilogue_limits("jbu_epilogue", inp.shape[-1], d)
     b, h, w, c = _check_operands(inp, logits_t, guid_t, spatial, pos_temp, d)
@@ -244,16 +244,7 @@ def _epilogue_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
     args = (inp.data_ptr(), logits_t.data_ptr(), guid_t.data_ptr(), spatial.data_ptr(),
             pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
             b, h, w, c, g, cmid, d, wbf16)
-    return out, args, ws
-
-
-def _jbu_epilogue_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
-                       diameter):
-    out, args, _keep = _epilogue_operands(inp, logits_t, guid_t, spatial, pos_temp,
-                                          w0, b0, w1, b1, diameter)
-    check(launch(load_library().rs_jbu_epilogue, args, inp.device), "rs_jbu_epilogue")
-    jbu_epilogue.launches += 1
-    return out
+    return out, "rs_jbu_epilogue", args, ws
 
 
 def _classify_weights(who, mlp, fixup_w, fixup_b, query_features, c, g, d, dev):
@@ -274,9 +265,9 @@ def _classify_weights(who, mlp, fixup_w, fixup_b, query_features, c, g, d, dev):
 
 def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
                        fixup_w, fixup_b, query_features, diameter):
-    """K3's operands checked and its output allocated; returns (out, args,
-    keep) as ``_epilogue_operands``, the weights as ``_classify_weights``
-    gives them."""
+    """K3's operands checked and its output allocated; returns (out, entry,
+    args, keep) as ``_epilogue_operands``, the weights as
+    ``_classify_weights`` gives them."""
     q, d = query_features.shape[0], diameter
     _epilogue_limits("jbu_epilogue_classify", inp.shape[-1], d)
     if not 1 <= q <= CLASSIFY_MAX_Q:
@@ -291,18 +282,7 @@ def _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
             pos_temp.data_ptr(), *(t.data_ptr() for t in ws[:4]), fw.data_ptr(),
             ws[4].data_ptr(), qf.data_ptr(), out.data_ptr(), b, h, w, c, g, cmid, d, q,
             wbf16, int(qf.dtype == torch.bfloat16))
-    return out, args, (ws, fw, qf)
-
-
-def _jbu_epilogue_classify_cuda(inp, logits_t, guid_t, spatial, pos_temp, w0, b0,
-                                w1, b1, fixup_w, fixup_b, query_features, diameter):
-    out, args, _keep = _classify_operands(inp, logits_t, guid_t, spatial, pos_temp, w0,
-                                          b0, w1, b1, fixup_w, fixup_b, query_features,
-                                          diameter)
-    check(launch(load_library().rs_jbu_epilogue_classify, args, inp.device),
-          "rs_jbu_epilogue_classify")
-    jbu_epilogue_classify.launches += 1
-    return out
+    return out, "rs_jbu_epilogue_classify", args, (ws, fw, qf)
 
 
 def _block_smem_bytes(d: int, g: int, cmid: int, c: int, k: int = 0) -> int:
@@ -360,8 +340,8 @@ def _check_fused_operands(who, inp, proj, guid_cf, spatial, pos_temp, w0, diamet
 
 
 def _fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1, diameter):
-    """K5a's operands checked and its output allocated; returns (out, args,
-    keep) as ``_epilogue_operands``."""
+    """K5a's operands checked and its output allocated; returns (out, entry,
+    args, keep) as ``_epilogue_operands``."""
     d = diameter
     b, h, w, c, k, g = _check_fused_operands("jbu_epilogue_fused", inp, proj, guid_cf,
                                              spatial, pos_temp, w0, d)
@@ -372,23 +352,13 @@ def _fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1, diame
     args = (inp.data_ptr(), proj.data_ptr(), guid_cf.data_ptr(), spatial.data_ptr(),
             pos_temp.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
             b, h, w, c, g, cmid, d, k, wbf16)
-    return out, args, ws
-
-
-def _jbu_epilogue_fused_cuda(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
-                             diameter):
-    out, args, _keep = _fused_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
-                                       diameter)
-    check(launch(load_library().rs_jbu_epilogue_fused, args, inp.device),
-          "rs_jbu_epilogue_fused")
-    jbu_epilogue_fused.launches += 1
-    return out
+    return out, "rs_jbu_epilogue_fused", args, ws
 
 
 def _fused_classify_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
                              fixup_w, fixup_b, query_features, diameter):
-    """K5b's operands checked and its output allocated; returns (out, args,
-    keep) as ``_classify_operands``."""
+    """K5b's operands checked and its output allocated; returns (out, entry,
+    args, keep) as ``_classify_operands``."""
     who, q, d = "jbu_epilogue_fused_classify", query_features.shape[0], diameter
     if not 1 <= q <= CLASSIFY_MAX_Q:
         raise ValueError(f"{who} kernel takes 1 to {CLASSIFY_MAX_Q} queries, got {q}")
@@ -401,18 +371,7 @@ def _fused_classify_operands(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, 
             pos_temp.data_ptr(), *(t.data_ptr() for t in ws[:4]), fw.data_ptr(),
             ws[4].data_ptr(), qf.data_ptr(), out.data_ptr(), b, h, w, c, g, cmid, d, k, q,
             wbf16, int(qf.dtype == torch.bfloat16))
-    return out, args, (ws, fw, qf)
-
-
-def _jbu_epilogue_fused_classify_cuda(inp, proj, guid_cf, spatial, pos_temp, w0, b0,
-                                      w1, b1, fixup_w, fixup_b, query_features, diameter):
-    out, args, _keep = _fused_classify_operands(inp, proj, guid_cf, spatial, pos_temp, w0,
-                                                b0, w1, b1, fixup_w, fixup_b, query_features,
-                                                diameter)
-    check(launch(load_library().rs_jbu_epilogue_fused_classify, args, inp.device),
-          "rs_jbu_epilogue_fused_classify")
-    jbu_epilogue_fused_classify.launches += 1
-    return out
+    return out, "rs_jbu_epilogue_fused_classify", args, (ws, fw, qf)
 
 
 _STAGE = "Tensor spatial, Tensor pos_temp, Tensor w0, Tensor b0, Tensor w1, Tensor b1"
@@ -429,69 +388,27 @@ def _logits_fake(inp, front, *rest):
     return inp.new_empty((*front.shape[:3], rest[-2].shape[0]), dtype=torch.float32)
 
 
-_OPS = {
-    "jbu_epilogue": register_op(
-        "jbu_epilogue", f"(Tensor inp, Tensor logits_t, Tensor guid_t, {_STAGE}, "
-        "int diameter) -> Tensor", jbu_epilogue_plain, _jbu_epilogue_cuda, _features_fake),
-    "jbu_epilogue_classify": register_op(
-        "jbu_epilogue_classify", f"(Tensor inp, Tensor logits_t, Tensor guid_t, {_STAGE}, "
-        f"{_TAIL}, int diameter) -> Tensor", jbu_epilogue_classify_plain,
-        _jbu_epilogue_classify_cuda, _logits_fake),
-    "jbu_epilogue_fused": register_op(
-        "jbu_epilogue_fused", f"(Tensor inp, Tensor proj, Tensor guid_cf, {_STAGE}, "
-        "int diameter) -> Tensor", jbu_epilogue_fused_plain, _jbu_epilogue_fused_cuda,
-        _features_fake),
-    "jbu_epilogue_fused_classify": register_op(
-        "jbu_epilogue_fused_classify", f"(Tensor inp, Tensor proj, Tensor guid_cf, {_STAGE}, "
-        f"{_TAIL}, int diameter) -> Tensor", jbu_epilogue_fused_classify_plain,
-        _jbu_epilogue_fused_classify_cuda, _logits_fake),
-}
-
-
-def _call(name: str, inp: torch.Tensor, *args):
-    """The operator ``rs_ov::<name>``: the plain version on CPU tensors, the
-    kernel on CUDA tensors; any other device is refused."""
-    if inp.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"{name}: no route for {inp.device}")
-    return _OPS[name](inp, *args)
-
-
-def jbu_epilogue(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
-                 diameter: int) -> torch.Tensor:
-    """See jbu_epilogue_plain. CPU tensors take the plain version, CUDA
+jbu_epilogue = Kernel(
+    "jbu_epilogue", f"(Tensor inp, Tensor logits_t, Tensor guid_t, {_STAGE}, int diameter) -> "
+    "Tensor", jbu_epilogue_plain, _epilogue_operands, _features_fake,
+    doc="""See jbu_epilogue_plain. CPU tensors take the plain version, CUDA
     tensors the kernel (d <= 17, even C; it shares K3's blocks, so the
-    library refuses C past 1408, or past 896 at d = 17, as K3's does)."""
-    return _call("jbu_epilogue", inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
-                 diameter)
-
-
-def jbu_epilogue_classify(inp, logits_t, guid_t, spatial, pos_temp, w0, b0, w1, b1,
-                          fixup_w, fixup_b, query_features, diameter: int) -> torch.Tensor:
-    """See jbu_epilogue_classify_plain. CPU tensors take the plain version,
-    CUDA tensors the kernel (Q <= 128 queries, d <= 17)."""
-    return _call("jbu_epilogue_classify", inp, logits_t, guid_t, spatial, pos_temp, w0, b0,
-                 w1, b1, fixup_w, fixup_b, query_features, diameter)
-
-
-def jbu_epilogue_fused(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
-                       diameter: int) -> torch.Tensor:
-    """See jbu_epilogue_fused_plain. CPU tensors take the plain version, CUDA
+    library refuses C past 1408, or past 896 at d = 17, as K3's does).""")
+jbu_epilogue_classify = Kernel(
+    "jbu_epilogue_classify", f"(Tensor inp, Tensor logits_t, Tensor guid_t, {_STAGE}, "
+    f"{_TAIL}, int diameter) -> Tensor", jbu_epilogue_classify_plain, _classify_operands,
+    _logits_fake,
+    doc="""See jbu_epilogue_classify_plain. CPU tensors take the plain version,
+    CUDA tensors the kernel (Q <= 128 queries, d <= 17).""")
+jbu_epilogue_fused = Kernel(
+    "jbu_epilogue_fused", f"(Tensor inp, Tensor proj, Tensor guid_cf, {_STAGE}, int diameter) -> "
+    "Tensor", jbu_epilogue_fused_plain, _fused_operands, _features_fake,
+    doc="""See jbu_epilogue_fused_plain. CPU tensors take the plain version, CUDA
     tensors the kernel (odd d <= 17, even C, any K; K2's blocks, so C past
-    1408, or past 896 at d = 17, is refused as for K2)."""
-    return _call("jbu_epilogue_fused", inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
-                 diameter)
-
-
-def jbu_epilogue_fused_classify(inp, proj, guid_cf, spatial, pos_temp, w0, b0, w1, b1,
-                                fixup_w, fixup_b, query_features,
-                                diameter: int) -> torch.Tensor:
-    """See jbu_epilogue_fused_classify_plain. CPU tensors take the plain
-    version, CUDA tensors the kernel (Q <= 128 queries, odd d <= 17)."""
-    return _call("jbu_epilogue_fused_classify", inp, proj, guid_cf, spatial, pos_temp, w0, b0,
-                 w1, b1, fixup_w, fixup_b, query_features, diameter)
-
-
-jbu_epilogue.launches = 0  # CUDA kernel launches, for the chip smoke run
-jbu_epilogue_classify.launches = 0
-jbu_epilogue_fused.launches = 0
-jbu_epilogue_fused_classify.launches = 0
+    1408, or past 896 at d = 17, is refused as for K2).""")
+jbu_epilogue_fused_classify = Kernel(
+    "jbu_epilogue_fused_classify", f"(Tensor inp, Tensor proj, Tensor guid_cf, {_STAGE}, "
+    f"{_TAIL}, int diameter) -> Tensor", jbu_epilogue_fused_classify_plain,
+    _fused_classify_operands, _logits_fake,
+    doc="""See jbu_epilogue_fused_classify_plain. CPU tensors take the plain
+    version, CUDA tensors the kernel (Q <= 128 queries, odd d <= 17).""")

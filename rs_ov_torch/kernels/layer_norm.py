@@ -8,12 +8,10 @@ package's ``rs_ov/nn/layers.py:layer_norm``. ``layer_norm`` dispatches on the
 device: a CPU tensor takes the plain version (the same formula as eager
 tensor operations), a CUDA tensor the hand-written kernel in
 ``rs_ov_torch/csrc/layer_norm.cu`` (one launch, the row read once and
-written once). The operator ``rs_ov::layer_norm`` (``build.register_op``)
-holds both; eager code on a CUDA tensor launches the kernel without the
-operator's dispatch, which costs more host time than the rest of the call
-(``_forward``), while a traced call (``torch.export``) goes through the
-operator and records one node. It replaces no TPU kernel: XLA fused the JAX
-package's LayerNorm, where the plain version is 14 launches on the card.
+written once), declared as ``build.Kernel`` (the operator
+``rs_ov::layer_norm``; eager CUDA calls launch it directly, a traced call
+records one node). It replaces no TPU kernel: XLA fused the JAX package's
+LayerNorm, where the plain version is 14 launches on the card.
 Where an operand needs a gradient the call is ``_LayerNorm``, whose backward
 is the plain version's gradient, recomputed from the saved input.
 """
@@ -22,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library, register_op
+from rs_ov_torch.kernels.build import Kernel
 
 __all__ = ["layer_norm", "layer_norm_plain"]
 
@@ -53,21 +51,23 @@ def _row_vectors(d: int, dtype: torch.dtype, aligned: bool) -> int:
 
 
 def _layer_norm_operands(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                         eps: float) -> tuple[torch.Tensor, tuple]:
-    """The operands checked and the output allocated. Returns (out, args):
-    the library entry's arguments up to the stream."""
+                         eps: float):
+    """The operands checked, x made contiguous and the output allocated.
+    Returns (out, entry, args, keep): the library entry, its arguments up to
+    the stream, and x as the kernel reads it."""
+    x = x.contiguous()
     d = x.shape[-1] if x.dim() else 0
     code, pcode = _CODES.get(x.dtype), _CODES.get(scale.dtype)
     if code is None or pcode is None or bias.dtype not in _CODES:
         raise ValueError(f"layer_norm: x, scale and bias must be fp32 or bf16, got {x.dtype}, "
                          f"{scale.dtype}, {bias.dtype}")
     if (scale.shape != (d,) or bias.shape != (d,) or bias.dtype != scale.dtype
-            or not (x.is_contiguous() and scale.is_contiguous() and bias.is_contiguous())
+            or not (scale.is_contiguous() and bias.is_contiguous())
             or scale.device != x.device or bias.device != x.device):
         raise ValueError(f"layer_norm: scale {tuple(scale.shape)} {scale.dtype} on "
                          f"{scale.device} and bias {tuple(bias.shape)} {bias.dtype} on "
                          f"{bias.device} must be contiguous [{d}] of one dtype on {x.device}, "
-                         f"for x {tuple(x.shape)} (contiguous: {x.is_contiguous()})")
+                         f"for x {tuple(x.shape)}")
     rows = x.numel() // d if d else 0
     if not 1 <= rows < 2 ** 31 or d >= 2 ** 31:
         raise ValueError(f"layer_norm kernel takes 1 <= rows < 2^31 and 1 <= D < 2^31, "
@@ -75,38 +75,15 @@ def _layer_norm_operands(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     out = torch.empty_like(x)
     xp, sp, bp = x.data_ptr(), scale.data_ptr(), bias.data_ptr()
     nv = _row_vectors(d, x.dtype, (xp | sp | bp) % 16 == 0)
-    return out, (xp, sp, bp, out.data_ptr(), rows, d, code, pcode, nv, eps)
-
-
-def _layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     eps: float) -> torch.Tensor:
-    out, args = _layer_norm_operands(x.contiguous(), scale, bias, eps)
-    check(launch(load_library().rs_layer_norm, args, x.device), "rs_layer_norm")
-    layer_norm.launches += 1
-    return out
+    return out, "rs_layer_norm", (xp, sp, bp, out.data_ptr(), rows, d, code, pcode, nv, eps), x
 
 
 def _layer_norm_fake(x, scale, bias, eps):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-_OP = register_op("layer_norm", "(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor",
-                  layer_norm_plain, _layer_norm_cuda, _layer_norm_fake)
-
-
-def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float) -> torch.Tensor:
-    """The forward without autograd. A CUDA tensor of eager code launches
-    the kernel directly: the operator's dispatch adds more host time than
-    the launch itself, and a one-tile request of the tower runs 25 (B/16)
-    to 65 (H/14) of them. A traced tensor (a fake or functional one under
-    ``torch.export``, or inside ``torch.compile``) and a CPU tensor take the
-    operator, so that an export records one node per call."""
-    if x.is_cuda and type(x) is torch.Tensor and not torch.compiler.is_compiling():
-        return _layer_norm_cuda(x, scale, bias, eps)
-    if x.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"layer_norm: no route for {x.device}")
-    return _OP(x, scale, bias, eps)
+_KERNEL = Kernel("layer_norm", "(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor",
+                 layer_norm_plain, _layer_norm_operands, _layer_norm_fake)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -117,7 +94,7 @@ class _LayerNorm(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps):
         ctx.save_for_backward(x, scale, bias)
         ctx.eps = eps
-        return _forward(x, scale, bias, eps)
+        return _KERNEL(x, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -137,7 +114,4 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
         return _LayerNorm.apply(x, scale, bias, eps)
-    return _forward(x, scale, bias, eps)
-
-
-layer_norm.launches = 0  # CUDA kernel launches, for the chip smoke run
+    return _KERNEL(x, scale, bias, eps)

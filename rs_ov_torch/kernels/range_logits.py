@@ -7,14 +7,14 @@ version (a loop of shifted multiply-adds), a CUDA tensor the hand-written
 kernel in ``rs_ov_torch/csrc/range_logits.cu`` (the window staged once for
 several tap rows by cp.async, d accumulators a thread), which replaces the
 TPU kernel ``range_logits_pallas`` (rs_ov/kernels/range_logits.py:64),
-through the operator ``rs_ov::range_logits`` (``build.register_op``).
+declared as ``build.Kernel`` (the operator ``rs_ov::range_logits``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library, register_op
+from rs_ov_torch.kernels.build import Kernel
 
 __all__ = ["range_logits", "range_logits_plain"]
 
@@ -35,10 +35,10 @@ def range_logits_plain(padded: torch.Tensor, proj: torch.Tensor,
     return out
 
 
-def _range_logits_operands(padded: torch.Tensor, proj: torch.Tensor,
-                           diameter: int) -> tuple[torch.Tensor, tuple]:
-    """The operands checked and the output allocated. Returns (out, args):
-    the library entry's arguments up to the stream."""
+def _range_logits_operands(padded: torch.Tensor, proj: torch.Tensor, diameter: int):
+    """The operands checked and the output allocated. Returns (out, entry,
+    args, keep): the library entry, its arguments up to the stream, and no
+    tensor of its own to keep."""
     if proj.dim() != 4:
         raise ValueError(f"range_logits: proj must be [B, K, H, W], got {tuple(proj.shape)}")
     b, k, h, w = proj.shape
@@ -54,15 +54,8 @@ def _range_logits_operands(padded: torch.Tensor, proj: torch.Tensor,
         raise ValueError(f"range_logits kernel takes 1 <= K <= {KMAX} and 1 <= d <= "
                          f"{DMAX}, got K={k}, d={d}")
     out = torch.empty((b, d * d, h, w), dtype=torch.float32, device=proj.device)
-    return out, (padded.data_ptr(), proj.data_ptr(), out.data_ptr(), b, k, h, w, d)
-
-
-def _range_logits_cuda(padded: torch.Tensor, proj: torch.Tensor,
-                       diameter: int) -> torch.Tensor:
-    out, args = _range_logits_operands(padded, proj, diameter)
-    check(launch(load_library().rs_range_logits, args, proj.device), "rs_range_logits")
-    range_logits.launches += 1
-    return out
+    return out, "rs_range_logits", (padded.data_ptr(), proj.data_ptr(), out.data_ptr(), b, k,
+                                    h, w, d), ()
 
 
 def _range_logits_fake(padded, proj, diameter):
@@ -70,16 +63,8 @@ def _range_logits_fake(padded, proj, diameter):
     return proj.new_empty((b, diameter * diameter, h, w), dtype=torch.float32)
 
 
-_OP = register_op("range_logits", "(Tensor padded, Tensor proj, int diameter) -> Tensor",
-                  range_logits_plain, _range_logits_cuda, _range_logits_fake)
-
-
-def range_logits(padded: torch.Tensor, proj: torch.Tensor, diameter: int) -> torch.Tensor:
-    """padded [B, K, H+d-1, W+d-1] (reflect-padded projection), proj
-    [B, K, H, W] -> logits [B, d*d, H, W] fp32."""
-    if proj.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"range_logits: no route for {proj.device}")
-    return _OP(padded, proj, diameter)
-
-
-range_logits.launches = 0  # CUDA kernel launches, for the chip smoke run
+range_logits = Kernel(
+    "range_logits", "(Tensor padded, Tensor proj, int diameter) -> Tensor", range_logits_plain,
+    _range_logits_operands, _range_logits_fake,
+    doc="""padded [B, K, H+d-1, W+d-1] (reflect-padded projection), proj
+    [B, K, H, W] -> logits [B, d*d, H, W] fp32.""")

@@ -27,15 +27,15 @@ tensor cores, the weights meeting v as a bf16 pair hi + lo), fp32 in
 TF32 tensor cores, each fp32 product taken as three TF32 products of the
 operands split into hi + lo; where the three operands do not fit a block, as
 at ViT-H/14's L = 257, hd = 80, the score operands share one slot, staged in
-turn). The kernel is the operator ``rs_ov::fused_selfself_attention``
-(``build.register_op``).
+turn). The kernel is declared as ``build.Kernel`` (the operator
+``rs_ov::fused_selfself_attention``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rs_ov_torch.kernels.build import check, launch, load_library, register_op
+from rs_ov_torch.kernels.build import Kernel
 
 __all__ = ["fused_selfself_attention", "fused_selfself_attention_plain", "SUPPORTED_MODES"]
 
@@ -111,7 +111,8 @@ _ENTRY = {torch.bfloat16: "rs_selfself_attention_bf16",
 
 def _attention_operands(q, k, v, sim_map, mode: str, sim_weight: float):
     """The operands checked and the output allocated. Returns (out, entry,
-    args): the library entry's name and its arguments up to the stream."""
+    args, keep): the library entry's name, its arguments up to the stream,
+    and no tensor of its own to keep."""
     if mode not in SUPPORTED_MODES:
         raise ValueError(f"fused_selfself_attention: unsupported mode '{mode}', "
                          f"supported: {SUPPORTED_MODES}")
@@ -146,24 +147,16 @@ def _attention_operands(q, k, v, sim_map, mode: str, sim_weight: float):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if sim_map is None else sim_map.data_ptr(), out.data_ptr(),
             b, h, l, hd, SUPPORTED_MODES.index(mode), hd ** -0.5, float(sim_weight))
-    return out, _ENTRY[q.dtype], args
-
-
-def _fused_selfself_attention_cuda(q, k, v, sim_map, mode: str,
-                                   sim_weight: float) -> torch.Tensor:
-    out, entry, args = _attention_operands(q, k, v, sim_map, mode, sim_weight)
-    check(launch(getattr(load_library(), entry), args, q.device), entry)
-    fused_selfself_attention.launches += 1
-    return out
+    return out, _ENTRY[q.dtype], args, ()
 
 
 def _plain_positional(q, k, v, sim_map, mode, sim_weight):
     return fused_selfself_attention_plain(q, k, v, sim_map, mode=mode, sim_weight=sim_weight)
 
 
-_OP = register_op("fused_selfself_attention", "(Tensor q, Tensor k, Tensor v, Tensor? sim_map, "
-                  "str mode, float sim_weight) -> Tensor", _plain_positional,
-                  _fused_selfself_attention_cuda, lambda q, *rest: torch.empty_like(q))
+_KERNEL = Kernel("fused_selfself_attention", "(Tensor q, Tensor k, Tensor v, Tensor? sim_map, "
+                 "str mode, float sim_weight) -> Tensor", _plain_positional,
+                 _attention_operands, lambda q, *rest: torch.empty_like(q))
 
 
 def fused_selfself_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,9 +165,4 @@ def fused_selfself_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              sim_weight: float = 1.0) -> torch.Tensor:
     """q, k, v [B, H, L, hd] in one dtype; sim_map optional fp32 [B, L, L]
     (CLS row and column padded) -> the context [B, H, L, hd] in q's dtype."""
-    if q.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"fused_selfself_attention: no route for {q.device}")
-    return _OP(q, k, v, sim_map, mode, float(sim_weight))
-
-
-fused_selfself_attention.launches = 0  # CUDA kernel launches, for the chip smoke run
+    return _KERNEL(q, k, v, sim_map, mode, float(sim_weight))

@@ -5,7 +5,7 @@ with ``torch.export`` into a self-contained artifact: the visual tower's and
 the upsampler's weights, the text queries, the one-hot synonym map and the
 normalisation constants go in with the program; the text tower does not.
 Every kernel call is one node, the operator ``rs_ov::<kernel>``
-(``kernels.build.register_op``), so the served program launches the same
+(``kernels.build.Kernel``), so the served program launches the same
 hand-written kernels as the live segmentor and counts them as it does.
 ``load_predict`` rebuilds a callable from the artifact without the
 segmentor, its checkpoints or a retrace.

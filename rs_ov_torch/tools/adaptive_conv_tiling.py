@@ -92,13 +92,13 @@ def main(argv=None) -> dict:
                                   rounded) > ac.SMEM_MAX:
                     continue
                 if key in ("K4a", "K4b"):
-                    out, name, args = ac._adaptive_conv_operands(inp, filt, d, (rows, cw))
+                    out, name, args, _keep = ac._adaptive_conv_operands(inp, filt, d, (rows, cw))
                 elif rounded:
-                    out, name, args = ac._rounded_operands(inp, filt, d, key == "K4f",
-                                                           (rows, cw))
+                    out, name, args, _keep = ac._rounded_operands(inp, filt, d, key == "K4f",
+                                                                  (rows, cw))
                 else:
-                    out, name, args, _src = ac._layout_operands(inp, filt, d, channels_last,
-                                                                (rows, cw))
+                    out, name, args, _keep = ac._layout_operands(inp, filt, d, channels_last,
+                                                                 (rows, cw))
                 entry = getattr(load_library(), name)
                 check(entry(*args, stream), name)
                 rel = (out.float() - ref).abs().max().item() / scale

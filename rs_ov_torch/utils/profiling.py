@@ -6,7 +6,7 @@
     is on, a span records its name, its id, its parent's id, its request's
     id (the id of the outermost ``rs_ov/request`` span it lies in), its
     thread, its start and end, ``attrs`` (with those its ``set`` adds while
-    it is open), and how many times each kernel operator launched while it
+    it is open), and how many times each kernel launched while it
     was open (``kernels.build.launch_counts``).
     Start and end are Unix nanoseconds, the time base of torch.profiler's
     host events (its chrome trace counts microseconds from

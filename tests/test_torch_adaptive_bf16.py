@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from rs_ov_torch.kernels import adaptive_conv as ac
+from rs_ov_torch.kernels import build
 
 torch.set_num_threads(1)
 
@@ -80,9 +81,9 @@ def test_plain_matches_the_jax_kernel(pallas, entry, operands):
     v3, v4, jnp = pallas
     jax_fn = v3 if entry == "v3" else v4
     port_fn = ac.adaptive_conv_v3 if entry == "v3" else ac.adaptive_conv_v4
-    before = port_fn.launches
+    before = build.launch_counts()
     checked = _check_against_jax(jnp, jax_fn, port_fn, (2, 16, 21, 19, 5), operands, 5)
-    assert port_fn.launches == before
+    assert build.launch_counts() == before
     if operands == "fp32":
         _rounding_matters(*checked, 5)
 
@@ -123,7 +124,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     input staged in a ring of fp32 rows and a rounded bf16 row: d <= 44),
     one past the widest band (d <= 49) and, for K4f, d > 17."""
     monkeypatch.setattr(ac, "_sms", lambda device: 132)
-    monkeypatch.setattr(ac, "load_library", lambda: pytest.fail("the library was loaded"))
+    monkeypatch.setattr(build, "load_library", lambda: pytest.fail("the library was loaded"))
     with pytest.raises(ValueError, match="bf16 or fp32"):
         ac._rounded_operands(torch.zeros(1, 2, 7, 7, dtype=torch.float64),
                              torch.zeros(1, 9, 5, 5), 3)
@@ -138,8 +139,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
         ac._rounded_operands(torch.zeros(1, 2, 20, 20), torch.zeros(1, 19 * 19, 2, 2), 19,
                              chunked=True)
     for chunked, d in ((False, 44), (True, 17)):  # the largest each takes, fp32 input
-        out, entry, args = ac._rounded_operands(torch.zeros(1, 2, d + 1, d + 1),
-                                                torch.zeros(1, d * d, 2, 2), d, chunked)
+        out, entry, args, _keep = ac._rounded_operands(torch.zeros(1, 2, d + 1, d + 1),
+                                                       torch.zeros(1, d * d, 2, 2), d, chunked)
         assert entry == ac._ROUNDED_ENTRY[chunked] and args[-4:-2] == (0, 0)
         assert ac._smem_bytes(d, *args[-2:], F32, rounded=True) <= ac.SMEM_MAX
 
@@ -251,12 +252,12 @@ def test_kernels_match_the_plain_version_on_the_card(cuda, b, c, h, w, d, dtypes
     assert _rel(ac.adaptive_conv_bf16_plain(inp, dropped, d), ref) > tol
     if dtypes[0] == F32:
         assert _rel(ac.adaptive_conv_tapmajor_plain(inp, filt, d), ref) > tol
-    for fn in (ac.adaptive_conv_v3, ac.adaptive_conv_v4)[:1 if d > ac.V4_MAX_D else 2]:
-        before = fn.launches
-        got = fn(inp, filt, d)
+    for name in ("adaptive_conv_v3", "adaptive_conv_v4")[:1 if d > ac.V4_MAX_D else 2]:
+        before = build.launch_counts()[name]
+        got = getattr(ac, name)(inp, filt, d)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1 and got.dtype == inp.dtype
-        assert _rel(got, ref) <= tol, (fn.__name__, _rel(got, ref))
+        assert build.launch_counts()[name] == before + 1 and got.dtype == inp.dtype
+        assert _rel(got, ref) <= tol, (name, _rel(got, ref))
 
 
 @pytest.mark.cuda
@@ -280,7 +281,7 @@ def test_kernels_at_the_largest_d_and_every_tiling(cuda, dtypes):
             for cw in ac.WARP_CHANNELS:
                 if ac._smem_bytes(d, rows, cw, *dtypes, rounded=True) > ac.SMEM_MAX:
                     continue
-                out, name, args = ac._rounded_operands(inp, filt, d, tiling=(rows, cw))
+                out, name, args, _keep = ac._rounded_operands(inp, filt, d, tiling=(rows, cw))
                 assert getattr(load_library(), name)(*args, stream) == 0
                 assert _rel(out, ref) <= tol, (d, rows, cw, _rel(out, ref))
 

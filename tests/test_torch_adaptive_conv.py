@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from rs_ov_torch.kernels import adaptive_conv as ac
-from rs_ov_torch.kernels.adaptive_conv import (_adaptive_conv_cuda, adaptive_conv_tapmajor,
+from rs_ov_torch.kernels import build
+from rs_ov_torch.kernels.adaptive_conv import (_adaptive_conv_operands, adaptive_conv_tapmajor,
                                                adaptive_conv_tapmajor_plain)
 
 torch.set_num_threads(1)
@@ -77,11 +78,11 @@ def test_plain_matches_v5_bf16(jnp, b, c, h, w, d):
 
 def test_cpu_tensors_take_the_plain_route():
     inp, filt = _case(1, 3, 5, 6, 3)
-    before = dict(adaptive_conv_tapmajor.launches)
+    before = build.launch_counts()
     for dt in (torch.float32, torch.bfloat16):
         out = adaptive_conv_tapmajor(torch.from_numpy(inp).to(dt), torch.from_numpy(filt).to(dt), 3)
         assert out.shape == (1, 3, 5, 6) and out.dtype == dt
-    assert adaptive_conv_tapmajor.launches == before
+    assert build.launch_counts() == before
 
 
 def test_other_devices_raise():
@@ -103,9 +104,9 @@ def test_other_devices_raise():
     (torch.randn(1, 2, 7, 7, device="meta"), torch.randn(1, 9, 5, 5), "filt_t is on cpu"),
 ])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(inp, filt, match):
-    """The checks run before the library is touched, so they hold here."""
+    """The operand checks run before the library is touched, so they hold here."""
     with pytest.raises(ValueError, match=match):
-        _adaptive_conv_cuda(inp, filt, 3)
+        _adaptive_conv_operands(inp, filt, 3)
 
 
 def test_cuda_wrapper_refuses_windows_over_the_shared_memory():
@@ -116,7 +117,7 @@ def test_cuda_wrapper_refuses_windows_over_the_shared_memory():
             _check(inp, filt, d)
         else:
             with pytest.raises(ValueError, match="d <= 25"):
-                _adaptive_conv_cuda(inp, filt, d)
+                _adaptive_conv_operands(inp, filt, d)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -163,10 +164,10 @@ CUDA_SHAPES = SHAPES + [(2, 512, 56, 56, 11), (2, 512, 56, 56, 7), (1, 70, 9, 13
 @pytest.mark.parametrize("b,c,h,w,d", CUDA_SHAPES)
 def test_k4b_matches_plain(cuda, b, c, h, w, d):
     inp, filt = (torch.from_numpy(a).to(cuda) for a in _case(b, c, h, w, d))
-    n = adaptive_conv_tapmajor.launches[torch.float32]
+    n = build.launch_counts()["adaptive_conv_tapmajor.f32"]
     got = adaptive_conv_tapmajor(inp, filt, d)
     ref = adaptive_conv_tapmajor_plain(inp, filt, d)
-    assert adaptive_conv_tapmajor.launches[torch.float32] == n + 1
+    assert build.launch_counts()["adaptive_conv_tapmajor.f32"] == n + 1
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
@@ -175,10 +176,10 @@ def test_k4b_matches_plain(cuda, b, c, h, w, d):
 def test_k4a_matches_plain(cuda, b, c, h, w, d):
     """Within 1e-2 of max|ref|: one bf16 rounding flip of an output fits."""
     inp, filt = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _case(b, c, h, w, d))
-    n = adaptive_conv_tapmajor.launches[torch.bfloat16]
+    n = build.launch_counts()["adaptive_conv_tapmajor.bf16"]
     got = adaptive_conv_tapmajor(inp, filt, d).float()
     ref = adaptive_conv_tapmajor_plain(inp, filt, d).float()
-    assert adaptive_conv_tapmajor.launches[torch.bfloat16] == n + 1
+    assert build.launch_counts()["adaptive_conv_tapmajor.bf16"] == n + 1
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-2
 
 
@@ -229,7 +230,7 @@ def test_kernel_at_every_tiling(cuda, dtype):
             for cw in ac.WARP_CHANNELS:
                 if ac._smem_bytes(d, rows, cw, dtype) > ac.SMEM_MAX:
                     continue
-                out, entry, args = ac._adaptive_conv_operands(inp, filt, d, (rows, cw))
+                out, entry, args, _keep = ac._adaptive_conv_operands(inp, filt, d, (rows, cw))
                 fn = getattr(load_library(), entry)
                 assert fn(*args, torch.cuda.current_stream().cuda_stream) == 0
                 rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()

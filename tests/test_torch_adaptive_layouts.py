@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from rs_ov_torch.kernels import adaptive_conv as ac
-from rs_ov_torch.kernels.adaptive_conv import (_adaptive_conv_cl_cuda,
-                                               _adaptive_conv_planes_cuda, adaptive_conv_cl,
+from rs_ov_torch.kernels import build
+from rs_ov_torch.kernels.adaptive_conv import (_layout_operands, adaptive_conv_cl,
                                                adaptive_conv_planes,
                                                adaptive_conv_tapmajor_plain)
 
@@ -84,14 +84,14 @@ def test_plain_matches_the_tpu_kernels_bf16_input_fp32_taps(pallas, entry):
 
 def test_cpu_tensors_take_the_plain_route():
     inp, filt = _case(1, 4, 5, 6, 3)
-    before = (adaptive_conv_planes.launches, adaptive_conv_cl.launches)
+    before = build.launch_counts()
     for fn in ENTRIES.values():
         for dt_in, dt_f in ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
             x, f = torch.from_numpy(inp).to(dt_in), torch.from_numpy(filt).to(dt_f)
             out = fn(x, f, 3)
             assert out.shape == (1, 4, 5, 6) and out.dtype == dt_in
             torch.testing.assert_close(out, adaptive_conv_tapmajor_plain(x, f, 3), rtol=0, atol=0)
-    assert (adaptive_conv_planes.launches, adaptive_conv_cl.launches) == before
+    assert build.launch_counts() == before
 
 
 @pytest.mark.parametrize("fn", [adaptive_conv_planes, adaptive_conv_cl])
@@ -113,10 +113,11 @@ def test_other_devices_raise(fn):
      "filt_t must be contiguous"),
     (torch.randn(1, 2, 7, 7, device="meta"), torch.randn(1, 9, 5, 5), "filt_t is on cpu"),
 ])
-@pytest.mark.parametrize("cuda_fn", [_adaptive_conv_planes_cuda, _adaptive_conv_cl_cuda])
+@pytest.mark.parametrize("cuda_fn", [adaptive_conv_planes.operands, adaptive_conv_cl.operands],
+                         ids=list(ENTRIES))
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_fn, inp, filt, match):
-    """The checks run before the library is touched, so they hold here. The
-    operands may differ in dtype (bf16 / fp32 each)."""
+    """K4c's and K4d's operand checks run before the library is touched, so
+    they hold here. The operands may differ in dtype (bf16 / fp32 each)."""
     with pytest.raises(ValueError, match=match):
         cuda_fn(inp, filt, 3)
 
@@ -125,12 +126,12 @@ def test_cuda_wrappers_refuse_what_does_not_fit():
     """K4d takes even C only; both take d <= 25, the banded kernel's widest
     band (the fp32-core kernels refused by their blocks' bytes instead)."""
     with pytest.raises(ValueError, match="even channel count"):
-        _adaptive_conv_cl_cuda(torch.randn(1, 3, 7, 7), torch.randn(1, 9, 5, 5), 3)
+        _layout_operands(torch.randn(1, 3, 7, 7), torch.randn(1, 9, 5, 5), 3, True)
     big = (torch.empty(1, 2, 27, 27), torch.empty(1, 26 * 26, 2, 2))
     with pytest.raises(ValueError, match="d <= 25"):
-        _adaptive_conv_planes_cuda(*big, 26)
+        _layout_operands(*big, 26, False)
     with pytest.raises(ValueError, match="d <= 25"):
-        _adaptive_conv_cl_cuda(torch.empty(1, 2, 62, 62), torch.empty(1, 61 * 61, 2, 2), 61)
+        _layout_operands(torch.empty(1, 2, 62, 62), torch.empty(1, 61 * 61, 2, 2), 61, True)
 
 
 DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -217,10 +218,10 @@ def test_kernel_matches_plain(cuda, entry, b, c, h, w, d, dtypes):
     inp, filt = _case(b, c, h, w, d)
     inp = torch.from_numpy(inp).to(cuda, dtypes[0])
     filt = torch.from_numpy(filt).to(cuda, dtypes[1])
-    n = fn.launches
+    n = build.launch_counts()[f"adaptive_conv_{entry}"]
     got = fn(inp, filt, d)
     ref = adaptive_conv_tapmajor_plain(inp, filt, d)
-    assert fn.launches == n + 1 and got.dtype == inp.dtype
+    assert build.launch_counts()[f"adaptive_conv_{entry}"] == n + 1 and got.dtype == inp.dtype
     tol = 1e-5 if dtypes[0] == torch.float32 else 1e-2
     assert ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol
 
@@ -274,8 +275,8 @@ def test_kernel_at_every_tiling(cuda, entry, dtypes):
             for cw in ac.WARP_CHANNELS:
                 if ac._smem_bytes(d, rows, cw, *dtypes, LAYOUTS[entry]) > ac.SMEM_MAX:
                     continue
-                out, name, args, _src = ac._layout_operands(inp, filt, d, LAYOUTS[entry],
-                                                            (rows, cw))
+                out, name, args, _keep = ac._layout_operands(inp, filt, d, LAYOUTS[entry],
+                                                             (rows, cw))
                 assert getattr(load_library(), name)(
                     *args, torch.cuda.current_stream().cuda_stream) == 0
                 rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from rs_ov_torch.kernels import build
 from rs_ov_torch.kernels.selfself_attention import (SUPPORTED_MODES,
                                                     fused_selfself_attention,
                                                     fused_selfself_attention_plain)
@@ -128,9 +129,9 @@ def test_fused_path_on_the_cpu_stays_plain(monkeypatch):
     """On the CPU the switch changes nothing: custom_attn never calls K6, and
     K6's wrapper given CPU tensors runs its plain version, not the kernel."""
     q, k, v, _ = _qkv(2)
-    before = fused_selfself_attention.launches
+    before = build.launch_counts()
     fused_selfself_attention(*(torch.from_numpy(a) for a in (q, k, v)), mode="SFP")
-    assert fused_selfself_attention.launches == before
+    assert build.launch_counts() == before
     monkeypatch.setenv("RS_OV_FUSED_ATTN", "1")
     x, p, sim = _case(5)
     called = []
@@ -142,7 +143,7 @@ def test_fused_path_on_the_cpu_stays_plain(monkeypatch):
 
 
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
-    from rs_ov_torch.kernels.selfself_attention import _fused_selfself_attention_cuda as k6
+    from rs_ov_torch.kernels.selfself_attention import _attention_operands as k6
 
     def t(*shape, dtype=torch.bfloat16):
         return torch.empty(*shape, dtype=dtype, device="meta")
@@ -179,10 +180,10 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     ("vanilla", 17, 4, "multiple of 8 up to 128"),
 ])
 def test_fused_bf16_wrapper_refuses_past_its_limits(mode, l, hd, match):
-    """The bf16 kernel's wrapper raises, before it loads the library, past
+    """The bf16 kernel's operand checks raise, before the library loads, past
     L = 288, hd = 128 (or hd not a multiple of 8) and past the shared memory
     of a block holding the mode's padded operands."""
-    from rs_ov_torch.kernels.selfself_attention import _fused_selfself_attention_cuda as k6
+    from rs_ov_torch.kernels.selfself_attention import _attention_operands as k6
 
     x = torch.empty(1, 2, l, hd, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match=match):

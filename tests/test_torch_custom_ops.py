@@ -1,15 +1,19 @@
-"""The kernels as operators of the ``rs_ov`` namespace
-(rs_ov_torch/kernels/build.py:register_op): each one's schema and fake
+"""The kernels as declared in rs_ov_torch/kernels/build.py (``Kernel``):
+each operator of the ``rs_ov`` namespace with its schema and fake
 implementation checked by ``torch.library.opcheck`` on CPU sample inputs,
-without the kernel library; on a card (``cuda`` tests, skipped here) each
-operator against the direct launch of its kernel, its fake against the real
-output, and the serving export of a small segmentor on the default route.
+without the kernel library; each public callable refusing a tensor on any
+other device; the launch table naming every kernel's counters. On a card
+(``cuda`` tests, skipped here) each operator against the direct launch of
+its kernel, its fake against the real output, each eager call launching the
+kernel without the operator, and the serving export of a small segmentor on
+the default route.
 
 This file imports no jax, so that on a card it runs with
 
     python -m pytest tests/test_torch_custom_ops.py --noconftest -m cuda
 """
 
+import inspect
 import zlib
 
 import numpy as np
@@ -26,30 +30,17 @@ from rs_ov_torch.kernels import selfself_attention as sa
 torch.set_num_threads(1)
 
 D, H, W, C, G, CMID, Q, K = 3, 6, 7, 8, 3, 5, 3, 4
-# operator -> (its CUDA wrapper, which counts the launch; the counter's
-# function and key)
-OPS = {
-    "range_logits": (rl._range_logits_cuda, rl.range_logits, None),
-    "jbu_epilogue": (epi._jbu_epilogue_cuda, epi.jbu_epilogue, None),
-    "jbu_epilogue_classify": (epi._jbu_epilogue_classify_cuda, epi.jbu_epilogue_classify, None),
-    "jbu_epilogue_fused": (epi._jbu_epilogue_fused_cuda, epi.jbu_epilogue_fused, None),
-    "jbu_epilogue_fused_classify": (epi._jbu_epilogue_fused_classify_cuda,
-                                    epi.jbu_epilogue_fused_classify, None),
-    "adaptive_conv_tapmajor[bf16]": (ac._adaptive_conv_cuda, ac.adaptive_conv_tapmajor,
-                                     torch.bfloat16),
-    "adaptive_conv_tapmajor[fp32]": (ac._adaptive_conv_cuda, ac.adaptive_conv_tapmajor,
-                                     torch.float32),
-    "adaptive_conv_planes": (ac._adaptive_conv_planes_cuda, ac.adaptive_conv_planes, None),
-    "adaptive_conv_cl": (ac._adaptive_conv_cl_cuda, ac.adaptive_conv_cl, None),
-    "adaptive_conv_v3": (ac._adaptive_conv_v3_cuda, ac.adaptive_conv_v3, None),
-    "adaptive_conv_v4": (ac._adaptive_conv_v4_cuda, ac.adaptive_conv_v4, None),
-    "fused_selfself_attention[bf16]": (sa._fused_selfself_attention_cuda,
-                                       sa.fused_selfself_attention, None),
-    "fused_selfself_attention[fp32]": (sa._fused_selfself_attention_cuda,
-                                       sa.fused_selfself_attention, None),
-    "layer_norm[bf16]": (ln._layer_norm_cuda, ln.layer_norm, None),
-    "layer_norm[fp32]": (ln._layer_norm_cuda, ln.layer_norm, None),
-}
+MODULES = (rl, epi, ac, sa, ln)
+# the kernels whose bf16 and fp32 operands take two library entries: a case each
+BY_DTYPE = ("adaptive_conv_tapmajor", "fused_selfself_attention", "layer_norm")
+# every declared kernel, as "<operator>" or "<operator>[<dtype>]"
+OPS = [name + case for name in sorted(build.KERNELS)
+       for case in (("[bf16]", "[fp32]") if name in BY_DTYPE else ("",))]
+# the names launch_counts() has always given the spans and chip_smoke
+LAUNCH_NAMES = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_fused",
+                "jbu_epilogue_fused_classify", "adaptive_conv_tapmajor.bf16",
+                "adaptive_conv_tapmajor.f32", "adaptive_conv_planes", "adaptive_conv_cl",
+                "adaptive_conv_v3", "adaptive_conv_v4", "fused_selfself_attention", "layer_norm")
 
 
 def _samples(name: str, device) -> tuple:
@@ -86,13 +77,31 @@ def _samples(name: str, device) -> tuple:
     return q, k, v, t(2, 17, 17, scale=0.1), "SCLIP", 0.7
 
 
+def _kernel(name: str) -> build.Kernel:
+    return build.KERNELS[name.split("[")[0]]
+
+
 def _op(name: str):
     return getattr(torch.ops.rs_ov, name.split("[")[0]).default
 
 
+def _public_fn(name: str):
+    """The public callable of the kernel's module."""
+    base = name.split("[")[0]
+    return next(getattr(m, base) for m in MODULES if hasattr(m, base))
+
+
+def _public(name: str, args: tuple):
+    """The public callable on ``args``, the operator's arguments (K6 takes
+    its mode and weight by keyword)."""
+    if name.startswith("fused_selfself_attention"):
+        return _public_fn(name)(*args[:4], mode=args[4], sim_weight=args[5])
+    return _public_fn(name)(*args)
+
+
 def _launches(name):
-    _, counter, key = OPS[name]
-    return counter.launches if key is None else counter.launches[key]
+    counts = build.launch_counts()
+    return sum(counts[c] for c in _kernel(name).counters)
 
 
 def test_every_kernel_wrapper_has_its_operator():
@@ -102,20 +111,47 @@ def test_every_kernel_wrapper_has_its_operator():
         and isinstance(getattr(torch.ops.rs_ov, name), torch._ops.OpOverloadPacket))
 
 
-@pytest.mark.parametrize("name", list(OPS))
+def test_the_launch_table_names_every_kernels_counters():
+    """launch_counts() has exactly the names the spans and chip_smoke read,
+    each the counter of one declared kernel."""
+    assert tuple(sorted(build.launch_counts())) == tuple(sorted(LAUNCH_NAMES))
+    assert sorted(c for k in build.KERNELS.values() for c in k.counters) == sorted(LAUNCH_NAMES)
+
+
+@pytest.mark.parametrize("name", OPS)
 def test_operator_schema_and_fake_on_the_cpu(name, monkeypatch):
     """opcheck's schema and fake-tensor checks on the CPU implementation, the
     plain version; the kernel library is never loaded."""
     def no_library():
         raise AssertionError("the kernel library was loaded")
 
-    for mod in (build, rl, epi, ac, sa, ln):
-        monkeypatch.setattr(mod, "load_library", no_library)
+    monkeypatch.setattr(build, "load_library", no_library)
     torch.library.opcheck(_op(name), _samples(name, "cpu"),
                           test_utils=("test_schema", "test_faketensor"))
     before = _launches(name)
     _op(name)(*_samples(name, "cpu"))
     assert _launches(name) == before
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_the_public_callable_refuses_other_devices(name):
+    """Each kernel's public callable refuses a meta tensor with an error that
+    names the kernel, and counts no launch."""
+    before = build.launch_counts()
+    with pytest.raises(NotImplementedError, match=f"^{name.split('[')[0]}: no route for meta"):
+        _public(name, tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                            for a in _samples(name, "cpu")))
+    assert build.launch_counts() == before
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_the_public_callable_takes_keywords(name):
+    """Each public callable takes every argument by keyword, by the names
+    its signature gives, with the positional call's output."""
+    args = _samples(name, "cpu")
+    fn = _public_fn(name)
+    got = fn(**dict(zip(inspect.signature(fn).parameters, args)))
+    assert torch.equal(got, _public(name, args))
 
 
 # ---------------------------------------------------------------------------
@@ -136,12 +172,25 @@ def test_operator_equals_the_direct_launch(cuda, name):
     gives the direct launch's output exactly; its fake gives the real
     output's shape, dtype and strides."""
     args = _samples(name, cuda)
-    want = OPS[name][0](*args)
+    want = _kernel(name).launch(*args)
     before = _launches(name)
     got = _op(name)(*args)
     assert _launches(name) == before + 1
     assert torch.equal(got, want)
     torch.library.opcheck(_op(name), args, test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OPS)
+def test_eager_calls_on_the_card_skip_the_operators_dispatch(cuda, name, monkeypatch):
+    """An eager CUDA call of the public callable launches the kernel without
+    the operator (one launch counted), bit for bit the operator's output."""
+    args = _samples(name, cuda)
+    want = _op(name)(*args)
+    monkeypatch.setattr(_kernel(name), "op", lambda *a: pytest.fail("the operator was called"))
+    before = _launches(name)
+    got = _public(name, args)
+    assert _launches(name) == before + 1 and torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from rs_ov_torch.kernels import build
 from rs_ov_torch.kernels import jbu_epilogue as epi
 from rs_ov_torch.kernels.range_logits import range_logits_plain
 from rs_ov_torch.upsample import jbu
@@ -248,22 +249,22 @@ def test_switch_is_read_at_call_time(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_route():
     case = _stage_case(1, 4, 6, 7, 5, 3, 4, seed=1)
-    before = (epi.jbu_epilogue_fused.launches, epi.jbu_epilogue_fused_classify.launches)
+    before = build.launch_counts()
     args = _torch_stage(case, 5, torch.bfloat16)
     assert epi.jbu_epilogue_fused(*args, 5).shape == (1, 6, 7, 4)
     out = epi.jbu_epilogue_fused_classify(*args, *_torch_tail(case, torch.bfloat16), 5)
     assert out.shape == (1, 6, 7, 3) and out.dtype == torch.float32
-    assert (epi.jbu_epilogue_fused.launches,
-            epi.jbu_epilogue_fused_classify.launches) == before
+    assert build.launch_counts() == before
     with pytest.raises(NotImplementedError, match="no route"):
         epi.jbu_epilogue_fused(*(a.to("meta") for a in args), 5)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
-    """The checks run before the library is touched, so they hold here."""
+    """The operand checks run before the library is touched, so they hold
+    here."""
     case = _stage_case(1, 4, 6, 7, 5, 3, 4, seed=2)
     args = list(_torch_stage(case, 5, torch.bfloat16))
-    fused, fused_cls = epi._jbu_epilogue_fused_cuda, epi._jbu_epilogue_fused_classify_cuda
+    fused, fused_cls = epi._fused_operands, epi._fused_classify_operands
     with pytest.raises(NotImplementedError, match="fp32 takes the channel-first route"):
         fused(*_torch_stage(case, 5, torch.float32), 5)
     bad = list(args)
@@ -319,10 +320,10 @@ def test_fused_kernels_match_plain(cuda, d, h, w, k):
     or of the output); K5b within 1e-3 (K3's)."""
     case = _stage_case(2, 64, h, w, d, 3, k, seed=17)
     args = [a.to(cuda) for a in _torch_stage(case, d, torch.bfloat16)]
-    n = epi.jbu_epilogue_fused.launches
+    n = build.launch_counts()["jbu_epilogue_fused"]
     got = epi.jbu_epilogue_fused(*args, d).float()
     ref = epi.jbu_epilogue_fused_plain(*args, d).float()
-    assert epi.jbu_epilogue_fused.launches == n + 1
+    assert build.launch_counts()["jbu_epilogue_fused"] == n + 1
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-2
     tail = [a.to(cuda) for a in _torch_tail(case, torch.bfloat16)]
     tail[2] = torch.nn.functional.normalize(tail[2], dim=-1)
@@ -375,11 +376,12 @@ def test_fused_kernels_equal_the_split_pair(cuda, d, h, w, k, c, q):
     rng = np.random.RandomState(q)
     tail = (_t(case["fw"], torch.bfloat16).to(cuda), _t(case["fb"], torch.bfloat16).to(cuda),
             torch.nn.functional.normalize(_t(rng.randn(q, c)), dim=-1).to(cuda))
-    n = (epi.jbu_epilogue_fused.launches, epi.jbu_epilogue_fused_classify.launches)
+    n = build.launch_counts()
     got_a = epi.jbu_epilogue_fused(*args, d)
     got_b = epi.jbu_epilogue_fused_classify(*args, *tail, d)
-    assert (epi.jbu_epilogue_fused.launches,
-            epi.jbu_epilogue_fused_classify.launches) == (n[0] + 1, n[1] + 1)
+    after = build.launch_counts()
+    assert (after["jbu_epilogue_fused"], after["jbu_epilogue_fused_classify"]) == (
+        n["jbu_epilogue_fused"] + 1, n["jbu_epilogue_fused_classify"] + 1)
     ref_a, ref_b = _split_pair_cuda(args, d), _split_pair_cuda(args, d, tail)
     assert got_b.shape == (2, h, w, q)
     print(f"K5 d={d} {h}x{w} K={k} C={c} Q={q}: {int((got_a != ref_a).sum())} of "

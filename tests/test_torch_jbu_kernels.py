@@ -198,19 +198,20 @@ def _k1_operands(case):
                                   "proj not 4-d", "bf16 operand", "non-contiguous",
                                   "operands on two devices"])
 def test_range_logits_kernel_refuses_what_it_does_not_take(case, monkeypatch):
-    """K1's wrapper raises a ValueError before it loads the kernel library:
+    """K1's operand checks raise a ValueError before the kernel library loads:
     K past 32 (a pixel's projection is held in registers), d past 25 (the
     largest diameter the kernel is instantiated for) or under 1, a padded
     operand that does not match proj, an operand that is not contiguous fp32
     on proj's device."""
+    from rs_ov_torch.kernels import build
     from rs_ov_torch.kernels import range_logits as mod
 
     def no_library():
         raise AssertionError("the library was loaded")
 
-    monkeypatch.setattr(mod, "load_library", no_library)
+    monkeypatch.setattr(build, "load_library", no_library)
     with pytest.raises(ValueError, match="range_logits"):
-        mod._range_logits_cuda(*_k1_operands(case))
+        mod._range_logits_operands(*_k1_operands(case))
 
 
 # (d, H, W, C, Q, seed): the earlier shapes, then the classify kernel's tile
@@ -341,25 +342,25 @@ def test_classify_kernel_repairs_every_sum_past_its_queue(cuda, c):
 
 @pytest.mark.parametrize("c,d", [(64, 19), (64, 18), (63, 5)])
 def test_epilogue_kernel_refuses_what_it_does_not_take(c, d):
-    """K2's wrapper raises, before it loads the kernel library, for d > 17
+    """K2's operand checks raise, before the kernel library loads, for d > 17
     (the band of 16 + d - 1 columns no longer fits 32, the TPU kernel's
     limit) and an odd channel count."""
-    from rs_ov_torch.kernels.jbu_epilogue import _jbu_epilogue_cuda
+    from rs_ov_torch.kernels.jbu_epilogue import _epilogue_operands
 
     case = _epilogue_case(d, 3, 4, seed=19, c=c)
     with pytest.raises(ValueError, match="d <= 17|even channel"):
-        _jbu_epilogue_cuda(*_torch_args(case, d, torch.bfloat16), d)
+        _epilogue_operands(*_torch_args(case, d, torch.bfloat16), d)
 
 
 @pytest.mark.parametrize("c,d,q", [(64, 5, 129), (64, 19, 5), (63, 5, 5), (64, 5, 0)])
 def test_classify_kernel_refuses_what_it_does_not_take(c, d, q):
-    """The classify kernel's wrapper raises, before it loads the kernel
-    library, for Q > 128 (or none), d > 17 and an odd channel count."""
-    from rs_ov_torch.kernels.jbu_epilogue import _jbu_epilogue_classify_cuda
+    """The classify kernel's operand checks raise, before the kernel library
+    loads, for Q > 128 (or none), d > 17 and an odd channel count."""
+    from rs_ov_torch.kernels.jbu_epilogue import _classify_operands
 
     case = _epilogue_case(d, 3, 4, seed=19, c=c, q=max(q, 1))
     qf = _t(case["qf"])[:q]
     with pytest.raises(ValueError):
-        _jbu_epilogue_classify_cuda(*_torch_args(case, d, torch.bfloat16),
-                                    _t(case["fw"], torch.bfloat16),
-                                    _t(case["fb"], torch.bfloat16), qf, d)
+        _classify_operands(*_torch_args(case, d, torch.bfloat16),
+                           _t(case["fw"], torch.bfloat16),
+                           _t(case["fb"], torch.bfloat16), qf, d)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from rs_ov_torch.kernels import build
 from rs_ov_torch.kernels import layer_norm as ln
 from rs_ov_torch.nn import layers
 
@@ -110,10 +111,10 @@ def test_the_layers_layer_norm_is_the_plain_chain_on_the_cpu(dtype):
     """nn.layers.layer_norm on CPU tensors is the plain version bit for bit,
     and counts no launch."""
     x, scale, bias = _inputs(7, 768, dtype, seed=3)
-    before = ln.layer_norm.launches
+    before = build.launch_counts()["layer_norm"]
     got = layers.layer_norm(x.reshape(7, 1, 768), SimpleNamespace(scale=scale, bias=bias), 1e-6)
     assert torch.equal(got, ln.layer_norm_plain(x, scale, bias, 1e-6).reshape(7, 1, 768))
-    assert ln.layer_norm.launches == before
+    assert build.launch_counts()["layer_norm"] == before
 
 
 @pytest.mark.parametrize("need", [(True, True, True), (True, False, False),
@@ -153,10 +154,10 @@ def test_the_row_plan(d, dtype, aligned, want):
 def test_the_operands_are_checked_before_the_library_loads(monkeypatch):
     """The CUDA wrapper's checks run on any tensors, before a launch: fp16,
     parameters of the wrong length or of two dtypes, and no rows raise."""
-    monkeypatch.setattr(ln, "load_library", lambda: pytest.fail("library loaded"))
+    monkeypatch.setattr(build, "load_library", lambda: pytest.fail("library loaded"))
     x, scale, bias = _inputs(3, 64, BF16)
-    out, args = ln._layer_norm_operands(x, scale, bias, 1e-5)
-    assert out.shape == x.shape and args[4:9] == (3, 64, 1, 1, 1)
+    out, entry, args, _keep = ln._layer_norm_operands(x, scale, bias, 1e-5)
+    assert out.shape == x.shape and entry == "rs_layer_norm" and args[4:9] == (3, 64, 1, 1, 1)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         ln._layer_norm_operands(x.half(), scale, bias, 1e-5)
     with pytest.raises(ValueError, match="must be"):
@@ -174,8 +175,8 @@ def test_the_cpu_and_a_trace_take_the_operator(monkeypatch):
     (only eager CUDA tensors launch the kernel without it), so that
     ``torch.export`` records the call as one node."""
     seen = []
-    op = ln._OP
-    monkeypatch.setattr(ln, "_OP", lambda *a: seen.append(type(a[0])) or op(*a))
+    op = ln._KERNEL.op
+    monkeypatch.setattr(ln._KERNEL, "op", lambda *a: seen.append(type(a[0])) or op(*a))
     x, scale, bias = _inputs(6, 64, F32)
     assert torch.equal(ln.layer_norm(x, scale, bias), ln.layer_norm_plain(x, scale, bias, 1e-5))
     assert seen == [torch.Tensor]
@@ -225,9 +226,9 @@ def test_kernel_against_the_plain_version(cuda, d, dtype, pdtype, eps):
     """333 rows (not a whole number of blocks of 8) against the plain version
     on the card; one launch counted."""
     x, scale, bias = _inputs(333, d, dtype, pdtype, seed=d, device=cuda)
-    before = ln.layer_norm.launches
+    before = build.launch_counts()["layer_norm"]
     got = ln.layer_norm(x, scale, bias, eps)
-    assert ln.layer_norm.launches == before + 1
+    assert build.launch_counts()["layer_norm"] == before + 1
     _agree(got, ln.layer_norm_plain(x, scale, bias, eps), dtype)
 
 
@@ -278,22 +279,10 @@ def test_the_autograd_route_on_the_card(cuda, dtype, pdtype):
         y = fn(*ops, 1e-5)
         return y, torch.autograd.grad(y, ops, g)
 
-    before = ln.layer_norm.launches
+    before = build.launch_counts()["layer_norm"]
     y, grads = run(ln.layer_norm)
-    assert ln.layer_norm.launches == before + 1
+    assert build.launch_counts()["layer_norm"] == before + 1
     y_ref, grads_ref = run(ln.layer_norm_plain)
     _agree(y.detach(), y_ref.detach(), dtype)
     for a, b in zip(grads, grads_ref):
         assert torch.equal(a, b)
-
-
-@pytest.mark.cuda
-def test_eager_calls_on_the_card_skip_the_operators_dispatch(cuda, monkeypatch):
-    """An eager CUDA call launches the kernel without the operator (one
-    launch counted), bit for bit the operator's output."""
-    x, scale, bias = _inputs(333, 768, BF16, seed=11, device=cuda)
-    want = torch.ops.rs_ov.layer_norm(x, scale, bias, 1e-5)
-    monkeypatch.setattr(ln, "_OP", lambda *a: pytest.fail("the operator was called"))
-    before = ln.layer_norm.launches
-    got = ln.layer_norm(x, scale, bias)
-    assert ln.layer_norm.launches == before + 1 and torch.equal(got, want)

@@ -18,10 +18,9 @@ from rs_ov.core.params import init_clip_params
 from rs_ov.upsample.jbu import init_jbu_one_params
 from rs_ov_torch.core.params import clip_params_from_numpy, jbu_params_from_numpy
 from rs_ov_torch.kernels import build
-from rs_ov_torch.kernels.jbu_epilogue import (_jbu_epilogue_classify_cuda,
-                                              _jbu_epilogue_cuda, jbu_epilogue,
-                                              jbu_epilogue_classify)
-from rs_ov_torch.kernels.range_logits import _range_logits_cuda, range_logits
+from rs_ov_torch.kernels.jbu_epilogue import (_classify_operands, _epilogue_operands,
+                                              jbu_epilogue, jbu_epilogue_classify)
+from rs_ov_torch.kernels.range_logits import _range_logits_operands, range_logits
 
 torch.set_num_threads(1)
 
@@ -235,14 +234,13 @@ def _epilogue_args(d=5, h=6, w=7, c=4, g=3, dtype=torch.bfloat16):
 
 
 def test_cpu_tensors_take_the_plain_route():
-    counters = (range_logits, jbu_epilogue, jbu_epilogue_classify)
-    before = [f.launches for f in counters]
+    before = build.launch_counts()
     range_logits(torch.randn(1, 4, 10, 10), torch.randn(1, 4, 6, 6), 5)
     a = _epilogue_args()
     assert jbu_epilogue(*a, 5).dtype == torch.bfloat16
     out = jbu_epilogue_classify(*a, torch.randn(4, 4), torch.randn(4), torch.randn(3, 4), 5)
     assert out.shape == (2, 6, 7, 3) and out.dtype == torch.float32
-    assert [f.launches for f in counters] == before
+    assert build.launch_counts() == before
 
 
 def test_other_devices_raise():
@@ -252,31 +250,32 @@ def test_other_devices_raise():
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
-    """The checks run before the library is touched, so they hold here."""
+    """The operand checks, which run before the library is touched, so they
+    hold here."""
     with pytest.raises(ValueError, match="fp32|float32"):
-        _range_logits_cuda(torch.randn(1, 4, 10, 10, dtype=torch.float64),
-                           torch.randn(1, 4, 6, 6), 5)
+        _range_logits_operands(torch.randn(1, 4, 10, 10, dtype=torch.float64),
+                               torch.randn(1, 4, 6, 6), 5)
     with pytest.raises(ValueError, match="does not match"):
-        _range_logits_cuda(torch.randn(1, 4, 11, 10), torch.randn(1, 4, 6, 6), 5)
+        _range_logits_operands(torch.randn(1, 4, 11, 10), torch.randn(1, 4, 6, 6), 5)
     with pytest.raises(ValueError, match="K <= 32"):
-        _range_logits_cuda(torch.randn(1, 40, 10, 10), torch.randn(1, 40, 6, 6), 5)
+        _range_logits_operands(torch.randn(1, 40, 10, 10), torch.randn(1, 40, 6, 6), 5)
     with pytest.raises(NotImplementedError, match="fp32 takes the channel-first route"):
-        _jbu_epilogue_cuda(*_epilogue_args(dtype=torch.float32), 5)
+        _epilogue_operands(*_epilogue_args(dtype=torch.float32), 5)
     a = _epilogue_args()
     a[2] = a[2][:, :, :-1]  # guidance one pixel short
     with pytest.raises(ValueError, match="guid_t"):
-        _jbu_epilogue_cuda(*a, 5)
+        _epilogue_operands(*a, 5)
     a = _epilogue_args()
     a[0] = a[0].transpose(1, 2)  # not contiguous and misshapen
     with pytest.raises(ValueError, match="inp"):
-        _jbu_epilogue_cuda(*a, 5)
+        _epilogue_operands(*a, 5)
     with pytest.raises(ValueError, match="even channel"):
-        _jbu_epilogue_cuda(*_epilogue_args(c=3), 5)
+        _epilogue_operands(*_epilogue_args(c=3), 5)
     with pytest.raises(ValueError, match="weight of shape"):
-        _jbu_epilogue_cuda(*_epilogue_args()[:5], torch.randn(25, 27), *_epilogue_args()[6:], 5)
+        _epilogue_operands(*_epilogue_args()[:5], torch.randn(25, 27), *_epilogue_args()[6:], 5)
     with pytest.raises(ValueError, match="fixup_w"):
-        _jbu_epilogue_classify_cuda(*_epilogue_args(), torch.randn(4, 5), torch.randn(4),
-                                    torch.randn(3, 4), 5)
+        _classify_operands(*_epilogue_args(), torch.randn(4, 5), torch.randn(4),
+                           torch.randn(3, 4), 5)
     # every operand must lie on the features' device: here the features are
     # on "meta" and one weight at a time stays on the host
     host = _epilogue_args()
@@ -287,12 +286,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         b = list(a)
         b[i] = host[i]
         with pytest.raises(ValueError, match="weight .* is on cpu"):
-            _jbu_epilogue_cuda(*b, 5)
+            _epilogue_operands(*b, 5)
     for i, name in enumerate(("fixup_w", "weight", "query_features")):
         t = list(tail)
         t[i] = host_tail[i]
         with pytest.raises(ValueError, match=f"{name}.* is on cpu"):
-            _jbu_epilogue_classify_cuda(*a, *t, 5)
+            _classify_operands(*a, *t, 5)
 
 
 def test_build_without_nvcc_raises(monkeypatch):

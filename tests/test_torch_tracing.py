@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from rs_ov_torch.core.config import CLIPConfig, TextConfig, VisionConfig
-from rs_ov_torch.kernels import adaptive_conv, build, range_logits
+from rs_ov_torch.kernels import build
 from rs_ov_torch.pipeline import export
 from rs_ov_torch.pipeline.segmentor import SegmentorEx
 from rs_ov_torch.utils import profiling
@@ -206,15 +206,14 @@ def test_trace_writes_the_recorders_export_beside_its_own(tmp_path):
 
 
 def test_a_span_takes_the_launch_counters_deltas(monkeypatch):
-    monkeypatch.setattr(range_logits.range_logits, "launches", 5)
-    monkeypatch.setattr(adaptive_conv.adaptive_conv_tapmajor, "launches",
-                        {torch.bfloat16: 1, torch.float32: 0})
+    monkeypatch.setattr(build, "_LAUNCHES", {**build.launch_counts(), "range_logits": 5,
+                                             "adaptive_conv_tapmajor.bf16": 1})
     assert build.launch_counts()["range_logits"] == 5
     with profiling.recording():
         with profiling.span("rs_ov/outer"):
-            range_logits.range_logits.launches += 2
+            build._LAUNCHES["range_logits"] += 2
             with profiling.span("rs_ov/inner"):
-                adaptive_conv.adaptive_conv_tapmajor.launches[torch.bfloat16] += 3
+                build._LAUNCHES["adaptive_conv_tapmajor.bf16"] += 3
         with profiling.span("rs_ov/none"):
             pass
     launches = {r["name"]: r["launches"] for r in profiling.spans()}

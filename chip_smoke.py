@@ -9,7 +9,7 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 power limit.
   2. build    - compiles rs_ov_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                 per source, all at once.
-  3. kernels  - each CUDA kernel (K1-K3, K4a-K4f, K5a, K5b, K6, K7) against its
+  3. kernels  - each CUDA kernel (K1-K3, K4a-K4f, K5a, K5b, K6, K7, K8) against its
                 plain PyTorch version on the card, at the shapes every driven
                 path gives it (jbu_one's d=11, jbu_stack's d=7 on 28^2 to
                 224^2; K6 in each of its six modes, with and without a sim
@@ -45,7 +45,14 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 shapes in bf16: 25216 x 768 and 32896 x 1024 (a call of 8
                 tiles), 3152 x 768 and 4112 x 1024 (one tile), at most one
                 bf16 step from the plain version, beside it with the last
-                column's scale left out, F.layer_norm timed beside.
+                column's scale left out, F.layer_norm timed beside. K8 (a
+                linear's epilogue) on the product of ViT-B/16's in_proj
+                (25216 x 2304) and c_fc with QuickGELU (25216 x 3072),
+                ViT-L/14's c_fc with GELU (32896 x 4096) and one tile's
+                out_proj (3152 x 768), equal to the plain chain bit for
+                bit, beside it with the last column's bias left out; timed
+                alone and in streams, torch.addmm timed beside the port's
+                whole linear.
   4. slice    - SegmentorEx from configs/base_config.py (CLIP ViT-B/16,
                 random weights) on the Potsdam vocabulary: predict_raw on
                 three 512x512 images on each route: bf16 channel-last (K1,
@@ -79,8 +86,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 channel-last and fp32 channel-first; BLIP base in bf16
                 channel-last (the committed WordPiece vocabulary).
                 Checks outputs and that every launch counter moved by
-                exactly the expected amount (K7 LN_PER_PASS[arch] a request
-                or batch call); prints crops/s (224²) and 512²
+                exactly the expected amount (K7 LN_PER_PASS[arch] and K8
+                LINEAR_PER_PASS[arch] a request or batch call, one fewer K8
+                in fp32); prints crops/s (224²) and 512²
                 tiles/s (crops/s / 16) per route over the requests after the
                 first (batches: the second call).
   5. e2e      - one 336x336 image through every route on the card and
@@ -137,8 +145,8 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 CPU; save_for_hub loaded back by create_model with equal
                 outputs; SegmentorEx with each of resize_conv, ifa, carafe
                 and sapa (base config otherwise): a 512² request each,
-                crops/s beside the default route, no kernel but K7
-                launched (once a LayerNorm); and
+                crops/s beside the default route, no kernel but K7 and
+                K8 launched (once a LayerNorm, once a linear); and
                 carafe's 336² bf16 run against its fp32 CPU run on phase
                 5's decided-pixel gate, one zeroed head failing it.
   8. timm     - the timm towers (rs_ov_torch.nn.timm_tower) through
@@ -151,7 +159,8 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 images and 8 prompts (seeded ids where the tokenizer is an
                 HF asset) on the card in fp32 against the CPU's fp32
                 (max|d|/max|ref| <= ENTRY_TOL on the image and text
-                embeddings and the logits) with no kernel but K7 launched, a
+                embeddings and the logits) with no kernel but K7 and K8
+                launched, a
                 planted fault above the bound (ConvNeXt's gammas left out,
                 the MAP head's MLP residual left out, RoPE left out), bf16
                 against the card's fp32 (cosine >= ENTRY_COS), and
@@ -174,8 +183,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 least GEN_TAU (the decided share printed); bf16 logits
                 against fp32 (GEN_COS); the golden on the card. Prints
                 captions/s with each decode step's CUDA-event span and host
-                ms, VQA questions/s and ITM pairs/s. No kernel but K7 is
-                launched, once for each LayerNorm on the card.
+                ms, VQA questions/s and ITM pairs/s. No kernel but K7 and
+                K8 is launched, once for each LayerNorm and each linear on
+                the card.
  10. train    - training (rs_ov_torch.train) at full width on drawn weights:
                 CLIP ViT-B/16 (224², context 77), BLIP base (224², queue
                 57600), coca_ViT-B-32. Gates, each number printed beside its
@@ -196,8 +206,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
                 momentum forward (e). Rates (no gate): pairs/s and peak memory
                 of the ViT-B/16 step in bf16 and fp32 at batch 256, its model
                 FLOPs against the bf16 / fp32 peaks, BLIP retrieval
-                examples/s at batch 32. No kernel but K7 is launched, once
-                for each LayerNorm on the card.
+                examples/s at batch 32. No kernel but K7 and K8 is
+                launched, K7 once for each LayerNorm on the card, K8 once
+                for each linear on the card, with a gradient or without.
  11. serve    - the serving export (rs_ov_torch.pipeline.export) of the base
                 config at 512² (ViT-B/16, Potsdam Q=8, weights drawn from
                 seed 0): export_predict and load_predict on the bf16
@@ -258,6 +269,9 @@ K1_TOL, K2_TOL, K3_TOL, K4B_TOL, K4A_TOL = 1e-5, 1e-2, 1e-3, 1e-5, 1e-2
 # fp32 sums, so each output is at most one step of its own apart beside 1e-5
 # of max|ref|, which _layer_norm_kernel also checks.
 K7_TOL = 2.0 ** -7
+# K8 (a linear's epilogue) rounds each step where the plain chain rounds it:
+# equal bit for bit
+K8_TOL = 0.0
 B, D, K, C, G, Q = 2, 11, 32, 512, 3, 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BPS, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
@@ -610,6 +624,7 @@ def phase_kernels():
     rows.update(_bf16_conv_kernels(rng, dev))
     rows["fused_selfself_attention"] = _selfself_attention_kernel(rng, dev)
     rows["layer_norm"] = _layer_norm_kernel(rng, dev)
+    rows["linear_epilogue"] = _linear_epilogue_kernel(rng, dev)
     return rows
 
 
@@ -706,6 +721,75 @@ def _layer_norm_kernel(rng, dev):
         checks.append((f"x=[{rows}, {d}] bf16, eps=1e-5", c))
     return _row("layer_norm", "rs_ov_torch/csrc/layer_norm.cu",
                 "none: XLA fused rs_ov/nn/layers.py:layer_norm", checks)
+
+
+def _linear_epilogue_kernel(rng, dev):
+    """K8 at the tower's shapes, on the product matmul32 makes, bf16 out with
+    the bf16 bias the tower holds: ViT-B/16's in_proj [25216, 2304] (no
+    activation) and c_fc [25216, 3072] (QuickGELU) and ViT-L/14's c_fc
+    [32896, 4096] (GELU) over a call of 8 tiles, ViT-B/16's out_proj over
+    one tile [3152, 768]; and the fp32 routes' instantiation, fp32 out with
+    an fp32 bias, at ViT-B/16's c_fc [25216, 3072] (QuickGELU). Each equal
+    to the plain chain bit for bit (K8_TOL), beside the chain with the last
+    column's bias left out; the bare library call beside the wrapper. The
+    bound is bytes: the fp32 product read and the output written once, the
+    bias once. Timed
+    alone (CUDA events around each call, in turns) and in streams of
+    LN_STREAM calls (_stream_ms), as the tower issues them: the bare call,
+    the wrapper, the plain chain; beside them the library yardstick
+    torch.addmm (operands, bias and output in the row's dtype: the product
+    and its epilogue in one call, which the port never calls) and the port's whole
+    linear (matmul32's product, then K8)."""
+    from rs_ov_torch.kernels.build import load_library
+    from rs_ov_torch.kernels.linear_epilogue import (ACTIVATIONS, _linear_epilogue_operands,
+                                                     linear_epilogue, linear_epilogue_plain)
+    from rs_ov_torch.nn.layers import linear, matmul32
+
+    bf, f32 = torch.bfloat16, torch.float32
+    checks = []
+    for rows, k_in, n, act, dt in ((25216, 768, 2304, "none", bf),
+                                   (25216, 768, 3072, "quick_gelu", bf),
+                                   (32896, 1024, 4096, "gelu", bf), (3152, 768, 768, "none", bf),
+                                   (25216, 768, 3072, "quick_gelu", f32)):
+        x = torch.from_numpy(rng.randn(rows, k_in).astype(np.float32)).to(dev, dt)
+        w = torch.from_numpy((rng.randn(n, k_in) * k_in ** -0.5).astype(np.float32)).to(dev, dt)
+        b = torch.from_numpy((0.5 * rng.randn(n)).astype(np.float32)).to(dev, dt)
+        cut = b.clone()
+        cut[-1] = 0
+        y = matmul32(x, w.t())
+        wrapper = lambda: linear_epilogue(y, b, act, dt)  # noqa: E731
+        plain = lambda: linear_epilogue_plain(y, b, act, dt)  # noqa: E731
+        size = 2 if dt == bf else 4
+        label = f"K8 linear_epilogue [{rows}, {n}] {act}" + ("" if dt == bf else " fp32")
+        c = _check(label, K8_TOL, wrapper, plain,
+                   lambda: linear_epilogue_plain(y, cut, act, dt),  # noqa: B023
+                   _bound(rows * n * (4 + size) + n * size), dropped="column's bias")
+        c["bit_equal"] = bool(torch.equal(wrapper(), plain()))
+        assert c["bit_equal"], label
+        _out, entry, args, _keep = _linear_epilogue_operands(y, b, act, dt)  # outlive them
+        _bare_beside_wrapper(label, c, entry, args, wrapper)
+        library = lambda: torch.addmm(b, x, w.t())  # noqa: E731
+        port = lambda: linear(x, w, b, act=ACTIVATIONS[act])  # noqa: E731
+        c["library_ms"], c["linear_ms"] = _timed_pair(library, port)
+        fn, stream = getattr(load_library(), entry), torch.cuda.current_stream()
+        bare = lambda: fn(*args, stream.cuda_stream)  # noqa: E731
+        for key, call in (("kernel_stream_ms", bare), ("stream_ms", wrapper),
+                          ("plain_stream_ms", plain), ("library_stream_ms", library),
+                          ("linear_stream_ms", port)):
+            c[key] = _stream_ms(call)
+        print(f"[kernels] {label}: equal to the plain chain bit for bit; alone the bare call "
+              f"is {c['bound_ms'] / c['kernel_ms']:.1%} of the bound; in streams of "
+              f"{LN_STREAM} calls, per call: bare {c['kernel_stream_ms']:.4f} ms "
+              f"({c['bound_ms'] / c['kernel_stream_ms']:.1%} of the bound "
+              f"{c['bound_ms']:.4f} ms), wrapper {c['stream_ms']:.4f} ms, plain chain "
+              f"{c['plain_stream_ms']:.4f} ms; the whole linear: the port's (product + K8) "
+              f"{c['linear_stream_ms']:.4f} ms, torch.addmm {c['library_stream_ms']:.4f} ms "
+              f"(alone {c['linear_ms']:.4f} / {c['library_ms']:.4f}) on {CARD['smi']}")
+        name = "bf16" if dt == bf else "fp32"
+        checks.append((f"y=[{rows}, {n}] fp32, bias [{n}] {name}, act {act} -> {name}", c))
+    return _row("linear_epilogue", "rs_ov_torch/csrc/linear_epilogue.cu",
+                "none: XLA fused rs_ov/nn/layers.py:linear's bias add and cast and the "
+                "MLP's activation", checks)
 
 
 @contextlib.contextmanager
@@ -1161,28 +1245,52 @@ KERNELS = tuple(launch_counts())  # every kernel, by its launch counter's name
 # config's ignore_residual), ln_post; ClearCLIP's layer fusion runs the last
 # block whole too (27); GEM runs every block whole (26); BLIP has no ln_pre (24).
 LN_PER_PASS = {"ViT-B-16": 25, "ViT-B-32": 25, "ViT-B-16-quickgelu": 25, "ViT-L-14": 49,
-               "ViT-L-14-quickgelu": 49, "ViT-H-14": 65, "ClearCLIP": 27, "GEM": 26, "BLIP": 24}
+               "ViT-L-14-quickgelu": 49, "ViT-H-14": 65, "SOM": 25, "ClearCLIP": 27, "GEM": 26,
+               "BLIP": 24}
+# K8's launches in one image-tower pass, read from the same code (and counted
+# at tiny widths on the CPU): the patch embedding, the in_proj, out_proj, c_fc
+# and c_proj of each front block, the last block's in_proj and out_proj alone:
+# 47 B/16 and B/32, 95 L/14, 127 H/14; SOM projects the last block's q and k
+# once more (48); ClearCLIP's layer fusion runs the last block whole too (51);
+# GEM 55; BLIP 48. In fp32 the patch embedding, which has no bias, is its
+# product as it is: one fewer (_per_pass).
+LINEAR_PER_PASS = {"ViT-B-16": 47, "ViT-B-32": 47, "ViT-B-16-quickgelu": 47, "ViT-L-14": 95,
+                   "ViT-L-14-quickgelu": 95, "ViT-H-14": 127, "SOM": 48, "ClearCLIP": 51,
+                   "GEM": 55, "BLIP": 48}
+
+
+def _per_pass(n, arch, fp32=False):
+    """K7's and K8's launches in n image-tower passes of ``arch``."""
+    return {"layer_norm": n * LN_PER_PASS[arch],
+            "linear_epilogue": n * (LINEAR_PER_PASS[arch] - fp32)}
 
 
 @contextlib.contextmanager
-def _layer_norms_on_the_card():
-    """Count the LayerNorm calls (nn.layers.layer_norm) on CUDA tensors in
-    the block: K7's expected launches where no tower's LN_PER_PASS fixes
-    them (text towers, decoders, timm towers, training, the alternate
-    upsamplers' norms)."""
+def _tower_kernels_on_the_card():
+    """Count the LayerNorm calls (nn.layers.layer_norm) and the linear
+    epilogues (nn.layers.linear's calls of K8) on CUDA tensors in the block:
+    K7's and K8's expected launches where no tower's LN_PER_PASS and
+    LINEAR_PER_PASS fix them (text towers, decoders, timm towers, training,
+    the alternate upsamplers' norms). Yields the counts by kernel."""
     from rs_ov_torch.nn import layers
 
-    fn, calls = layers._layer_norm, [0]
+    wrapped = {"layer_norm": "_layer_norm", "linear_epilogue": "_linear_epilogue"}
+    saved = {k: getattr(layers, attr) for k, attr in wrapped.items()}
+    calls = dict.fromkeys(wrapped, 0)
 
-    def counting(x, *args, **kwargs):
-        calls[0] += x.is_cuda
-        return fn(x, *args, **kwargs)
+    def counting(k, fn):
+        def call(x, *args, **kwargs):
+            calls[k] += x.is_cuda
+            return fn(x, *args, **kwargs)
+        return call
 
-    layers._layer_norm = counting
+    for k, attr in wrapped.items():
+        setattr(layers, attr, counting(k, saved[k]))
     try:
         yield calls
     finally:
-        layers._layer_norm = fn
+        for k, attr in wrapped.items():
+            setattr(layers, attr, saved[k])
 
 
 def _since(before):
@@ -1440,8 +1548,7 @@ def _drive_towers(images, s, by_path):
         name = f"{clip_type} {arch}"
         seg = _build(name, **_tower_cfg(clip_type, vit_type), device=DEV)
         assert seg.cfg == get_model_config(arch), (name, seg.cfg)
-        ln = {"layer_norm": n * LN_PER_PASS[arch]}
-        cl, cf = {**jbu_cl, **ln}, {**jbu_cf, **ln}
+        cl, cf = {**jbu_cl, **_per_pass(n, arch)}, {**jbu_cf, **_per_pass(n, arch, fp32=True)}
         by_path[name] = _drive(f"{name} bf16 channel-last (K1 K2 K3)", seg, images, cl)
         if arch in WIDE:
             with _env("RS_OV_FUSED_ATTN", "1"):
@@ -1463,17 +1570,16 @@ def _drive_towers(images, s, by_path):
         del seg
         torch.cuda.empty_cache()
     gem = kept["GEM"] = _build("GEM on CLIP ViT-B/16", **_gem_cfg(), device=DEV)
-    ln = {"layer_norm": n * LN_PER_PASS["GEM"]}
     by_path["GEM"] = _drive("GEM (CLIP ViT-B/16, gem_depth 7) bf16 channel-last (K1 K2 K3)",
-                            gem, images, {**jbu_cl, **ln})
+                            gem, images, {**jbu_cl, **_per_pass(n, "GEM")})
     gem32 = _build("GEM fp32", **_gem_cfg(), param_dtype=torch.float32, device=DEV,
                    query_features=gem.query_features.cpu().numpy())
     by_path["GEM fp32 channel-first"] = _drive("GEM fp32 channel-first (K1 K4b)", gem32, images,
-                                               {**jbu_cf, **ln})
+                                               {**jbu_cf, **_per_pass(n, "GEM", fp32=True)})
     del gem32
     kept["BLIP"] = _build("BLIP base", **_blip_cfg(), device=DEV)
     by_path["BLIP"] = _drive("BLIP base bf16 channel-last (K1 K2 K3)", kept["BLIP"], images,
-                             {**jbu_cl, "layer_norm": n * LN_PER_PASS["BLIP"]})
+                             {**jbu_cl, **_per_pass(n, "BLIP")})
     torch.cuda.empty_cache()
     return kept
 
@@ -1486,27 +1592,29 @@ def phase_slice(rows):
     rng = np.random.RandomState(1)
     images = [rng.randint(0, 256, (1, 512, 512, 3), np.uint8) for _ in range(3)]
     s = seg.jbu_stages
-    ln = {"layer_norm": 3 * LN_PER_PASS["ViT-B-16"]}  # K7: one tower pass a request
+    # K7, K8: one tower pass a request
+    ln, ln32 = _per_pass(3, "ViT-B-16"), _per_pass(3, "ViT-B-16", fp32=True)
     channel_last = {"range_logits": 3 * s * CHUNKS, "jbu_epilogue": 3 * (s - 1) * CHUNKS,
                     "jbu_epilogue_classify": 3 * CHUNKS, **ln}
     by_path = {
-        "bf16 channel-last": _drive("bf16 channel-last (K1 K2 K3 K7)", seg, images,
+        "bf16 channel-last": _drive("bf16 channel-last (K1 K2 K3 K7 K8)", seg, images,
                                     channel_last),
-        "fp32 channel-first": _drive("fp32 channel-first (K1 K4b K7)", segs["base fp32"],
+        "fp32 channel-first": _drive("fp32 channel-first (K1 K4b K7 K8)", segs["base fp32"],
                                      images, {"range_logits": 3 * s * CHUNKS,
-                                              "adaptive_conv_tapmajor.f32": 3 * s * CHUNKS, **ln})}
+                                              "adaptive_conv_tapmajor.f32": 3 * s * CHUNKS,
+                                              **ln32})}
     with _env("RS_OV_JBU_FUSED", "0"):
         by_path["bf16 channel-first"] = _drive(
-            "bf16 channel-first, RS_OV_JBU_FUSED=0 (K1 K4a K7)", seg, images,
+            "bf16 channel-first, RS_OV_JBU_FUSED=0 (K1 K4a K7 K8)", seg, images,
             {"range_logits": 3 * s * CHUNKS, "adaptive_conv_tapmajor.bf16": 3 * s * CHUNKS, **ln})
     by_path["jbu_stack 4 stages"] = _drive(
-        "jbu_stack 4 stages bf16 channel-last (K1 K2 K3 at d=7, K7)", segs["jbu_stack"],
+        "jbu_stack 4 stages bf16 channel-last (K1 K2 K3 at d=7, K7 K8)", segs["jbu_stack"],
         images[:2], {"range_logits": 2 * 4 * CHUNKS, "jbu_epilogue": 2 * 3 * CHUNKS,
-                     "jbu_epilogue_classify": 2 * CHUNKS,
-                     "layer_norm": 2 * LN_PER_PASS["ViT-B-16"]})
+                     "jbu_epilogue_classify": 2 * CHUNKS, **_per_pass(2, "ViT-B-16")})
     k6 = {**channel_last, "fused_selfself_attention": 3}
     ctd = {"range_logits": 3 * s * CTD_CHUNKS, "jbu_epilogue": 3 * (s - 1) * CTD_CHUNKS,
-           "jbu_epilogue_classify": 3 * CTD_CHUNKS, "fused_selfself_attention": 3, **ln}
+           "jbu_epilogue_classify": 3 * CTD_CHUNKS, "fused_selfself_attention": 3,
+           **_per_pass(3, "SOM")}
     with _env("RS_OV_FUSED_ATTN", "1"):
         by_path["(a) fused attention"] = _drive(
             "(a) base config, RS_OV_FUSED_ATTN=1 (K6 K1 K2 K3)", seg, images, k6)
@@ -1516,11 +1624,11 @@ def phase_slice(rows):
         by_path["(c) ClearCLIP"] = _drive(
             "(c) ClearCLIP + layer fusion + outlier suppression, RS_OV_FUSED_ATTN=1 "
             "(K6 K1 K2 K3)", segs["clearclip"], images,
-            {**k6, "layer_norm": 3 * LN_PER_PASS["ClearCLIP"]})
+            {**k6, **_per_pass(3, "ClearCLIP")})
         by_path["fp32 fused attention"] = _drive(
             "fp32 channel-first, RS_OV_FUSED_ATTN=1 (fp32 K6, K1, K4b)", segs["base fp32"],
             images, {"fused_selfself_attention": 3, "range_logits": 3 * s * CHUNKS,
-                     "adaptive_conv_tapmajor.f32": 3 * s * CHUNKS, **ln})
+                     "adaptive_conv_tapmajor.f32": 3 * s * CHUNKS, **ln32})
     fused = {"jbu_epilogue_fused": 3 * (s - 1) * CHUNKS, "jbu_epilogue_fused_classify": 3 * CHUNKS,
              **ln}
     with _env("RS_OV_JBU_FUSED_RANGE", "1"):
@@ -1530,7 +1638,7 @@ def phase_slice(rows):
             "jbu_stack 4 stages, RS_OV_JBU_FUSED_RANGE=1 (K5a K5b at d=7)", segs["jbu_stack"],
             images[:2], {"jbu_epilogue_fused": 2 * 3 * CHUNKS,
                          "jbu_epilogue_fused_classify": 2 * CHUNKS,
-                         "layer_norm": 2 * LN_PER_PASS["ViT-B-16"]})
+                         **_per_pass(2, "ViT-B-16")})
         by_path["batch, fused range"] = _drive_batch(
             "predict_batch_raw of 3 images, RS_OV_JBU_FUSED_RANGE=1 (K5a K5b)", seg, images,
             {k: v // 3 for k, v in fused.items()})
@@ -1548,7 +1656,7 @@ def phase_slice(rows):
            "jbu_epilogue_fused_classify": "(d) fused range",
            "adaptive_conv_planes": "entry points", "adaptive_conv_cl": "entry points",
            "adaptive_conv_v3": "entry points", "adaptive_conv_v4": "entry points",
-           "layer_norm": "bf16 channel-last"}
+           "layer_norm": "bf16 channel-last", "linear_epilogue": "bf16 channel-last"}
     for k in KERNELS:
         rows[k]["launches"] = by_path[own[k]][k]
         rows[k]["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
@@ -1872,13 +1980,12 @@ def phase_eval(rows):
             calls = n // batch
             want = {"range_logits": calls * s * CHUNKS,
                     "jbu_epilogue": calls * (s - 1) * CHUNKS,
-                    "jbu_epilogue_classify": calls * CHUNKS,
-                    "layer_norm": calls * LN_PER_PASS["ViT-B-16"]}
+                    "jbu_epilogue_classify": calls * CHUNKS, **_per_pass(calls, "ViT-B-16")}
             work = os.path.join(tmp, f"batch{batch}")
             before = launch_counts()
             results[batch] = run_eval(EVAL_CFG, work_dir=work, segmentor=seg,
                                       batch_images=batch, verbose=False)
-            launches = _expect_launches(f"eval: run_eval batch_images={batch} (K1 K2 K3 K7)",
+            launches = _expect_launches(f"eval: run_eval batch_images={batch} (K1-K3 K7 K8)",
                                         n, want, before)
             for k in KERNELS:
                 rows[k]["launches_by_path"][f"eval batch {batch}"] = launches[k]
@@ -2072,14 +2179,14 @@ def _fused_entry(models, images, rows):
     launched once, against the plain route."""
     for dtype, model in models:
         plain = model.encode_image(images, model_type="Experimental", output_cls_token=True)
-        with _env("RS_OV_FUSED_ATTN", "1"), _layer_norms_on_the_card() as lns:
+        with _env("RS_OV_FUSED_ATTN", "1"), _tower_kernels_on_the_card() as lns:
             before = launch_counts()
             fused = model.encode_image(images, model_type="Experimental",
                                        output_cls_token=True)
             torch.cuda.synchronize()
             label = f"entry: ViT-B-16 encode_image Experimental {dtype}, RS_OV_FUSED_ATTN=1 (K6)"
             launches = _expect_launches(label, images.shape[0], {"fused_selfself_attention": 1,
-                                                                 "layer_norm": lns[0]}, before)
+                                                                 **lns}, before)
         rows["fused_selfself_attention"]["launches_by_path"][f"entry {dtype}"] = \
             launches["fused_selfself_attention"]
         errs = [_rel(f, p) for f, p in zip(fused, plain)]
@@ -2124,8 +2231,9 @@ def _hub_entry(model, images):
 def _alternates_entry(images):
     """SegmentorEx with each alternate upsampler (base config otherwise, bf16
     on the card): a warm-up and a timed 512² request each beside the
-    default route, no kernel but K7 launched (once for each LayerNorm: the
-    tower's and sapa's); then carafe's phase-5 pair."""
+    default route, no kernel but K7 and K8 launched (once for each LayerNorm
+    and each linear: the tower's and the upsampler's); then carafe's phase-5
+    pair."""
     from rs_ov_torch.pipeline.segmentor import SegmentorEx
 
     base = SegmentorEx(**_base_model_cfg(), device=DEV)
@@ -2139,15 +2247,14 @@ def _alternates_entry(images):
         torch.cuda.synchronize()
         before = launch_counts()
         t0 = time.perf_counter()
-        with _layer_norms_on_the_card() as lns:
+        with _tower_kernels_on_the_card() as lns:
             res = seg.predict_raw(images[1])
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         _check_results(name, seg, res)
         if name in ALTERNATES:  # the tower's norms and sapa's own
-            assert lns[0] >= LN_PER_PASS["ViT-B-16"], (name, lns[0])
-            _expect_launches(f"entry: SegmentorEx with {name} (K7 alone)", 1,
-                             {"layer_norm": lns[0]}, before)
+            assert all(lns[k] >= n for k, n in _per_pass(1, "ViT-B-16").items()), (name, lns)
+            _expect_launches(f"entry: SegmentorEx with {name} (K7 K8 alone)", 1, lns, before)
         rates[name] = 16 / secs
         print(f"[entry] SegmentorEx {name}, bf16: {secs:.4f} s for a 512² request, "
               f"{rates[name]:.2f} crops/s (224²) on {CARD['smi']}")
@@ -2289,7 +2396,7 @@ def _encode_pooled(model, images, ids):
 
 def _timm_tower(name, rng):
     """One timm tower through create_model at full width: card fp32 against
-    CPU fp32 with no kernel but K7 launched, its planted fault above the bound,
+    CPU fp32 with no kernel but K7 and K8 launched, its planted fault above the bound,
     card bf16 against card fp32, images/s at batch ENTRY_TIMED_BATCH."""
     from rs_ov_torch.core.config import get_model_config
     from rs_ov_torch.factory import create_model
@@ -2304,11 +2411,11 @@ def _timm_tower(name, rng):
     images = torch.from_numpy(rng.randn(TIMM_CPU_BATCH, 3, size, size).astype(np.float32))
     ids = _text_ids(cfg, rng)
     before = launch_counts()
-    with _layer_norms_on_the_card() as lns:
+    with _tower_kernels_on_the_card() as lns:
         card = _encode_pooled(m32, images, ids)
         torch.cuda.synchronize()
-    _expect_launches(f"timm: {name} encode_image / encode_text fp32 (K7 alone)", TIMM_CPU_BATCH,
-                     {"layer_norm": lns[0]}, before)
+    _expect_launches(f"timm: {name} encode_image / encode_text fp32 (K7 K8 alone)",
+                     TIMM_CPU_BATCH, lns, before)
     t0 = time.perf_counter()
     ref = _encode_pooled(cpu, images, ids)
     cpu_s = time.perf_counter() - t0
@@ -2823,11 +2930,11 @@ def _blip_caption(rng, tok):
             blip_lm.generate_captions(model, images[:1], cfg, tok, **kw, **extra)  # warm-up
             before = launch_counts()
             with _StepClock(blip_lm, "make_cached_decoder") as clock, \
-                    _layer_norms_on_the_card() as lns:
+                    _tower_kernels_on_the_card() as lns:
                 caps = blip_lm.generate_captions(model, images, cfg, tok,
                                                  rng=np.random.RandomState(6), **kw, **extra)
-            _expect_launches(f"generate: BLIP {mode} {prec} (K7 alone)", GEN_IMAGES,
-                             {"layer_norm": lns[0]}, before)
+            _expect_launches(f"generate: BLIP {mode} {prec} (K7 K8 alone)", GEN_IMAGES, lns,
+                             before)
             assert len(caps) == GEN_IMAGES and all(isinstance(c, str) for c in caps)
             _rate_line(f"BLIP {mode} {prec}, {GEN_IMAGES} images", GEN_IMAGES, "captions",
                        clock)
@@ -3029,10 +3136,10 @@ def _coca(rng):
         model.generate(images[:1], **kw)
         before = launch_counts()
         with _StepClock(coca, "make_coca_cached_decoder") as clock, \
-                _layer_norms_on_the_card() as lns:
+                _tower_kernels_on_the_card() as lns:
             out = model.generate(images, **kw)
-        _expect_launches(f"generate: {GEN_COCA} beam {prec} (K7 alone)", GEN_IMAGES,
-                         {"layer_norm": lns[0]}, before)
+        _expect_launches(f"generate: {GEN_COCA} beam {prec} (K7 K8 alone)", GEN_IMAGES, lns,
+                         before)
         assert out.shape[0] == GEN_IMAGES and out.dtype == np.int32
         _rate_line(f"{GEN_COCA} beam 6 {prec}, {GEN_IMAGES} images", GEN_IMAGES, "captions",
                    clock)
@@ -3622,11 +3729,12 @@ def _train_rates():
 
 def phase_train():
     """Training at full width on drawn weights: gates (a)-(f) with their
-    planted faults, then the rates. No kernel but K7 is launched, once for
-    each LayerNorm on the card."""
+    planted faults, then the rates. No kernel but K7 and K8 is launched: K7
+    once for each LayerNorm on the card, K8 once for each linear on the card,
+    with a gradient or without."""
     t0 = time.perf_counter()
     before = launch_counts()
-    with _layer_norms_on_the_card() as lns:
+    with _tower_kernels_on_the_card() as lns:
         _clip_gates()
         _other_clip_steps()
         _blip_step_checks("BLIP retrieval step", pretrain=False)
@@ -3635,10 +3743,12 @@ def phase_train():
         _blip_card_vs_cpu()
         _blip_lm_steps()
         _train_rates()
-    want = {**before, "layer_norm": before["layer_norm"] + lns[0]}
+    want = {**before, **{k: before[k] + n for k, n in lns.items()}}
     print(f"[train] K7 launched {launch_counts()['layer_norm'] - before['layer_norm']} "
-          f"times, once for each of the {lns[0]} LayerNorms on the card")
-    assert launch_counts() == want, "a kernel other than K7 launched in the training phase"
+          f"times, once for each of the {lns['layer_norm']} LayerNorms on the card; K8 "
+          f"{launch_counts()['linear_epilogue'] - before['linear_epilogue']} times, once for "
+          f"each of the {lns['linear_epilogue']} linears on the card")
+    assert launch_counts() == want, "a kernel other than K7 and K8 launched in training"
     print(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
@@ -3735,7 +3845,7 @@ def _serve_route(label, seg, images, want, tmp, rows):
 
 def _served_in_a_fresh_process(path, image, live, tmp):
     """load_predict in a new interpreter: its output against the live one,
-    K1 / K2 / K3 / K7 launched as in this process, no segmentor module loaded."""
+    K1 / K2 / K3 / K7 / K8 launched as in this process, no segmentor module loaded."""
     img_path, out = os.path.join(tmp, "image.npy"), os.path.join(tmp, "child.npz")
     np.save(img_path, image)
     t0 = time.perf_counter()
@@ -3745,12 +3855,12 @@ def _served_in_a_fresh_process(path, image, live, tmp):
     info = json.loads(run.stdout.strip().splitlines()[-1])
     with np.load(out) as f:
         probs, pred = torch.from_numpy(f["probs"]), torch.from_numpy(f["pred"])
-    print(f"[serve] fresh process: {time.perf_counter() - t0:.2f} s, launches K1 K2 K3 K7 "
+    print(f"[serve] fresh process: {time.perf_counter() - t0:.2f} s, launches K1 K2 K3 K7 K8 "
           f"{info['launches']}, modules of the segmentor / jax / rs_ov loaded: "
           f"{info['modules']}")
     assert info["modules"] == [] and info["launches"] == {
         **dict.fromkeys(KERNELS, 0), "range_logits": 2 * CHUNKS, "jbu_epilogue": CHUNKS,
-        "jbu_epilogue_classify": CHUNKS, "layer_norm": LN_PER_PASS["ViT-B-16"]}, info
+        "jbu_epilogue_classify": CHUNKS, **_per_pass(1, "ViT-B-16")}, info
     assert _serve_gate("fresh process", probs, pred, {k: v.cpu() for k, v in live.items()})
 
 
@@ -3852,14 +3962,14 @@ def phase_serve(rows):
     images = [rng.randint(0, 256, (512, 512, 3), np.uint8) for _ in range(3)]
     s = seg.jbu_stages
     with tempfile.TemporaryDirectory() as tmp:
-        ln = {"layer_norm": LN_PER_PASS["ViT-B-16"]}
-        served, path = _serve_route("bf16 channel-last (K1 K2 K3 K7)", seg, images[:2], {
+        served, path = _serve_route("bf16 channel-last (K1 K2 K3 K7 K8)", seg, images[:2], {
             "range_logits": s * CHUNKS, "jbu_epilogue": (s - 1) * CHUNKS,
-            "jbu_epilogue_classify": CHUNKS, **ln}, tmp, rows)
+            "jbu_epilogue_classify": CHUNKS, **_per_pass(1, "ViT-B-16")}, tmp, rows)
         live = seg.predict_raw(images[0][None])[0]
         _served_in_a_fresh_process(path, images[0], live, tmp)
-        _serve_route("fp32 channel-first (K1 K4b K7)", seg32, images[:1], {
-            "range_logits": s * CHUNKS, "adaptive_conv_tapmajor.f32": s * CHUNKS, **ln}, tmp, rows)
+        _serve_route("fp32 channel-first (K1 K4b K7 K8)", seg32, images[:1], {
+            "range_logits": s * CHUNKS, "adaptive_conv_tapmajor.f32": s * CHUNKS,
+            **_per_pass(1, "ViT-B-16", fp32=True)}, tmp, rows)
         del seg32
         torch.cuda.empty_cache()
         with _one_weight_changed(seg):

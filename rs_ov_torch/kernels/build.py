@@ -88,6 +88,7 @@ _SIGNATURES = {
     "rs_selfself_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "rs_selfself_attention_f32_smem": [_I, _I, _I],
     "rs_layer_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "rs_linear_epilogue": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -177,7 +178,7 @@ _LAUNCHES = dict.fromkeys((
     "range_logits", "jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_fused",
     "jbu_epilogue_fused_classify", "adaptive_conv_planes", "adaptive_conv_cl", "adaptive_conv_v3",
     "adaptive_conv_v4", "fused_selfself_attention", "layer_norm", "adaptive_conv_tapmajor.bf16",
-    "adaptive_conv_tapmajor.f32"), 0)
+    "adaptive_conv_tapmajor.f32", "linear_epilogue"), 0)
 KERNELS = {}  # every declared Kernel, by its operator's name
 
 

@@ -157,7 +157,7 @@ def _mha(q_in, kv_in, names, layer, heads: int, scale: float, mask, eps: float):
 
 
 def _ffn(layer, x, eps: float):
-    inter = gelu(linear(x, layer.inter_w, layer.inter_b))
+    inter = linear(x, layer.inter_w, layer.inter_b, act=gelu)
     return layer_norm(x + linear(inter, layer.out_w, layer.out_b), layer.out_ln, eps=eps)
 
 

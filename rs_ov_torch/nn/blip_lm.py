@@ -287,7 +287,7 @@ def blip_nlvr_params_from_state_dict(sd) -> BlipNLVR:
 
 def lm_logits(head: LMHead, hidden: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """[B, L, H] -> vocabulary logits [B, L, V] in the hidden's dtype."""
-    x = layer_norm(gelu(linear(hidden, head.t_w, head.t_b)), head.t_ln, eps=eps)
+    x = layer_norm(linear(hidden, head.t_w, head.t_b, act=gelu), head.t_ln, eps=eps)
     return linear(x, head.dec_w, head.dec_b)
 
 

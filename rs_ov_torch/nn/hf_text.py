@@ -145,7 +145,7 @@ def _project(pooled: torch.Tensor, p, cfg: HFTextConfig) -> torch.Tensor:
         return pooled
     if cfg.proj_type == "linear":
         return linear(pooled, p.proj.w)
-    return linear(gelu(linear(pooled, p.proj.w0)), p.proj.w1)
+    return linear(linear(pooled, p.proj.w0, act=gelu), p.proj.w1)
 
 
 def hf_text_encode(p: nn.Module, input_ids, cfg: HFTextConfig, output_tokens: bool = False):

@@ -3,15 +3,17 @@
 Precision policy as in the JAX package: LayerNorm computes in fp32 and casts
 back (on the card in one kernel, K7); a linear layer multiplies its (possibly
 bf16) operands with fp32 sums (``matmul32``), adds the bias in fp32 and
-returns the input's dtype.
+returns the input's dtype (on the card the bias add, the rounding and the
+MLP's activation in one kernel, K8).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from rs_ov_torch.kernels.layer_norm import layer_norm as _layer_norm
+from rs_ov_torch.kernels.linear_epilogue import ACTIVATIONS, gelu, quick_gelu
+from rs_ov_torch.kernels.linear_epilogue import linear_epilogue as _linear_epilogue
 
 __all__ = ["layer_norm", "linear", "matmul32", "gelu", "quick_gelu", "mlp"]
 
@@ -95,25 +97,26 @@ def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
     return _layer_norm(x, p.scale, p.bias, eps)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """x @ w.T + b with torch-style (out, in) weights: fp32 sums, the bias
-    added in fp32, one cast to x's dtype (rs_ov/nn/layers.py:28-36)."""
+# the activations K8 applies, by the function: its name for the kernel
+_EPILOGUE_ACTS = {fn: name for name, fn in ACTIVATIONS.items()}
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           act=None) -> torch.Tensor:
+    """act(x @ w.T + b) with torch-style (out, in) weights: fp32 sums, the bias
+    added in fp32, one cast to x's dtype (rs_ov/nn/layers.py:28-36), then
+    ``act`` on the cast values. The bias add, the cast and ``quick_gelu`` or
+    ``gelu`` are one call of ``linear_epilogue`` (K8 on the card, with the
+    plain chain's gradient where an operand needs one); another ``act`` is
+    applied after."""
+    if act not in _EPILOGUE_ACTS:
+        return act(linear(x, w, b))
     y = matmul32(x, w.t())
-    if b is not None:
-        y = y + b.float()
-    return y.to(x.dtype)
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU."""
-    return F.gelu(x)
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(1.702 x), the OpenAI CLIP activation."""
-    return x * torch.sigmoid(1.702 * x)
+    if b is None and act is None and y.dtype == x.dtype:
+        return y  # nothing to add, round or apply
+    return _linear_epilogue(y, b, _EPILOGUE_ACTS[act], x.dtype)
 
 
 def mlp(x: torch.Tensor, p, act=gelu) -> torch.Tensor:
     """c_fc -> act -> c_proj."""
-    return linear(act(linear(x, p.c_fc_w, p.c_fc_b)), p.c_proj_w, p.c_proj_b)
+    return linear(linear(x, p.c_fc_w, p.c_fc_b, act=act), p.c_proj_w, p.c_proj_b)

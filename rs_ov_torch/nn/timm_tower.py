@@ -170,7 +170,7 @@ def _convnext_block(x: torch.Tensor, p, eps: float) -> torch.Tensor:
     """dwconv 7x7 (zero pad 3) -> LN -> fc1 -> GELU -> fc2 -> gamma -> residual."""
     y = _conv_nhwc(x, p.conv_dw_w, p.conv_dw_b, padding=3, groups=x.shape[-1])
     y = layer_norm(y, p.norm, eps)
-    y = linear(gelu(linear(y, p.fc1_w, p.fc1_b)), p.fc2_w, p.fc2_b)
+    y = linear(linear(y, p.fc1_w, p.fc1_b, act=gelu), p.fc2_w, p.fc2_b)
     return x + y * p.gamma.to(y.dtype)
 
 
@@ -318,7 +318,7 @@ def _eva_mlp(p, x: torch.Tensor, arch: EvaArch, eps: float) -> torch.Tensor:
     if arch.swiglu:
         h = F.silu(linear(x, p.fc1g_w, p.fc1g_b)) * linear(x, p.fc1x_w, p.fc1x_b)
     else:
-        h = gelu(linear(x, p.fc1_w, p.fc1_b))
+        h = linear(x, p.fc1_w, p.fc1_b, act=gelu)
     if arch.scale_mlp:
         h = layer_norm(h, p.mlp_norm, eps)
     return linear(h, p.fc2_w, p.fc2_b)

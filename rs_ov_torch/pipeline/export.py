@@ -137,6 +137,7 @@ def load_predict(path: str, device=None):
                            "(torch.cuda.is_available() is false)")
     # the kernels' operators must be registered before the program loads
     from rs_ov_torch.kernels import adaptive_conv, jbu_epilogue, layer_norm  # noqa: F401
+    from rs_ov_torch.kernels import linear_epilogue  # noqa: F401
     from rs_ov_torch.kernels import range_logits, selfself_attention  # noqa: F401
 
     program = torch.export.load(io.BytesIO(blob))

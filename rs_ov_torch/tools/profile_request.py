@@ -66,6 +66,8 @@ GROUPS = (
     ("K6 fused_selfself_attention", ("selfself_attention",)),
     ("K4a adaptive_conv (bf16)", ("adaptive_conv_kernel<__nv_bfloat16",)),
     ("K4b adaptive_conv (fp32)", ("adaptive_conv_kernel<float",)),
+    ("K7 layer_norm", ("layer_norm_warp", "layer_norm_block")),
+    ("K8 linear_epilogue", ("linear_epilogue_kernel",)),
     ("GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_", "sm80_")),
     ("softmax", ("softmax", "Softmax", "SoftMax")),
     ("reductions", ("reduce", "Reduce")),

@@ -24,15 +24,17 @@ from rs_ov_torch.kernels import adaptive_conv as ac
 from rs_ov_torch.kernels import build
 from rs_ov_torch.kernels import jbu_epilogue as epi
 from rs_ov_torch.kernels import layer_norm as ln
+from rs_ov_torch.kernels import linear_epilogue as le
 from rs_ov_torch.kernels import range_logits as rl
 from rs_ov_torch.kernels import selfself_attention as sa
 
 torch.set_num_threads(1)
 
 D, H, W, C, G, CMID, Q, K = 3, 6, 7, 8, 3, 5, 3, 4
-MODULES = (rl, epi, ac, sa, ln)
+MODULES = (rl, epi, ac, sa, ln, le)
 # the kernels whose bf16 and fp32 operands take two library entries: a case each
-BY_DTYPE = ("adaptive_conv_tapmajor", "fused_selfself_attention", "layer_norm")
+BY_DTYPE = ("adaptive_conv_tapmajor", "fused_selfself_attention", "layer_norm",
+            "linear_epilogue")
 # every declared kernel, as "<operator>" or "<operator>[<dtype>]"
 OPS = [name + case for name in sorted(build.KERNELS)
        for case in (("[bf16]", "[fp32]") if name in BY_DTYPE else ("",))]
@@ -40,7 +42,8 @@ OPS = [name + case for name in sorted(build.KERNELS)
 LAUNCH_NAMES = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "jbu_epilogue_fused",
                 "jbu_epilogue_fused_classify", "adaptive_conv_tapmajor.bf16",
                 "adaptive_conv_tapmajor.f32", "adaptive_conv_planes", "adaptive_conv_cl",
-                "adaptive_conv_v3", "adaptive_conv_v4", "fused_selfself_attention", "layer_norm")
+                "adaptive_conv_v3", "adaptive_conv_v4", "fused_selfself_attention", "layer_norm",
+                "linear_epilogue")
 
 
 def _samples(name: str, device) -> tuple:
@@ -73,6 +76,8 @@ def _samples(name: str, device) -> tuple:
     dt = torch.float32 if name.endswith("[fp32]") else bf
     if name.startswith("layer_norm"):
         return t(2, 5, 24, dtype=dt), t(24, dtype=dt), t(24, dtype=dt, scale=0.1), 1e-5
+    if name.startswith("linear_epilogue"):
+        return t(2, 5, 24, scale=3.0), t(24, dtype=bf, scale=0.5), "quick_gelu", dt
     q, k, v = (t(2, 3, 17, 16, dtype=dt) for _ in range(3))
     return q, k, v, t(2, 17, 17, scale=0.1), "SCLIP", 0.7
 
@@ -214,7 +219,7 @@ def test_export_on_the_card_serves_the_kernels(cuda, tmp_path):
     path = str(tmp_path / "tiny.rsovt")
     assert export_predict(seg, (96, 128), path)["platforms"] == ["cuda"]
     fn = load_predict(path)
-    names = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify")
+    names = ("range_logits", "jbu_epilogue", "jbu_epilogue_classify", "linear_epilogue")
     before = [_launches(n) for n in names]
     live = seg.predict_raw(img[None])[0]
     mid = [_launches(n) for n in names]

@@ -40,11 +40,11 @@ CASES = {
                                      apply_similarity_enhancement=False)),
 }
 # the kernels' operators each route's graph must hold (the tower's LayerNorms
-# on every route)
-ROUTE_OPS = {None: {"rs_ov.layer_norm.default", "rs_ov.range_logits.default",
-                    "rs_ov.adaptive_conv_tapmajor.default"},
-             "nhwc_classify": {"rs_ov.layer_norm.default", "rs_ov.range_logits.default",
-                               "rs_ov.jbu_epilogue.default",
+# and linear epilogues on every route)
+ROUTE_OPS = {None: {"rs_ov.layer_norm.default", "rs_ov.linear_epilogue.default",
+                    "rs_ov.range_logits.default", "rs_ov.adaptive_conv_tapmajor.default"},
+             "nhwc_classify": {"rs_ov.layer_norm.default", "rs_ov.linear_epilogue.default",
+                               "rs_ov.range_logits.default", "rs_ov.jbu_epilogue.default",
                                "rs_ov.jbu_epilogue_classify.default"}}
 DEVICE_CACHES = (resize._matrix, resize._reflect_index, jbu._tap_sq_dist,
                  attention._gaussian_on, outlier._offsets)

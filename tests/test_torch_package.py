@@ -355,5 +355,8 @@ def test_profile_request_groups_the_kernels_by_name():
                           ("jbu_epilogue_kernel<false, true>", "K5a jbu_epilogue_fused"),
                           ("jbu_classify_kernel<true, false>", "K3 jbu_epilogue_classify"),
                           ("jbu_epilogue_kernel<false, false>", "K2 jbu_epilogue"),
-                          ("range_logits_kernel<11>", "K1 range_logits")]:
+                          ("range_logits_kernel<11>", "K1 range_logits"),
+                          ("layer_norm_warp<__nv_bfloat16, __nv_bfloat16, 3>", "K7 layer_norm"),
+                          ("linear_epilogue_kernel<__nv_bfloat16, 1, 1, 8>",
+                           "K8 linear_epilogue")]:
         assert _group(ns + kernel + args) == group, kernel
